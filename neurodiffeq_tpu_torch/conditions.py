@@ -1,0 +1,86 @@
+r"""Boundary-condition reparameterizations (counterpart of
+``neurodiffeq_tpu/conditions.py``).
+
+A condition transforms the *function*: ``enforce(net, *coords)`` composes
+the network and the reparameterizing formula into one
+:class:`~neurodiffeq_tpu_torch.fields.Field`, so every derivative of the
+constrained solution flows through the condition exactly.
+"""
+import warnings
+
+from .fields import network_field
+
+__all__ = ['BaseCondition', 'DirichletBVP2D']
+
+
+def _ann_field(net, coordinates, ith_unit=None):
+    """The raw network-output Field ``net(*coordinates)``; the network
+    consumes exactly the passed coordinate components, in order."""
+    for c in coordinates:
+        if c.index is None:
+            raise TypeError("enforce expects raw coordinate Fields")
+    return network_field(net, coordinates, ith_unit=ith_unit)
+
+
+class BaseCondition:
+    r"""Base class for conditions: a condition re-parameterizes the output(s)
+    of a network so that they satisfy initial/boundary conditions exactly.
+
+    - *(re-)parameterize* is said of network outputs;
+    - *enforce* is said of networks themselves.
+    """
+
+    def __init__(self):
+        self.ith_unit = None
+
+    def parameterize(self, output_tensor, *input_tensors):
+        r"""Re-parameterize output(s) of a network (all arguments are Fields)."""
+        raise ValueError(f"Abstract {self.__class__.__name__} cannot be parameterized")  # pragma: no cover
+
+    def enforce(self, net, *coordinates):
+        r"""Enforce this condition on a network.
+
+        :param net: The network module.
+        :param coordinates: Coordinate Fields, inputs of the network.
+        :return: The re-parameterized output Field.
+        """
+        return self.parameterize(_ann_field(net, coordinates, ith_unit=self.ith_unit), *coordinates)
+
+    def set_impose_on(self, ith_unit):
+        r"""**[DEPRECATED]** Track which output unit of a shared multi-output
+        network is being parameterized."""
+        warnings.warn(f"`{self.__class__.__name__}.set_impose_on` is deprecated and will be "
+                      f"removed in the future", DeprecationWarning)
+        self.ith_unit = ith_unit
+
+
+class DirichletBVP2D(BaseCondition):
+    r"""A Dirichlet condition on all four sides of
+    :math:`[x_0, x_1] \times [y_0, y_1]`: an additive boundary interpolant
+    ``A(x, y)`` plus
+    :math:`\tilde x(1-\tilde x)\tilde y(1-\tilde y)\,\mathrm{ANN}(x,y)`.
+
+    :param x_min, x_max, y_min, y_max: domain bounds.
+    :param x_min_val, x_max_val: callables f0(y), f1(y) (written with the
+        Field-aware math of :mod:`neurodiffeq_tpu_torch.fields`).
+    :param y_min_val, y_max_val: callables g0(x), g1(x).
+    """
+
+    def __init__(self, x_min, x_min_val, x_max, x_max_val, y_min, y_min_val, y_max, y_max_val):
+        super().__init__()
+        self.x0, self.f0 = x_min, x_min_val
+        self.x1, self.f1 = x_max, x_max_val
+        self.y0, self.g0 = y_min, y_min_val
+        self.y1, self.g1 = y_max, y_max_val
+
+    def parameterize(self, output_tensor, x, y):
+        x_tilde = (x - self.x0) / (self.x1 - self.x0)
+        y_tilde = (y - self.y0) / (self.y1 - self.y0)
+        # constant-valued inputs for corner evaluations (`x * 0 + c` keeps
+        # the differentiable type)
+        x0 = x * 0 + self.x0
+        x1 = x * 0 + self.x1
+        Axy = ((1 - x_tilde) * self.f0(y) + x_tilde * self.f1(y)
+               + (1 - y_tilde) * (self.g0(x) - ((1 - x_tilde) * self.g0(x0) + x_tilde * self.g0(x1)))
+               + y_tilde * (self.g1(x) - ((1 - x_tilde) * self.g1(x0) + x_tilde * self.g1(x1))))
+        return Axy + x_tilde * (1 - x_tilde) * y_tilde * (1 - y_tilde) * output_tensor

@@ -1,0 +1,95 @@
+"""Global configuration: default dtype and device, seeding, random generators.
+
+Counterpart of ``neurodiffeq_tpu/utils.py``. The JAX package keeps a
+splittable global PRNG key; here a seeded ``torch.Generator`` per device
+takes its place (:func:`get_generator`). The port never changes torch's own
+global default dtype: its default lives in this module and every
+constructor and sampler also takes an explicit ``dtype`` and ``device``.
+"""
+import random
+
+import numpy as np
+import torch
+
+__all__ = ['set_tensor_type', 'set_seed', 'get_default_dtype', 'get_default_device',
+           'get_generator', 'resolve', 'full_precision_matmuls']
+
+_DEFAULT_DTYPE = torch.float32
+_DEFAULT_DEVICE = torch.device('cpu')
+_SEED = 0
+# device -> torch.Generator seeded from _SEED; emptied by set_seed
+_GENERATORS = {}
+
+
+def set_tensor_type(device_type=None, float_bits=32):
+    """Set the port's default floating dtype and (optionally) device.
+
+    :param device_type: 'cpu', 'cuda', or None to keep the current device.
+    :param float_bits: 32 or 64.
+    """
+    global _DEFAULT_DTYPE, _DEFAULT_DEVICE
+    if float_bits == 32:
+        _DEFAULT_DTYPE = torch.float32
+    elif float_bits == 64:
+        _DEFAULT_DTYPE = torch.float64
+    else:
+        raise ValueError(f"float_bits must be 32 or 64, got {float_bits}")
+    if device_type is not None:
+        if not isinstance(device_type, str):
+            raise TypeError(f"device_type must be a str, got {device_type}")
+        _DEFAULT_DEVICE = torch.device(device_type)
+
+
+def get_default_dtype():
+    """The port's default floating dtype for new points and networks."""
+    return _DEFAULT_DTYPE
+
+
+def get_default_device():
+    """The port's default device for new points and networks."""
+    return _DEFAULT_DEVICE
+
+
+def resolve(device=None, dtype=None):
+    """``(device, dtype)`` with the port's defaults filled in."""
+    device = torch.device(device) if device is not None else _DEFAULT_DEVICE
+    return device, (dtype if dtype is not None else _DEFAULT_DTYPE)
+
+
+def set_seed(seed_value, ignore_numpy=False, ignore_random=False, ignore_torch=False):
+    """Seed ``numpy``, ``random``, torch's global RNG (network init) and the
+    port's per-device generators (collocation sampling)."""
+    global _SEED
+    if not ignore_numpy:
+        np.random.seed(seed_value)
+    if not ignore_random:
+        random.seed(seed_value)
+    if not ignore_torch:
+        torch.manual_seed(seed_value)
+        _SEED = seed_value
+        _GENERATORS.clear()
+
+
+def get_generator(device=None):
+    """The global ``torch.Generator`` on ``device``, seeded by :func:`set_seed`.
+
+    Random draws for points on a device come from a generator on that same
+    device (a CUDA generator for CUDA points)."""
+    device, _ = resolve(device)
+    if device.type == 'cuda' and device.index is None:
+        device = torch.device('cuda', torch.cuda.current_device())
+    gen = _GENERATORS.get(device)
+    if gen is None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(_SEED)
+        _GENERATORS[device] = gen
+    return gen
+
+
+def full_precision_matmuls():
+    """Keep float32 matrix products and convolutions on the card in full
+    float32: TF32 keeps about three decimal digits, and the port's float32
+    path is held against float64 references. The port calls this wherever
+    it runs on a CUDA device."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
