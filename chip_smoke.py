@@ -1,35 +1,49 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
-Drives the port's main path, the flagship 2-D Laplace training run
-(Solver2D, FCNN 2-512-1 tanh, 32 x 32 grid), through the hand-written CUDA
-kernel, in seven phases, one line each:
+Drives the port's paths through its two hand-written CUDA kernels
+(``neurodiffeq_tpu_torch/csrc/taylor_mlp.cu``): ``taylor_mlp_1h`` for nets
+with one hidden layer, ``taylor_mlp`` for every other depth. Phases, one
+line each or more:
 
 1. device: a CUDA device must be present (no CPU fallback); prints
    ``nvidia-smi --query-gpu=name,power.limit``;
 2. build: compiles the kernel library from ``neurodiffeq_tpu_torch/csrc``;
-3. kernel against its plain twin on the card, float64 and float32, at the
-   flagship shape and at ragged, deeper, sin, multi-output and single-layer
-   shapes. Error = max |kernel - twin| / max |twin|; limits 1e-10 (float64)
-   and 1e-4 (float32: the kernel sums in another order than cuBLAS);
+3. each kernel against the plain twin on the card, float64 and float32, at
+   every shape of ``CHECK_SHAPES`` and ``TABLE_SHAPES``, and two launches
+   of each must be bitwise equal. Error = max |kernel - twin| / max |twin|;
+   limits 1e-10 (float64) and 1e-4 (float32: the kernel sums in another
+   order than cuBLAS);
 4. gradient through the kernel's autograd function against autograd over
    the twin, flagship shape, float64, limit 1e-10;
-5. flagship training, float32: ``fit(2000)`` with the launch count reset
-   just before; the kernel must carry it, no Taylor fallback may occur, the
-   loss must fall, and ``get_solution()`` must be within 1e-2 of the
-   analytic solution on a 101 x 101 grid; ``get_residuals`` must be finite;
-6. timing: steady-state training epochs/s and points/s, and the kernel's
-   time against the twin's at the flagship shape: per call over 200 calls
-   by CUDA events (which at this size include host dispatch), and device
-   time alone from ``torch.profiler``;
-7. the result line.
+5. the two paths, each with the launch counts reset just before and read
+   just after:
+   a. the main path, flagship training (Solver2D, FCNN 2-512-1 tanh,
+      32 x 32 grid), float32, ``fit(2000)``: ``taylor_mlp_1h`` must carry
+      it, no Taylor fallback may occur, the loss must fall, and
+      ``get_solution()`` must be within 1e-2 of the analytic solution on a
+      101 x 101 grid; ``get_residuals`` must be finite;
+   b. the same problem through ``Solver2D`` with every default (the
+      default device, the default FCNN 2-32-32-1, the default generators),
+      ``fit(300)``: ``taylor_mlp`` must carry it and the loss must fall;
+6. timing: device time per call of kernel and twin at every shape of
+   ``TABLE_SHAPES`` (``torch.profiler``) beside the kernel's bound, the
+   wrapper's host enqueue time per call, and train-only epochs/s with the
+   kernel and with the twin swapped in, interleaved;
+7. the result.
+
+``python3 chip_smoke.py --times-only`` runs phases 1, 2 and 6 alone, with
+nothing but ``fcnn_taylor`` and ``fcnn_taylor_reference`` of the kernel
+module, so that it also times an older tree of the port.
 
 Any failure ends the run with a non-zero exit code and no result line. The
-line before the last is the kernel record; the last is
-``{"ok": true, "device": {...}}``.
+card's name and power limit and the kernel record come before the last
+line, which is ``{"ok": true, "device": {...}}``.
 """
 import json
 import math
+import re
 import subprocess
+import sys
 import time
 from pathlib import Path
 
@@ -39,7 +53,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 KERNEL_SOURCE = 'neurodiffeq_tpu_torch/csrc/taylor_mlp.cu'
 REPLACES = 'neurodiffeq_tpu/ops/pallas_mlp.py:115'
-GRID, HIDDEN, EPOCHS = (32, 32), (512,), 2000
+GRID, HIDDEN, EPOCHS, DEFAULT_NET_EPOCHS = (32, 32), (512,), 2000, 300
+F32, F64 = torch.float32, torch.float64
 CHECK_SHAPES = [  # (layer widths, activation, order, N)
     ((2, 512, 1), 'tanh', 2, 1024),
     ((2, 64, 64, 1), 'tanh', 2, 1000),
@@ -48,11 +63,32 @@ CHECK_SHAPES = [  # (layer widths, activation, order, N)
     ((3, 16, 2), 'tanh', 2, 37),
     ((2, 1), 'tanh', 2, 37),
 ]
-TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
+TABLE_SHAPES = [  # (layer widths, activation, order, N, dtype timed in phase 6)
+    ((2, 512, 1), 'tanh', 2, 1024, F32),     # flagship train and validation batch
+    ((2, 512, 1), 'tanh', 2, 1024, F64),
+    ((2, 512, 1), 'tanh', 2, 10201, F32),    # get_residuals on 101 x 101
+    ((2, 512, 1), 'tanh', 2, 65536, F32),    # large enough to be bound by the arithmetic
+    ((8, 64, 1), 'tanh', 2, 1023, F32),      # d = 8: 17 streams; ragged N
+    ((2, 50, 3), 'sin', 1, 37, F32),         # width not a multiple of 32, n_out > 1
+    ((2, 50, 3), 'sin', 2, 1, F32),
+    ((2, 50, 3), 'sin', 2, 37, F32),
+    ((2, 32, 32, 1), 'tanh', 2, 1024, F32),  # Solver2D's default net, phase 5b
+    ((3, 64, 64, 1), 'tanh', 2, 512, F32),   # spherical Poisson width
+    ((2, 128, 128, 128, 128, 128, 3), 'tanh', 2, 16384, F32),  # cavity width
+]
+TOL = {F64: 1e-10, F32: 1e-4}
+# H100 SXM peaks outside the tensor cores (float32, float64) and HBM3's rate, NVIDIA's data sheet
+PEAK_FLOPS = {F32: 67e12, F64: 34e12}
+PEAK_BYTES = 3.35e12
 
 
 def phase(name, msg):
     print(f"[{name}] {msg}", flush=True)
+
+
+def shape_name(dims, actv, order, n, dtype=None):
+    dt = f"{str(dtype)[6:]} " if dtype is not None else ''
+    return f"{dt}{'-'.join(map(str, dims))} {actv} order {order} N={n}"
 
 
 def rel_err(got, want):
@@ -63,35 +99,75 @@ def rel_err(got, want):
 
 def random_layers(dims, seed):
     g = torch.Generator().manual_seed(seed)
-    return [((torch.rand(a, b, generator=g, dtype=torch.float64) * 2 - 1) / math.sqrt(a),
-             (torch.rand(b, generator=g, dtype=torch.float64) * 2 - 1) / math.sqrt(a))
+    return [((torch.rand(a, b, generator=g, dtype=F64) * 2 - 1) / math.sqrt(a),
+             (torch.rand(b, generator=g, dtype=F64) * 2 - 1) / math.sqrt(a))
             for a, b in zip(dims[:-1], dims[1:])]
 
 
-def on(layers, dtype):
-    return [(W.to('cuda', dtype), b.to('cuda', dtype)) for W, b in layers]
+def inputs(dims, n, dtype, seed):
+    """Points and layers on the card; each W is the (n_in, n_out) view of an
+    (n_out, n_in) tensor, as ``FCNN.layers()`` gives ``nn.Linear`` weights."""
+    g = torch.Generator().manual_seed(100 + seed)
+    pts = torch.rand(n, dims[0], generator=g, dtype=F64).to('cuda', dtype)
+    return pts, [(W.t().contiguous().to('cuda', dtype).t(), b.to('cuda', dtype))
+                 for W, b in random_layers(dims, seed)]
+
+
+def taylor_cost(dims, actv, order, n, esize):
+    """(floating-point operations, bytes) that one Taylor-mode forward must
+    do and move. Per point: a hidden unit of the first layer costs 2d for
+    z, one for the activation (two for sin: sin and cos), the chain rule
+    (4 for tanh: a^2, 1 - a^2, -2a, times f'; 1 for sin: -a), d for the
+    first-order tangents and 2d more at order 2; a middle layer costs
+    2 S h_in h_out for the S = 1 + order*d streams plus, per unit, the
+    activation and chain rule and d (order 1) or 5d (order 2) for the
+    tangent updates; the output layer 2 S h_in n_out. Bytes: the points,
+    the parameters and the S outputs, each once."""
+    d, n_out, s = dims[0], dims[-1], 1 + order * dims[0]
+    act = (1 + 4) if actv == 'tanh' else (2 + 1)
+    params = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+    nbytes = esize * (n * d + params + n * n_out * s)
+    if len(dims) == 2:
+        return n * 2 * d * n_out, nbytes
+    flops = dims[1] * (2 * d + act + d + (2 * d if order == 2 else 0))
+    for h_in, h_out in zip(dims[1:-2], dims[2:-1]):
+        flops += 2 * s * h_in * h_out + h_out * (act + (5 * d if order == 2 else d))
+    flops += 2 * s * dims[-2] * n_out
+    return n * flops, nbytes
+
+
+def bound_ms(dims, actv, order, n, dtype):
+    """(least milliseconds the card could take, 'operations' or 'bytes')."""
+    flops, nbytes = taylor_cost(dims, actv, order, n, torch.finfo(dtype).bits // 8)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
 
 
 def flagship_solver(**kwargs):
-    from neurodiffeq_tpu_torch import fields as F, diff
-    from neurodiffeq_tpu_torch.conditions import DirichletBVP2D
     from neurodiffeq_tpu_torch.generators import Generator2D
     from neurodiffeq_tpu_torch.networks import FCNN
+
+    dev, dt = torch.device('cuda'), F32
+    return laplace_solver(
+        nets=[FCNN(n_input_units=2, n_output_units=1, hidden_units=HIDDEN, device=dev, dtype=dt)],
+        train_generator=Generator2D(GRID, (0, 0), (1, 1), method='equally-spaced-noisy', device=dev, dtype=dt),
+        valid_generator=Generator2D(GRID, (0, 0), (1, 1), method='equally-spaced', device=dev, dtype=dt),
+        device=dev, dtype=dt, **kwargs)
+
+
+def laplace_solver(**kwargs):
+    """The flagship's 2-D Laplace Dirichlet problem; ``kwargs`` go to ``Solver2D``."""
+    from neurodiffeq_tpu_torch import fields as F, diff
+    from neurodiffeq_tpu_torch.conditions import DirichletBVP2D
     from neurodiffeq_tpu_torch.solvers import Solver2D
 
-    dev, dt = torch.device('cuda'), torch.float32
     cond = DirichletBVP2D(
         x_min=0.0, x_min_val=lambda y: 0 * y,
         x_max=1.0, x_max_val=lambda y: 0 * y,
         y_min=0.0, y_min_val=lambda x: F.sin(np.pi * x),
         y_max=1.0, y_max_val=lambda x: 0 * x)
-    return Solver2D(
-        pde_system=lambda u, x, y: [diff(u, x, 2) + diff(u, y, 2)],
-        conditions=[cond], xy_min=(0.0, 0.0), xy_max=(1.0, 1.0),
-        nets=[FCNN(n_input_units=2, n_output_units=1, hidden_units=HIDDEN, device=dev, dtype=dt)],
-        train_generator=Generator2D(GRID, (0, 0), (1, 1), method='equally-spaced-noisy', device=dev, dtype=dt),
-        valid_generator=Generator2D(GRID, (0, 0), (1, 1), method='equally-spaced', device=dev, dtype=dt),
-        device=dev, dtype=dt, **kwargs)
+    return Solver2D(pde_system=lambda u, x, y: [diff(u, x, 2) + diff(u, y, 2)],
+                    conditions=[cond], xy_min=(0.0, 0.0), xy_max=(1.0, 1.0), **kwargs)
 
 
 def cuda_time_ms(fn, calls=200, warmup=10):
@@ -108,6 +184,19 @@ def cuda_time_ms(fn, calls=200, warmup=10):
     return start.elapsed_time(end) / calls
 
 
+def enqueue_us(fn, calls=200, warmup=10):
+    """Host microseconds per call to enqueue ``calls`` calls, without a sync."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
 def device_us(fn, calls=100):
     """(device microseconds, device kernels) per call, summed over the CUDA
     kernel events of ``calls`` calls under ``torch.profiler``."""
@@ -122,7 +211,91 @@ def device_us(fn, calls=100):
     return sum(e.device_time for e in kernels) / calls, len(kernels) / calls
 
 
+def check_kernels(fcnn_taylor, fcnn_taylor_reference):
+    """Phase 3: {(dims, actv, order, n, dtype): max abs error} for every
+    shape, or SystemExit at the first disagreement."""
+    errors = {}
+    shapes = list(dict.fromkeys([s for s in CHECK_SHAPES] + [s[:4] for s in TABLE_SHAPES]))
+    with torch.no_grad():
+        for dtype in (F64, F32):
+            for i, (dims, actv, order, n) in enumerate(shapes):
+                pts, layers = inputs(dims, n, dtype, seed=i)
+                got = fcnn_taylor(pts, layers, order, actv)
+                again = fcnn_taylor(pts, layers, order, actv)
+                torch.cuda.synchronize()
+                want = fcnn_taylor_reference(pts, layers, order, actv)
+                torch.cuda.synchronize()
+                errs = [rel_err(a, b) for a, b in zip(got, want)]
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                ok = len(got) == order + 1 and all(a.shape == b.shape for a, b in zip(got, want))
+                ok = ok and same and all(e <= TOL[dtype] for e in errs)
+                phase('3 kernel', f"{shape_name(dims, actv, order, n, dtype)}: rel err "
+                                  f"{' '.join(f'{e:.2e}' for e in errs)} (limit {TOL[dtype]:.0e}), "
+                                  f"two launches {'bitwise equal' if same else 'DIFFER'} "
+                                  f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit("chip_smoke: kernel disagrees with its twin or with itself")
+                errors[(dims, actv, order, n, dtype)] = max(
+                    (a - b).abs().max().item() for a, b in zip(got, want))
+    return errors
+
+
+def time_shapes(card, fcnn_taylor, fcnn_taylor_reference):
+    """Phase 6: {(dims, actv, order, n, dtype): (kernel us, twin us, bound ms, bound_by)}."""
+    out = {}
+    with torch.no_grad():
+        for i, (dims, actv, order, n, dtype) in enumerate(TABLE_SHAPES):
+            pts, layers = inputs(dims, n, dtype, seed=50 + i)
+            k_us, k_launches = device_us(lambda: fcnn_taylor(pts, layers, order, actv))
+            t_us, t_launches = device_us(lambda: fcnn_taylor_reference(pts, layers, order, actv))
+            b_ms, b_by = bound_ms(dims, actv, order, n, dtype)
+            out[(dims, actv, order, n, dtype)] = (k_us, t_us, b_ms, b_by)
+            phase('6 timing', f"{card}: {shape_name(dims, actv, order, n, dtype)}: device time per "
+                              f"call (profiler) kernel {k_us:.2f} us in {k_launches:.0f} launches, "
+                              f"twin {t_us:.2f} us in {t_launches:.0f} launches; bound "
+                              f"{b_ms * 1e3:.3f} us ({b_by}), kernel at {b_ms * 1e3 / k_us:.1%} "
+                              f"of the bound")
+    return out
+
+
+def time_end_to_end(card, taylor_mlp):
+    """Phase 6: host enqueue per flagship forward, and train-only epochs/s
+    with the kernel and with the twin swapped in, interleaved."""
+    fcnn_taylor, twin = taylor_mlp.fcnn_taylor, taylor_mlp.fcnn_taylor_reference
+    n = GRID[0] * GRID[1]
+    bench = flagship_solver(n_batches_valid=0)  # train-only epochs, as bench.py counts them
+    bench.fit(100)
+    with torch.no_grad():
+        pts = torch.rand(n, 2, device='cuda')
+        ls = [(W.detach(), b.detach()) for W, b in bench.nets[0].layers()]
+        enq = [enqueue_us(lambda: fcnn_taylor(pts, ls, 2)), enqueue_us(lambda: twin(pts, ls, 2)),
+               enqueue_us(lambda: twin(pts, ls, 2)), enqueue_us(lambda: fcnn_taylor(pts, ls, 2))]
+        ev = [cuda_time_ms(lambda: fcnn_taylor(pts, ls, 2)), cuda_time_ms(lambda: twin(pts, ls, 2))]
+    phase('6 timing', f"{card}: host enqueue per forward call, 2-512-1 tanh order 2 N={n} float32: "
+                      f"kernel wrapper {(enq[0] + enq[3]) / 2:.1f} us ({enq[0]:.1f}, {enq[3]:.1f}), "
+                      f"twin {(enq[1] + enq[2]) / 2:.1f} us ({enq[1]:.1f}, {enq[2]:.1f}) over 200 calls; "
+                      f"CUDA events over 200 back-to-back calls: kernel {ev[0]:.4f} ms, twin {ev[1]:.4f} ms")
+    rates = {'kernel': [], 'twin': []}
+    for arm in ('kernel', 'twin', 'twin', 'kernel', 'kernel', 'twin'):
+        taylor_mlp.fcnn_taylor = fcnn_taylor if arm == 'kernel' else (
+            lambda p, layers, order, actv='tanh': twin(p, layers, order, actv))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bench.fit(300)
+        torch.cuda.synchronize()
+        rates[arm].append(300 / (time.perf_counter() - t0))
+    taylor_mlp.fcnn_taylor = fcnn_taylor
+    med = {k: float(np.median(v)) for k, v in rates.items()}
+    phase('6 timing', f"{card}: flagship train-only epochs/s in interleaved 300-epoch windows: "
+                      f"kernel {' '.join(f'{r:.2f}' for r in rates['kernel'])} (median {med['kernel']:.2f} "
+                      f"= {med['kernel'] * n:.0f} points/s), twin swapped in "
+                      f"{' '.join(f'{r:.2f}' for r in rates['twin'])} (median {med['twin']:.2f})")
+
+
 def main():
+    times_only = sys.argv[1:] == ['--times-only']
+    if sys.argv[1:] and not times_only:
+        raise SystemExit(f"usage: python3 chip_smoke.py [--times-only]; got {sys.argv[1:]}")
     # ---- 1. device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's smoke run needs the GPU")
@@ -132,7 +305,7 @@ def main():
                          f"{neurodiffeq_tpu_torch.__file__}, not from this checkout")
     from neurodiffeq_tpu_torch import fields as F
     from neurodiffeq_tpu_torch.ops import _build, taylor_mlp
-    from neurodiffeq_tpu_torch.ops.taylor_mlp import _TaylorMLPFn, fcnn_taylor, fcnn_taylor_reference
+    from neurodiffeq_tpu_torch.ops.taylor_mlp import fcnn_taylor, fcnn_taylor_reference
     from neurodiffeq_tpu_torch.utils import full_precision_matmuls, set_seed
 
     full_precision_matmuls()
@@ -145,39 +318,29 @@ def main():
     # ---- 2. build
     t0 = time.perf_counter()
     _build.load_library()
-    ptxas = [ln.strip() for ln in _build.BUILD_INFO['log'].splitlines() if 'registers' in ln or 'spill' in ln]
+    log = _build.BUILD_INFO['log']
+    regs = [int(r) for r in re.findall(r'Used (\d+) registers', log)]
+    spills = [int(b) for b in re.findall(r'(\d+) bytes spill stores', log)]
     phase('2 build', f"{_build.BUILD_INFO['path']} in {time.perf_counter() - t0:.1f} s "
-                     f"(nvcc {_build.BUILD_INFO['seconds']:.1f} s); ptxas: {' | '.join(ptxas)}")
+                     f"(nvcc {_build.BUILD_INFO['seconds']:.1f} s); ptxas: {len(regs)} kernel instances, "
+                     f"registers per thread {min(regs, default=0)}-{max(regs, default=0)}, "
+                     f"{sum(b > 0 for b in spills)} with spill stores (at most {max(spills, default=0)} "
+                     f"bytes)")
 
-    # ---- 3. kernel against twin
-    flagship_err = None
-    with torch.no_grad():
-        for dtype in (torch.float64, torch.float32):
-            for i, (dims, actv, order, n) in enumerate(CHECK_SHAPES):
-                g = torch.Generator().manual_seed(100 + i)
-                pts = torch.rand(n, dims[0], generator=g, dtype=torch.float64).to('cuda', dtype)
-                layers = on(random_layers(dims, seed=i), dtype)
-                got = fcnn_taylor(pts, layers, order, actv)
-                torch.cuda.synchronize()
-                want = fcnn_taylor_reference(pts, layers, order, actv)
-                torch.cuda.synchronize()
-                errs = [rel_err(a, b) for a, b in zip(got, want)]
-                ok = len(got) == order + 1 and all(a.shape == b.shape for a, b in zip(got, want))
-                ok = ok and all(e <= TOL[dtype] for e in errs)
-                phase('3 kernel', f"{str(dtype)[6:]} {'-'.join(map(str, dims))} {actv} order {order} "
-                                  f"N={n}: rel err {' '.join(f'{e:.2e}' for e in errs)} "
-                                  f"(limit {TOL[dtype]:.0e}) {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise SystemExit("chip_smoke: kernel disagrees with its twin")
-                if i == 0 and dtype == torch.float32:
-                    flagship_err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    if times_only:
+        time_shapes(card, fcnn_taylor, fcnn_taylor_reference)
+        time_end_to_end(card, taylor_mlp)
+        return
+
+    # ---- 3. kernels against the twin
+    errors = check_kernels(fcnn_taylor, fcnn_taylor_reference)
 
     # ---- 4. gradient
+    from neurodiffeq_tpu_torch.ops.taylor_mlp import _TaylorMLPFn
     dims, n = (2,) + HIDDEN + (1,), GRID[0] * GRID[1]
     g = torch.Generator().manual_seed(7)
-    pts = torch.rand(n, 2, generator=g, dtype=torch.float64).cuda()
-    layers = on(random_layers(dims, seed=7), torch.float64)
-    cts = [torch.randn(s, generator=g, dtype=torch.float64).cuda() for s in [(n, 1), (2, n, 1), (2, n, 1)]]
+    pts, layers = inputs(dims, n, F64, seed=7)
+    cts = [torch.randn(s, generator=g, dtype=F64).cuda() for s in [(n, 1), (2, n, 1), (2, n, 1)]]
 
     def grads(fn):
         p = pts.clone().requires_grad_()
@@ -194,17 +357,17 @@ def main():
     if gerr > 1e-10:
         raise SystemExit("chip_smoke: gradient through the kernel disagrees with the twin")
 
-    # ---- 5. flagship training (the main path; launches counted from here)
+    # ---- 5a. the main path: flagship training
     set_seed(0)
     solver = flagship_solver()
     F.reset_taylor_fallback_count()
-    taylor_mlp.LAUNCHES = 0
+    taylor_mlp.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     solver.fit(EPOCHS)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    launches = taylor_mlp.LAUNCHES
+    launches_main = dict(taylor_mlp.LAUNCHES)
     fallbacks = F.taylor_fallback_count()
     hist = solver.metrics_history['train_loss']
     early, late = float(np.mean(hist[:100])), float(np.mean(hist[-100:]))
@@ -214,49 +377,60 @@ def main():
     max_err = float(np.abs(u - exact).max())
     res = solver.get_residuals(xs, ys, to_numpy=True)
     checks = {
-        'kernel launched during fit': launches > 0,
+        'taylor_mlp_1h launched during fit': launches_main['taylor_mlp_1h'] > 0,
         'no Taylor fallback': fallbacks == 0,
         'loss fell': late < early,
         'max error < 1e-2': bool(np.isfinite(u).all()) and max_err < 1e-2,
         'residuals finite': res.shape == xs.shape and bool(np.isfinite(res).all()),
     }
-    phase('5 flagship', f"fit({EPOCHS}) float32 in {fit_s:.1f} s: {launches} kernel launches, "
-                        f"{fallbacks} fallbacks, train loss mean {early:.3e} (first 100) -> "
-                        f"{late:.3e} (last 100), max |u - exact| on 101x101 {max_err:.3e}, "
-                        f"max |residual| {np.abs(res).max():.3e}; "
-                        + ', '.join(f"{k}: {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+    phase('5a flagship', f"fit({EPOCHS}) float32 in {fit_s:.1f} s: launches {launches_main}, "
+                         f"{fallbacks} fallbacks, train loss mean {early:.3e} (first 100) -> "
+                         f"{late:.3e} (last 100), max |u - exact| on 101x101 {max_err:.3e}, "
+                         f"max |residual| {np.abs(res).max():.3e}; "
+                         + ', '.join(f"{k}: {'ok' if v else 'FAIL'}" for k, v in checks.items()))
     if not all(checks.values()):
         raise SystemExit("chip_smoke: flagship training check failed")
 
+    # ---- 5b. Solver2D with every default (device, net 2-32-32-1, generators)
+    set_seed(0)
+    solver = laplace_solver()
+    F.reset_taylor_fallback_count()
+    taylor_mlp.reset_launches()
+    solver.fit(DEFAULT_NET_EPOCHS)
+    torch.cuda.synchronize()
+    launches_default = dict(taylor_mlp.LAUNCHES)
+    fallbacks = F.taylor_fallback_count()
+    hist = solver.metrics_history['train_loss']
+    early, late = float(np.mean(hist[:30])), float(np.mean(hist[-30:]))
+    net = solver.nets[0]
+    checks = {
+        'default device is cuda': next(net.parameters()).device.type == 'cuda',
+        'default net 2-32-32-1': tuple(net.hidden_units) == (32, 32),
+        'taylor_mlp launched during fit': launches_default['taylor_mlp'] > 0,
+        'no Taylor fallback': fallbacks == 0,
+        'loss fell': late < early,
+    }
+    phase('5b default Solver2D', f"fit({DEFAULT_NET_EPOCHS}): launches {launches_default}, "
+                                 f"{fallbacks} fallbacks, train loss mean {early:.3e} (first 30) -> "
+                                 f"{late:.3e} (last 30); "
+                                 + ', '.join(f"{k}: {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+    if not all(checks.values()):
+        raise SystemExit("chip_smoke: default Solver2D check failed")
+
     # ---- 6. timing
-    bench = flagship_solver(n_batches_valid=0)  # train-only epochs, as bench.py counts them
-    bench.fit(100)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    bench.fit(500)
-    torch.cuda.synchronize()
-    eps = 500 / (time.perf_counter() - t0)
-    with torch.no_grad():
-        pts = torch.rand(n, 2, device='cuda')
-        ls = [(W.detach(), b.detach()) for W, b in bench.nets[0].layers()]
-        ms_k1 = cuda_time_ms(lambda: fcnn_taylor(pts, ls, 2))
-        ms_t1 = cuda_time_ms(lambda: fcnn_taylor_reference(pts, ls, 2))
-        ms_t2 = cuda_time_ms(lambda: fcnn_taylor_reference(pts, ls, 2))
-        ms_k2 = cuda_time_ms(lambda: fcnn_taylor(pts, ls, 2))
-        dev_kernel = device_us(lambda: fcnn_taylor(pts, ls, 2))
-        dev_twin = device_us(lambda: fcnn_taylor_reference(pts, ls, 2))
-    ms_kernel, ms_twin = (ms_k1 + ms_k2) / 2, (ms_t1 + ms_t2) / 2
-    phase('6 timing', f"{card}: flagship train-only {eps:.1f} epochs/s = {eps * n:.0f} points/s; "
-                      f"forward 2-512-1 tanh order 2 N={n} float32: kernel {ms_kernel:.4f} ms "
-                      f"({ms_k1:.4f}, {ms_k2:.4f}), twin {ms_twin:.4f} ms ({ms_t1:.4f}, {ms_t2:.4f}) "
-                      f"per call over 200 calls (CUDA events; host dispatch included); device time "
-                      f"per call (profiler): kernel {dev_kernel[0]:.2f} us in {dev_kernel[1]:.0f} "
-                      f"launches, twin {dev_twin[0]:.2f} us in {dev_twin[1]:.0f} launches")
+    times = time_shapes(card, fcnn_taylor, fcnn_taylor_reference)
+    time_end_to_end(card, taylor_mlp)
 
     # ---- 7. result
-    record = {'kernels': [{
-        'name': 'taylor_mlp', 'route': 'cuda', 'source': KERNEL_SOURCE, 'replaces': REPLACES,
-        'launches': launches, 'max_abs_err': flagship_err, 'ms': ms_kernel, 'plain_ms': ms_twin}]}
+    record = {'kernels': []}
+    for name, launches, key in (
+            ('taylor_mlp_1h', launches_main['taylor_mlp_1h'], ((2, 512, 1), 'tanh', 2, 1024, F32)),
+            ('taylor_mlp', launches_default['taylor_mlp'], ((2, 32, 32, 1), 'tanh', 2, 1024, F32))):
+        k_us, t_us, b_ms, b_by = times[key]
+        record['kernels'].append({
+            'name': name, 'route': 'cuda', 'source': KERNEL_SOURCE, 'replaces': REPLACES,
+            'launches': launches, 'max_abs_err': errors[key], 'ms': k_us / 1e3,
+            'plain_ms': t_us / 1e3, 'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None})
     print(card)
     print(json.dumps(record))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

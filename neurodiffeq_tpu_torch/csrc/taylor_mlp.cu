@@ -1,11 +1,11 @@
-// Fused Taylor-mode FCNN forward for Hopper (sm_90a).
+// Fused Taylor-mode FCNN forward for Hopper (sm_90a): two kernels.
 //
-// Replaces the TPU kernel neurodiffeq_tpu/ops/pallas_mlp.py::_kernel
+// Both replace the TPU kernel neurodiffeq_tpu/ops/pallas_mlp.py::_kernel
 // (launched by _pallas_call through fcnn_taylor_pallas). For a tile of
-// collocation points it evaluates an L-layer FCNN with tanh or sin between
-// layers and returns the value c0 (N, out) and the first and second
+// collocation points they evaluate an L-layer FCNN with tanh or sin between
+// layers and return the value c0 (N, out) and the first and second
 // directional derivatives c1, c2 (D, N, out) along the D = d coordinate
-// axes. The math is exactly the plain twin
+// axes. The math is the plain twin
 // neurodiffeq_tpu_torch/ops/taylor_mlp.py::fcnn_taylor_reference:
 //   first layer:  z = x.W1 + b1, a = f(z), u1_d = f'(z) W1[d,:],
 //                 u2_d = f''(z) W1[d,:]^2   (tangents are the rows of W1);
@@ -15,27 +15,66 @@
 // Activation derivatives reuse the forward value: tanh f' = 1 - a^2,
 // f'' = -2 a f'; sin f' = cos z, f'' = -a.
 //
-// What bounds it on this card: at the flagship shape (2-512-1, tanh,
-// order 2, N = 1024) the work is a K=2 dot per hidden unit, three
-// transcendental-bound elementwise streams and an N=1 reduction over 512
-// units: about 5 MFLOP in all, far below what a tensor core would help
-// with. The kernel is latency- and launch-bound, not GEMM-bound. The design
-// therefore keeps everything of one tile on chip: one block per tile of T
-// points, threads over (point, unit) pairs, the 1+2D streams of the current
-// layer in dynamic shared memory (never in device memory), and the output
-// layer as one warp-shuffle reduction per (stream, point, output unit).
-// One launch replaces the ~20 separate elementwise and matmul launches of
-// the plain twin. No tensor cores, no TMA: making it fast is later work.
+// What bounds them on this card. Per point and hidden unit the flagship
+// (2-512-1, tanh, order 2) does about 25 floating-point operations and one
+// tanh on a few KB of inputs: it is bound by FMA and SFU work, and at the
+// main path's N = 1024 (13 MFLOP, 0.2 us at 67 TFLOP/s) by the latency of
+// one launch. Tensor cores and TMA do not apply: the first layer has K = d
+// <= 8 and the flagship's output layer N = 1, neither a matrix product a
+// tensor core takes; float32 stays full precision (TF32 is off in the port,
+// and 3xTF32 needs its own precision argument); the inputs are too small to
+// need a bulk copy engine.
+//
+// taylor_mlp_1h_kernel (one hidden layer, the main path). The output layer
+// is folded into per-unit constants: with v = W2[o, j], unit j adds a_j v to
+// c0, f'_j (W1[d,j] v) to c1_d and f''_j (W1[d,j]^2 v) to c2_d. A thread
+// owns a strided set of units, keeps each unit's W1 row, b1, v, W1 v and
+// W1^2 v in registers, and loops over the tile's points, accumulating
+// tile x (1 + order d) <= 32 partial sums in registers. The streams never
+// leave registers: only x of the tile and one partial per warp and entry
+// go through shared memory. A transposing warp sum (31 shuffles for all 32
+// entries, where one warp sum per entry would take 5 each) and then a
+// fixed-order sum over warps reduce; no atomics, so two launches give
+// bitwise-equal outputs. Output units are the grid's y axis, so the
+// accumulators do not grow with n_out.
+//
+// taylor_mlp_kernel (no hidden layer, or two and more). A middle layer is a
+// product (S tile, h_in) x (h_in, h_out) over the S = 1 + order d stacked
+// streams, which stay in shared memory (two buffers, read and write). W_l
+// is staged in k-tiles of kKTile rows, transposed to k-major with a padded
+// row so that the loads of a warp's 32 units are free of bank conflicts,
+// by cp.async; the next tile (of this layer, or the next layer's first) is
+// in flight while the current one is multiplied. A warp owns its points,
+// a lane kUnitsPerLane units of a kChunk-unit chunk: each shared-memory
+// load of a stream value feeds kUnitsPerLane FMAs and each weight load
+// points x S of them. The chain rule is the epilogue of each layer. The
+// output layer is one warp reduction per (point, output unit) over all S
+// streams at once.
+//
+// No integer division by a runtime width in an inner loop: divisors are
+// compile-time constants (D, S, kKTile).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kMaxLayers = 16;
-constexpr int kMaxDims = 8;                 // input dimension d = directions D
-constexpr int kMaxStreams = 1 + 2 * kMaxDims;
+constexpr int kMaxDims = 8;        // input dimension d = directions D
+constexpr int kMaxThreads = 256;   // threads of a block, both kernels
+constexpr int kMaxDevices = 64;
+constexpr int kSmemLimit = 232448; // dynamic shared memory a block may use on sm_90
 constexpr int kActTanh = 0;
 constexpr int kActSin = 1;
+constexpr int kKTile = 16;         // rows (k) of one staged weight tile
+constexpr int kUnitsPerLane = 4;
+constexpr int kChunk = 32 * kUnitsPerLane;  // output units of one pass
+constexpr int kWStride = kChunk + 1;        // padded row of a staged weight tile
+static_assert(kUnitsPerLane == 4, "taylor_mlp_kernel dispatches mac_w_tile over 1-4 unit groups");
+
+// Points of a tile the 1h kernel keeps accumulators for (S of them each, 32
+// in all at most); points a warp of the general kernel owns. The planner in ops/taylor_mlp.py repeats both.
+__host__ __device__ constexpr int max_tile_1h(int s) { return 32 / s; }
+__host__ __device__ constexpr int points_per_warp(int s) { return s <= 5 ? 2 : 1; }
 
 template <typename T>
 struct MLPParams {
@@ -51,9 +90,9 @@ __device__ __forceinline__ double dev_sin(double x) { return sin(x); }
 __device__ __forceinline__ float dev_cos(float x) { return cosf(x); }
 __device__ __forceinline__ double dev_cos(double x) { return cos(x); }
 
-template <typename T>
-__device__ __forceinline__ void actv_chain(T z, int actv, T& a, T& f1, T& f2) {
-  if (actv == kActTanh) {
+template <int ACT, typename T>
+__device__ __forceinline__ void actv_chain(T z, T& a, T& f1, T& f2) {
+  if constexpr (ACT == kActTanh) {
     a = dev_tanh(z);
     f1 = T(1) - a * a;
     f2 = T(-2) * a * f1;
@@ -65,175 +104,543 @@ __device__ __forceinline__ void actv_chain(T z, int actv, T& a, T& f1, T& f2) {
 }
 
 template <typename T>
+__device__ __forceinline__ void actv_chain(T z, int actv, T& a, T& f1, T& f2) {
+  if (actv == kActTanh) {
+    actv_chain<kActTanh>(z, a, f1, f2);
+  } else {
+    actv_chain<kActSin>(z, a, f1, f2);
+  }
+}
+
+template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
 
-// Streams of one layer live in shared memory as buf[(s * tile + t) * width + j]:
-// s = 0 the value a, s = 1..D the first-order tangents, s = D+1..2D the
-// second-order ones.
+// Stream s of point pt goes to c0 (s = 0), c1 (s = 1..D) or c2.
+template <typename T, int D>
+__device__ __forceinline__ void store_stream(int s, int pt, int n, int n_out, int o, T v,
+                                             T* c0, T* c1, T* c2) {
+  if (s == 0) {
+    c0[static_cast<size_t>(pt) * n_out + o] = v;
+  } else if (s <= D) {
+    c1[(static_cast<size_t>(s - 1) * n + pt) * n_out + o] = v;
+  } else {
+    c2[(static_cast<size_t>(s - 1 - D) * n + pt) * n_out + o] = v;
+  }
+}
+
+// One step of warp_transpose_sum: a lane and its partner across lane bit
+// OFF hold the same OFF * 2 entries; the lower keeps the first half, the
+// upper the second, each adding the partner's copy of it.
+template <typename T, int OFF>
+__device__ __forceinline__ void transpose_step(T (&v)[32], int lane) {
+  const bool upper = lane & OFF;
+#pragma unroll
+  for (int i = 0; i < OFF; ++i) {
+    const T send = upper ? v[i] : v[i + OFF];
+    const T keep = upper ? v[i + OFF] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+  }
+}
+
+// Sums each of the 32 entries of v over the warp; lane l gets entry l's
+// sum. 31 shuffles in a fixed order, against 5 for every entry summed alone.
 template <typename T>
-__global__ void taylor_mlp_kernel(const T* __restrict__ x, int n, int d, int n_layers,
-                                  MLPParams<T> p, int order, int actv, int tile, int hmax,
-                                  T* __restrict__ c0, T* __restrict__ c1, T* __restrict__ c2) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  const int S = 1 + order * d;
+__device__ __forceinline__ T warp_transpose_sum(T (&v)[32], int lane) {
+  transpose_step<T, 16>(v, lane);
+  transpose_step<T, 8>(v, lane);
+  transpose_step<T, 4>(v, lane);
+  transpose_step<T, 2>(v, lane);
+  transpose_step<T, 1>(v, lane);
+  return v[0];
+}
+
+// ---------------------------------------------------------------- one hidden layer
+// acc[t * S + s] is stream s of the tile's point t; TM * S <= 32 entries.
+template <typename T, int D, int ORDER, int ACT>
+__global__ void __launch_bounds__(kMaxThreads)
+taylor_mlp_1h_kernel(const T* __restrict__ x, int n, int h, int n_out, const T* __restrict__ W1,
+                     const T* __restrict__ b1, const T* __restrict__ W2, const T* __restrict__ b2,
+                     int tile, T* __restrict__ c0, T* __restrict__ c1, T* __restrict__ c2) {
+  constexpr int S = 1 + ORDER * D;
+  constexpr int TM = max_tile_1h(S);
+  __shared__ T xs[TM * D];
+  __shared__ T red[kMaxThreads / 32][32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  const int n0 = blockIdx.x * tile, o = blockIdx.y;
+
+  for (int i = tid; i < tile * D; i += blockDim.x) {
+    xs[i] = n0 + i / D < n ? x[static_cast<size_t>(n0) * D + i] : T(0);
+  }
+  __syncthreads();
+  T xr[TM][D];  // the tile's points, in registers for the loop over units
+#pragma unroll
+  for (int t = 0; t < TM; ++t) {
+#pragma unroll
+    for (int k = 0; k < D; ++k) xr[t][k] = xs[t * D + k];
+  }
+
+  T acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = T(0);
+  for (int j = tid; j < h; j += blockDim.x) {
+    const T v = W2[static_cast<size_t>(o) * h + j];
+    const T bj = b1[j];
+    T w[D], wv[D], wwv[D];
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      w[k] = W1[static_cast<size_t>(j) * D + k];
+      wv[k] = w[k] * v;
+      wwv[k] = (w[k] * w[k]) * v;
+    }
+#pragma unroll
+    for (int t = 0; t < TM; ++t) {
+      if (t < tile) {
+        T z = bj;
+#pragma unroll
+        for (int k = 0; k < D; ++k) z += xr[t][k] * w[k];
+        T a, f1, f2;
+        actv_chain<ACT>(z, a, f1, f2);
+        acc[t * S] += a * v;
+#pragma unroll
+        for (int k = 0; k < D; ++k) {
+          acc[t * S + 1 + k] += f1 * wv[k];
+          if constexpr (ORDER == 2) acc[t * S + 1 + D + k] += f2 * wwv[k];
+        }
+      }
+    }
+  }
+
+  red[warp][lane] = warp_transpose_sum(acc, lane);
+  __syncthreads();
+  if (tid < tile * S) {  // one thread per (point, stream); tile * S <= 32 <= blockDim.x
+    T sum = red[0][tid];
+    for (int w = 1; w < nwarps; ++w) sum += red[w][tid];
+    const int t = tid / S, s = tid - t * S, pt = n0 + t;
+    if (pt < n) store_stream<T, D>(s, pt, n, n_out, o, s == 0 ? sum + b2[o] : sum, c0, c1, c2);
+  }
+}
+
+// ---------------------------------------------------------------- general depth
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (sizeof(T) == 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(saddr), "l"(src));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(saddr), "l"(src));
+  }
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+// One staged weight tile: layer l, output units [j0, j0 + kChunk), inputs [k0, k0 + kKTile).
+struct WTile {
+  int l, j0, k0;
+};
+
+// The tile after `w` over the middle layers 1..n_layers-2, in the order the
+// kernel consumes them; false past the last.
+__device__ __forceinline__ bool next_tile(WTile& w, const int* dims, int n_layers) {
+  w.k0 += kKTile;
+  if (w.k0 < dims[w.l]) return true;
+  w.k0 = 0;
+  w.j0 += kChunk;
+  if (w.j0 < dims[w.l + 1]) return true;
+  w.j0 = 0;
+  ++w.l;
+  return w.l < n_layers - 1;
+}
+
+// 32-unit groups of the chunk at j0 that lie inside a layer of width hout.
+__device__ __forceinline__ int unit_groups(int hout, int j0) {
+  return min(kUnitsPerLane, (hout - j0 + 31) / 32);
+}
+
+// ws[kk * kWStride + jj] = W_l[j0 + jj, k0 + kk], zero outside the layer,
+// for the chunk's unit groups that exist. Neighbouring threads read
+// neighbouring k of one weight row.
+template <typename T>
+__device__ __forceinline__ void load_w_tile(T* ws, const MLPParams<T>& p, WTile w) {
+  const int hin = p.dims[w.l], hout = p.dims[w.l + 1];
+  const T* W = p.W[w.l];
+  const int n_elems = kKTile * 32 * unit_groups(hout, w.j0);
+  for (int i = threadIdx.x; i < n_elems; i += blockDim.x) {
+    const int kk = i % kKTile, jj = i / kKTile;
+    const int j = w.j0 + jj, k = w.k0 + kk;
+    T* dst = ws + kk * kWStride + jj;
+    if (j < hout && k < hin) {
+      cp_async(dst, W + static_cast<size_t>(j) * hin + k);
+    } else {
+      *dst = T(0);
+    }
+  }
+}
+
+// acc[i][s][u] += the staged tile's kn rows of stream s of point i times
+// the tile's column lane + 32 u, for the NU unit groups that exist. `in`
+// points at the warp's first point and the tile's first row.
+template <int NU, typename T, int TT, int S>
+__device__ __forceinline__ void mac_w_tile(T (&acc)[TT][S][kUnitsPerLane], const T* in,
+                                           const T* wt, int kn, int tile, int hstride) {
+#pragma unroll 4
+  for (int kk = 0; kk < kn; ++kk) {
+    T wv[NU];
+#pragma unroll
+    for (int u = 0; u < NU; ++u) wv[u] = wt[kk * kWStride + 32 * u];
+#pragma unroll
+    for (int i = 0; i < TT; ++i) {
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const T a = in[(static_cast<size_t>(s) * tile + i) * hstride + kk];
+#pragma unroll
+        for (int u = 0; u < NU; ++u) acc[i][s][u] += a * wv[u];
+      }
+    }
+  }
+}
+
+// Streams live in shared memory as buf[(s * tile + t) * hstride + j]: s = 0
+// the value, s = 1..D the first-order tangents, s = D+1..2D the second-order
+// ones. Warp w owns points t = w * TT .. w * TT + TT - 1 of the tile.
+template <typename T, int D, int ORDER>
+__global__ void __launch_bounds__(kMaxThreads)
+taylor_mlp_kernel(const T* __restrict__ x, int n, int n_layers, MLPParams<T> p, int actv, int tile,
+                  int hstride, T* __restrict__ c0, T* __restrict__ c1, T* __restrict__ c2) {
+  constexpr int S = 1 + ORDER * D;
+  constexpr int TT = points_per_warp(S);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const int n0 = blockIdx.x * tile;
   const int n_out = p.dims[n_layers];
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
 
   if (n_layers == 1) {  // a single affine layer: constant tangents, zero curvature
     const T* W = p.W[0];
-    for (int idx = tid; idx < tile * n_out; idx += nthreads) {
-      const int t = idx / n_out, o = idx % n_out, pt = n0 + t;
-      if (pt >= n) continue;
-      const T* w = W + o * d;
-      T z = p.b[0][o];
-      for (int k = 0; k < d; ++k) z += x[pt * d + k] * w[k];
-      c0[pt * n_out + o] = z;
-      for (int dd = 0; dd < d; ++dd) {
-        const size_t off = (static_cast<size_t>(dd) * n + pt) * n_out + o;
-        c1[off] = w[dd];
-        if (order >= 2) c2[off] = T(0);
+    for (int t = warp; t < tile; t += nwarps) {
+      const int pt = n0 + t;
+      if (pt >= n) break;
+      for (int o = lane; o < n_out; o += 32) {
+        const T* w = W + static_cast<size_t>(o) * D;
+        T z = p.b[0][o];
+#pragma unroll
+        for (int k = 0; k < D; ++k) z += x[static_cast<size_t>(pt) * D + k] * w[k];
+        c0[static_cast<size_t>(pt) * n_out + o] = z;
+#pragma unroll
+        for (int k = 0; k < D; ++k) {
+          const size_t off = (static_cast<size_t>(k) * n + pt) * n_out + o;
+          c1[off] = w[k];
+          if constexpr (ORDER == 2) c2[off] = T(0);
+        }
       }
     }
     return;
   }
 
-  T* buf[2] = {smem, smem + static_cast<size_t>(S) * tile * hmax};
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const size_t buf_elems = static_cast<size_t>(S) * tile * hstride;
+  T* buf[2] = {smem, smem + buf_elems};
+  T* ws[2] = {smem + 2 * buf_elems, smem + 2 * buf_elems + kKTile * kWStride};
+
+  // the first weight tile is in flight while the first layer runs
+  WTile cur{1, 0, 0};
+  const bool any_middle = n_layers > 2;
+  if (any_middle) load_w_tile(ws[0], p, cur);
+  cp_async_commit();
 
   // ---- first layer: K = d dot per (point, unit); tangents are rows of W1
   {
     const int h = p.dims[1];
     const T* W = p.W[0];
+    const T* b = p.b[0];
     T* out = buf[0];
-    for (int idx = tid; idx < tile * h; idx += nthreads) {
-      const int t = idx / h, j = idx % h, pt = n0 + t;
-      const T* w = W + j * d;
-      T z = p.b[0][j];
-      if (pt < n) {
-        for (int k = 0; k < d; ++k) z += x[pt * d + k] * w[k];
-      }
-      T a, f1, f2;
-      actv_chain(z, actv, a, f1, f2);
-      out[t * h + j] = a;
-      for (int dd = 0; dd < d; ++dd) {
-        const T wd = w[dd];
-        out[((1 + dd) * tile + t) * h + j] = f1 * wd;
-        if (order >= 2) out[((1 + d + dd) * tile + t) * h + j] = f2 * wd * wd;
+#pragma unroll
+    for (int i = 0; i < TT; ++i) {
+      const int t = warp * TT + i, pt = n0 + t;
+      T xv[D];
+#pragma unroll
+      for (int k = 0; k < D; ++k) xv[k] = pt < n ? x[static_cast<size_t>(pt) * D + k] : T(0);
+      for (int j = lane; j < h; j += 32) {
+        T w[D];
+        T z = T(0);
+#pragma unroll
+        for (int k = 0; k < D; ++k) {
+          w[k] = W[static_cast<size_t>(j) * D + k];
+          z += xv[k] * w[k];
+        }
+        T a, f1, f2;
+        actv_chain(z + b[j], actv, a, f1, f2);
+        out[static_cast<size_t>(t) * hstride + j] = a;
+#pragma unroll
+        for (int k = 0; k < D; ++k) {
+          out[(static_cast<size_t>(1 + k) * tile + t) * hstride + j] = f1 * w[k];
+          if constexpr (ORDER == 2) out[(static_cast<size_t>(1 + D + k) * tile + t) * hstride + j] = f2 * (w[k] * w[k]);
+        }
       }
     }
   }
+
+  // ---- middle layers: one staged weight tile per iteration
+  int src = 0, stage = 0;
+  T acc[TT][S][kUnitsPerLane];
+  bool more = any_middle;
+  while (more) {
+    WTile nxt = cur;
+    const bool has_next = next_tile(nxt, p.dims, n_layers);
+    if (has_next) load_w_tile(ws[stage ^ 1], p, nxt);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    const int hin = p.dims[cur.l], hout = p.dims[cur.l + 1];
+    if (cur.k0 == 0) {
+#pragma unroll
+      for (int i = 0; i < TT; ++i)
+#pragma unroll
+        for (int s = 0; s < S; ++s)
+#pragma unroll
+          for (int u = 0; u < kUnitsPerLane; ++u) acc[i][s][u] = T(0);
+    }
+    const T* in = buf[src] + static_cast<size_t>(warp) * TT * hstride + cur.k0;
+    const T* wt = ws[stage] + lane;
+    const int kn = min(kKTile, hin - cur.k0);
+    switch (unit_groups(hout, cur.j0)) {  // narrow layers skip the groups past their width
+      case 1: mac_w_tile<1>(acc, in, wt, kn, tile, hstride); break;
+      case 2: mac_w_tile<2>(acc, in, wt, kn, tile, hstride); break;
+      case 3: mac_w_tile<3>(acc, in, wt, kn, tile, hstride); break;
+      default: mac_w_tile<kUnitsPerLane>(acc, in, wt, kn, tile, hstride);
+    }
+
+    if (cur.k0 + kKTile >= hin) {  // the chunk's sums are complete: chain rule
+      T* out = buf[src ^ 1];
+      const T* b = p.b[cur.l];
+#pragma unroll
+      for (int u = 0; u < kUnitsPerLane; ++u) {
+        const int j = cur.j0 + lane + 32 * u;
+        if (j < hout) {
+          const T bj = b[j];
+#pragma unroll
+          for (int i = 0; i < TT; ++i) {
+            const int t = warp * TT + i;
+            T a, f1, f2;
+            actv_chain(acc[i][0][u] + bj, actv, a, f1, f2);
+            out[static_cast<size_t>(t) * hstride + j] = a;
+#pragma unroll
+            for (int k = 0; k < D; ++k) {
+              const T z1 = acc[i][1 + k][u];
+              out[(static_cast<size_t>(1 + k) * tile + t) * hstride + j] = f1 * z1;
+              if constexpr (ORDER == 2) {
+                out[(static_cast<size_t>(1 + D + k) * tile + t) * hstride + j] =
+                    f1 * acc[i][1 + D + k][u] + f2 * z1 * z1;
+              }
+            }
+          }
+        }
+      }
+      if (cur.j0 + kChunk >= hout) src ^= 1;  // layer done: its output is the next input
+    }
+    __syncthreads();  // the stage just read is the one the next iteration refills
+    stage ^= 1;
+    cur = nxt;
+    more = has_next;
+  }
+  cp_async_wait<0>();
   __syncthreads();
 
-  // ---- middle layers: 1 + order*D dots per (point, unit), then the chain rule
-  int cur = 0;
-  for (int l = 1; l < n_layers - 1; ++l) {
-    const int hin = p.dims[l], hout = p.dims[l + 1];
-    const T* W = p.W[l];
-    const T* in = buf[cur];
-    T* out = buf[cur ^ 1];
-    for (int idx = tid; idx < tile * hout; idx += nthreads) {
-      const int t = idx / hout, j = idx % hout;
-      const T* w = W + static_cast<size_t>(j) * hin;
-      T z[kMaxStreams];
-      for (int s = 0; s < S; ++s) z[s] = T(0);
-      for (int k = 0; k < hin; ++k) {
-        const T wk = w[k];
-        for (int s = 0; s < S; ++s) z[s] += in[(s * tile + t) * hin + k] * wk;
-      }
-      T a, f1, f2;
-      actv_chain(z[0] + p.b[l][j], actv, a, f1, f2);
-      out[t * hout + j] = a;
-      for (int dd = 0; dd < d; ++dd) {
-        const T z1 = z[1 + dd];
-        out[((1 + dd) * tile + t) * hout + j] = f1 * z1;
-        if (order >= 2) out[((1 + d + dd) * tile + t) * hout + j] = f1 * z[1 + d + dd] + f2 * z1 * z1;
-      }
-    }
-    __syncthreads();
-    cur ^= 1;
-  }
-
-  // ---- output layer: one warp reduces over H per (stream, point, output unit)
+  // ---- output layer: one warp reduction per (point, output unit), all streams at once
   {
     const int hin = p.dims[n_layers - 1];
     const T* W = p.W[n_layers - 1];
-    const T* in = buf[cur];
-    const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
-    for (int r = warp; r < S * tile * n_out; r += nwarps) {
-      const int s = r / (tile * n_out), rem = r % (tile * n_out);
-      const int t = rem / n_out, o = rem % n_out, pt = n0 + t;
-      const T* row = in + (s * tile + t) * hin;
+    const T* in = buf[src];
+    for (int o = 0; o < n_out; ++o) {
       const T* w = W + static_cast<size_t>(o) * hin;
-      T acc = T(0);
-      for (int k = lane; k < hin; k += 32) acc += row[k] * w[k];
-      acc = warp_sum(acc);
-      if (lane == 0 && pt < n) {
-        if (s == 0) {
-          c0[pt * n_out + o] = acc + p.b[n_layers - 1][o];
-        } else if (s <= d) {
-          c1[(static_cast<size_t>(s - 1) * n + pt) * n_out + o] = acc;
-        } else {
-          c2[(static_cast<size_t>(s - 1 - d) * n + pt) * n_out + o] = acc;
+#pragma unroll
+      for (int i = 0; i < TT; ++i) {
+        const int t = warp * TT + i, pt = n0 + t;
+        T part[S];
+#pragma unroll
+        for (int s = 0; s < S; ++s) part[s] = T(0);
+        for (int k = lane; k < hin; k += 32) {
+          const T wk = w[k];
+#pragma unroll
+          for (int s = 0; s < S; ++s) part[s] += in[(static_cast<size_t>(s) * tile + t) * hstride + k] * wk;
+        }
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          const T v = warp_sum(part[s]);
+          if (lane == s && pt < n) {
+            store_stream<T, D>(s, pt, n, n_out, o, s == 0 ? v + p.b[n_layers - 1][o] : v, c0, c1, c2);
+          }
         }
       }
     }
   }
 }
 
+// ---------------------------------------------------------------- host side
+constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
+
+bool bad_block(int threads) { return threads < 32 || threads > kMaxThreads || threads % 32 != 0; }
+
+template <typename T, int D, int ORDER>
+int launch_1h(const T* x, int n, int h, int n_out, const T* W1, const T* b1, const T* W2,
+              const T* b2, int actv, int tile, int threads, T* c0, T* c1, T* c2,
+              cudaStream_t stream) {
+  if (tile < 1 || tile > max_tile_1h(1 + ORDER * D) || n_out < 1 || n_out > 65535 || h < 1) {
+    return kInvalid;
+  }
+  const dim3 grid((n + tile - 1) / tile, n_out);
+  if (actv == kActTanh) {
+    taylor_mlp_1h_kernel<T, D, ORDER, kActTanh><<<grid, threads, 0, stream>>>(
+        x, n, h, n_out, W1, b1, W2, b2, tile, c0, c1, c2);
+  } else {
+    taylor_mlp_1h_kernel<T, D, ORDER, kActSin><<<grid, threads, 0, stream>>>(
+        x, n, h, n_out, W1, b1, W2, b2, tile, c0, c1, c2);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D, int ORDER>
+int launch_general(const T* x, int n, int n_layers, const MLPParams<T>& p, int actv, int tile,
+                   int threads, int smem, int hstride, T* c0, T* c1, T* c2, cudaStream_t stream) {
+  constexpr int S = 1 + ORDER * D;
+  if (n_layers != 1 && tile != (threads / 32) * points_per_warp(S)) return kInvalid;
+  if (smem < 0 || smem > kSmemLimit) return kInvalid;
+  // raise the kernel's dynamic shared-memory ceiling once per device, to the limit
+  static bool ceiling_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= kMaxDevices) return kInvalid;
+  if (!ceiling_set[dev]) {
+    err = cudaFuncSetAttribute(taylor_mlp_kernel<T, D, ORDER>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ceiling_set[dev] = true;
+  }
+  taylor_mlp_kernel<T, D, ORDER><<<(n + tile - 1) / tile, threads, smem, stream>>>(
+      x, n, n_layers, p, actv, tile, hstride, c0, c1, c2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Calls F<D, ORDER>::run(args...) for the runtime d and order.
+template <template <int, int> class F, typename... A>
+int dispatch(int d, int order, A... args) {
+  if (order != 1 && order != 2) return kInvalid;
+#define NDTORCH_CASE(DD)                                                                \
+  case DD:                                                                              \
+    return order == 1 ? F<DD, 1>::run(args...) : F<DD, 2>::run(args...);
+  switch (d) {
+    NDTORCH_CASE(1) NDTORCH_CASE(2) NDTORCH_CASE(3) NDTORCH_CASE(4)
+    NDTORCH_CASE(5) NDTORCH_CASE(6) NDTORCH_CASE(7) NDTORCH_CASE(8)
+    default:
+      return kInvalid;
+  }
+#undef NDTORCH_CASE
+}
+
 template <typename T>
-int launch(const void* x, int n, int d, int n_layers, const int* dims, const void* const* W,
-           const void* const* b, int order, int actv, int tile, int threads, int smem_bytes,
-           void* c0, void* c1, void* c2, void* stream) {
-  if (n_layers < 1 || n_layers > kMaxLayers || d < 1 || d > kMaxDims || order < 1 || order > 2 ||
-      tile < 1 || threads < 32 || threads % 32 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
+struct OneHidden {
+  template <int D, int ORDER>
+  struct At {
+    static int run(const void* x, int n, int h, int n_out, const void* W1, const void* b1,
+                   const void* W2, const void* b2, int actv, int tile, int threads, void* c0,
+                   void* c1, void* c2, void* stream) {
+      return launch_1h<T, D, ORDER>(
+          static_cast<const T*>(x), n, h, n_out, static_cast<const T*>(W1),
+          static_cast<const T*>(b1), static_cast<const T*>(W2), static_cast<const T*>(b2), actv,
+          tile, threads, static_cast<T*>(c0), static_cast<T*>(c1), static_cast<T*>(c2),
+          static_cast<cudaStream_t>(stream));
+    }
+  };
+};
+
+template <typename T>
+struct General {
+  template <int D, int ORDER>
+  struct At {
+    static int run(const void* x, int n, int n_layers, const MLPParams<T>* p, int actv, int tile,
+                   int threads, int smem, int hstride, void* c0, void* c1, void* c2,
+                   void* stream) {
+      return launch_general<T, D, ORDER>(static_cast<const T*>(x), n, n_layers, *p, actv, tile,
+                                         threads, smem, hstride, static_cast<T*>(c0),
+                                         static_cast<T*>(c1), static_cast<T*>(c2),
+                                         static_cast<cudaStream_t>(stream));
+    }
+  };
+};
+
+template <typename T>
+int forward_1h(const void* x, int n, int d, int h, int n_out, const void* W1, const void* b1,
+               const void* W2, const void* b2, int order, int actv, int tile, int threads,
+               void* c0, void* c1, void* c2, void* stream) {
+  if (bad_block(threads) || n < 1) return kInvalid;
+  return dispatch<OneHidden<T>::template At>(d, order, x, n, h, n_out, W1, b1, W2, b2, actv, tile,
+                                             threads, c0, c1, c2, stream);
+}
+
+template <typename T>
+int forward_general(const void* x, int n, int d, int n_layers, const int* dims,
+                    const void* const* W, const void* const* b, int order, int actv, int tile,
+                    int threads, int smem, int hstride, void* c0, void* c1, void* c2,
+                    void* stream) {
+  if (n_layers < 1 || n_layers > kMaxLayers || bad_block(threads) || tile < 1 || n < 1 ||
+      dims[0] != d) {
+    return kInvalid;
   }
   MLPParams<T> p;
-  int hmax = 1;
   for (int l = 0; l < n_layers; ++l) {
     p.W[l] = static_cast<const T*>(W[l]);
     p.b[l] = static_cast<const T*>(b[l]);
   }
   for (int l = 0; l <= n_layers; ++l) {
     p.dims[l] = dims[l];
-    if (l > 0 && l < n_layers && dims[l] > hmax) hmax = dims[l];
+    if (l > 0 && l < n_layers && dims[l] > hstride) return kInvalid;
   }
-  cudaError_t err = cudaFuncSetAttribute(taylor_mlp_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (n + tile - 1) / tile;
-  taylor_mlp_kernel<T><<<blocks, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), n, d, n_layers, p, order, actv, tile, hmax, static_cast<T*>(c0),
-      static_cast<T*>(c1), static_cast<T*>(c2));
-  return static_cast<int>(cudaGetLastError());
+  return dispatch<General<T>::template At>(d, order, x, n, n_layers, &p, actv, tile, threads, smem,
+                                           hstride, c0, c1, c2, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success). Pointers are
-// device pointers except `dims`, `W` and `b`, which are host arrays of
-// n_layers + 1 ints and n_layers device pointers.
-int taylor_mlp_forward_f32(const void* x, int n, int d, int n_layers, const int* dims,
-                           const void* const* W, const void* const* b, int order, int actv,
-                           int tile, int threads, int smem_bytes, void* c0, void* c1, void* c2,
-                           void* stream) {
-  return launch<float>(x, n, d, n_layers, dims, W, b, order, actv, tile, threads, smem_bytes, c0,
-                       c1, c2, stream);
+// Every function launches on `stream` and returns cudaGetLastError() (0 on
+// success) or cudaErrorInvalidValue for arguments the kernels do not take.
+// Pointers are device pointers except `dims`, `W` and `b` of the general
+// kernel, which are host arrays of n_layers + 1 ints and n_layers device
+// pointers. Weights are in nn.Linear's (n_out, n_in) row-major layout.
+
+int taylor_mlp_1h_f32(const void* x, int n, int d, int h, int n_out, const void* W1,
+                      const void* b1, const void* W2, const void* b2, int order, int actv,
+                      int tile, int threads, void* c0, void* c1, void* c2, void* stream) {
+  return forward_1h<float>(x, n, d, h, n_out, W1, b1, W2, b2, order, actv, tile, threads, c0, c1,
+                           c2, stream);
 }
 
-int taylor_mlp_forward_f64(const void* x, int n, int d, int n_layers, const int* dims,
-                           const void* const* W, const void* const* b, int order, int actv,
-                           int tile, int threads, int smem_bytes, void* c0, void* c1, void* c2,
-                           void* stream) {
-  return launch<double>(x, n, d, n_layers, dims, W, b, order, actv, tile, threads, smem_bytes, c0,
-                        c1, c2, stream);
+int taylor_mlp_1h_f64(const void* x, int n, int d, int h, int n_out, const void* W1,
+                      const void* b1, const void* W2, const void* b2, int order, int actv,
+                      int tile, int threads, void* c0, void* c1, void* c2, void* stream) {
+  return forward_1h<double>(x, n, d, h, n_out, W1, b1, W2, b2, order, actv, tile, threads, c0, c1,
+                            c2, stream);
+}
+
+int taylor_mlp_f32(const void* x, int n, int d, int n_layers, const int* dims,
+                   const void* const* W, const void* const* b, int order, int actv, int tile,
+                   int threads, int smem, int hstride, void* c0, void* c1, void* c2,
+                   void* stream) {
+  return forward_general<float>(x, n, d, n_layers, dims, W, b, order, actv, tile, threads, smem,
+                                hstride, c0, c1, c2, stream);
+}
+
+int taylor_mlp_f64(const void* x, int n, int d, int n_layers, const int* dims,
+                   const void* const* W, const void* const* b, int order, int actv, int tile,
+                   int threads, int smem, int hstride, void* c0, void* c1, void* c2,
+                   void* stream) {
+  return forward_general<double>(x, n, d, n_layers, dims, W, b, order, actv, tile, threads, smem,
+                                 hstride, c0, c1, c2, stream);
 }
 
 }  // extern "C"

@@ -26,8 +26,12 @@ _LIB = None
 BUILD_INFO = {}  # 'path', 'seconds' (0.0 when reused), 'log' (nvcc's stderr)
 
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
-_FORWARD_ARGTYPES = [_VP, _INT, _INT, _INT, ctypes.POINTER(_INT), ctypes.POINTER(_VP),
-                     ctypes.POINTER(_VP), _INT, _INT, _INT, _INT, _INT, _VP, _VP, _VP, _VP]
+_ARGTYPES = {  # C entry point -> argument types, as declared in csrc/taylor_mlp.cu
+    'taylor_mlp_1h': [_VP, _INT, _INT, _INT, _INT, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
+                      _VP, _VP, _VP, _VP],
+    'taylor_mlp': [_VP, _INT, _INT, _INT, ctypes.POINTER(_INT), ctypes.POINTER(_VP),
+                   ctypes.POINTER(_VP), _INT, _INT, _INT, _INT, _INT, _INT, _VP, _VP, _VP, _VP],
+}
 
 
 def _sources():
@@ -88,9 +92,10 @@ def load_library():
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
-        for name in ('taylor_mlp_forward_f32', 'taylor_mlp_forward_f64'):
-            fn = getattr(lib, name)
-            fn.argtypes = _FORWARD_ARGTYPES
-            fn.restype = ctypes.c_int
+        for name, argtypes in _ARGTYPES.items():
+            for suffix in ('_f32', '_f64'):
+                fn = getattr(lib, name + suffix)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB

@@ -1,5 +1,5 @@
-r"""Fused Taylor-mode FCNN evaluation: the CUDA kernel, its plain twin, and
-the autograd function around them.
+r"""Fused Taylor-mode FCNN evaluation: the CUDA kernels, their plain twin,
+and the autograd function around them.
 
 Counterpart of ``neurodiffeq_tpu/ops/pallas_mlp.py``. For ``points`` (N, d)
 and an FCNN given as ``layers = [(W, b), ...]`` (``W`` is ``(n_in, n_out)``,
@@ -11,31 +11,39 @@ coordinate axes.
 - :func:`fcnn_taylor_reference` is the plain PyTorch twin of
   ``_pure_jax_taylor``: it runs on any device and is the backward below.
 - :func:`fcnn_taylor` is the public entry. A CPU tensor goes to the twin;
-  a CUDA tensor launches the hand-written kernel
-  (``neurodiffeq_tpu_torch/csrc/taylor_mlp.cu``) or raises. Its gradient
-  is :class:`_TaylorMLPFn`, whose backward re-runs the twin under autograd,
-  as ``_fused_bwd`` re-derives it by ``jax.vjp`` over the pure-JAX twin.
+  a CUDA tensor launches one of the hand-written kernels of
+  ``neurodiffeq_tpu_torch/csrc/taylor_mlp.cu`` or raises:
+  ``taylor_mlp_1h`` for a net with one hidden layer, ``taylor_mlp`` for
+  every other depth (:func:`_plan` picks). Its gradient is
+  :class:`_TaylorMLPFn`, whose backward re-runs the twin under autograd, as
+  ``_fused_bwd`` re-derives it by ``jax.vjp`` over the pure-JAX twin.
 
-``LAUNCHES`` counts kernel launches.
+``LAUNCHES`` counts launches per kernel; :func:`reset_launches` zeroes it.
 """
 import ctypes
 import functools
 import math
+from collections import namedtuple
 
 import torch
 
 from ..utils import full_precision_matmuls
 
-__all__ = ['fcnn_taylor', 'fcnn_taylor_reference', 'LAUNCHES']
+__all__ = ['fcnn_taylor', 'fcnn_taylor_reference', 'LAUNCHES', 'reset_launches']
 
-LAUNCHES = 0
+LAUNCHES = {'taylor_mlp_1h': 0, 'taylor_mlp': 0}
 
 _ACTVS = {'tanh': 0, 'sin': 1}
-_THREADS = 256
-_MAX_TILE = 32
 _SMEM_LIMIT = 232448   # bytes of shared memory one block may use on sm_90
-_MAX_LAYERS = 16       # kMaxLayers in the CUDA source
-_MAX_DIMS = 8          # kMaxDims in the CUDA source
+# the CUDA source's constants
+_MAX_LAYERS, _MAX_DIMS, _MAX_THREADS = 16, 8, 256
+_K_TILE, _CHUNK = 16, 128   # kKTile, kChunk: one staged weight tile is kKTile x (kChunk + 1)
+
+
+def reset_launches():
+    """Set every kernel's launch count to 0."""
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def _actv_chain(z, actv):
@@ -92,35 +100,68 @@ def _sm_count(device_index):
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _plan(n, d, dims, order, esize, device):
-    """(tile, shared-memory bytes) for one launch. Each block keeps the
-    1 + order*d streams of a tile's widest hidden layer in shared memory,
-    in one buffer for a single hidden layer and two (read, write) for more.
-    The tile is as large as fits, up to ``_MAX_TILE``, and no larger than
-    spreads the batch over every SM."""
-    n_layers = len(dims) - 1
+Plan = namedtuple('Plan', 'kernel tile threads smem hstride blocks')
+
+
+def _streams(d, order):
+    return 1 + order * d
+
+
+def _max_tile_1h(s):
+    """``max_tile_1h`` of the CUDA source: points a block of the 1h kernel
+    keeps accumulators for, ``s`` = 1 + order*d registers each, 32 in all."""
+    return 32 // s
+
+
+def _points_per_warp(s):
+    """``points_per_warp`` of the CUDA source (general kernel)."""
+    return 2 if s <= 5 else 1
+
+
+def _plan(n, dims, order, esize, n_sm):
+    """How to launch the kernel for ``n`` points through widths ``dims`` at
+    ``order``, with ``esize``-byte floats on a card of ``n_sm`` SMs.
+
+    - One hidden layer: ``taylor_mlp_1h``. The tile is as small as puts two
+      blocks on every SM, up to ``_max_tile_1h``; the block has as many
+      warps (1-8, at most one per 32 hidden units) as give the card about
+      32 warps per SM, so that at large N each lane owns more units and the
+      warp sums weigh less. Its shared memory is static.
+    - Any other depth: ``taylor_mlp``. A warp owns ``_points_per_warp``
+      points; the block has as many warps (8, 4, 2 or 1) as fit the
+      streams' two buffers and two staged weight tiles in shared memory and
+      still give every other SM a block: more warps share each staged
+      weight tile, and on the card that outweighs idle SMs down to about
+      half of them busy. Raises if one warp's points do not fit.
+    """
+    d, n_layers, s = dims[0], len(dims) - 1, _streams(dims[0], order)
+    if n_layers == 2:
+        tile = max(1, min(_max_tile_1h(s), math.ceil(n / (2 * n_sm))))
+        blocks = math.ceil(n / tile)
+        warps = max(1, min(_MAX_THREADS // 32, math.ceil(dims[1] / 32), 32 * n_sm // blocks))
+        return Plan('taylor_mlp_1h', tile, 32 * warps, 0, 0, blocks)
     if n_layers == 1:
-        return _MAX_TILE, 0
-    per_point = (1 if n_layers == 2 else 2) * (1 + order * d) * max(dims[1:-1]) * esize
-    fit = _SMEM_LIMIT // per_point
-    if fit < 1:
+        return Plan('taylor_mlp', 32, 128, 0, 0, math.ceil(n / 32))
+    hstride = max(dims[1:-1])
+    per_warp = _points_per_warp(s)
+    w_tiles = 2 * _K_TILE * (_CHUNK + 1) * esize
+    fits = [w for w in (8, 4, 2, 1) if 2 * s * w * per_warp * hstride * esize + w_tiles <= _SMEM_LIMIT]
+    if not fits:
         raise ValueError(
-            f"fcnn_taylor kernel: one point needs {per_point} bytes of shared memory for "
-            f"hidden widths {dims[1:-1]} at order {order} with d={d}, more than the "
-            f"{_SMEM_LIMIT} a block may use")
-    n_sm = _sm_count(device.index if device.index is not None else torch.cuda.current_device())
-    tile = max(1, min(fit, _MAX_TILE, math.ceil(n / n_sm)))
-    return tile, tile * per_point
+            f"fcnn_taylor kernel: {per_warp} point(s) of hidden widths {dims[1:-1]} at order "
+            f"{order} with d={d} need {2 * s * per_warp * hstride * esize + w_tiles} bytes of "
+            f"shared memory, more than the {_SMEM_LIMIT} a block may use")
+    warps = next((w for w in fits if math.ceil(n / (w * per_warp)) >= n_sm // 2), fits[-1])
+    tile = warps * per_warp
+    return Plan('taylor_mlp', tile, 32 * warps, 2 * s * tile * hstride * esize + w_tiles, hstride,
+                math.ceil(n / tile))
 
 
-def _launch(points, layers, order, actv):
-    """Check the inputs, allocate the outputs and launch the CUDA kernel on
-    the current stream. Weights may be any (n_in, n_out) view: the kernel
-    reads them in ``nn.Linear``'s (n_out, n_in) row-major layout, which for
-    ``nn.Linear`` weights costs no copy."""
-    global LAUNCHES
-    from ._build import load_library
+_PLANS = {}  # (dtype, device index, dims, order, n) -> Plan
 
+
+def _check(points, layers, order, actv):
+    """Raise on what the kernels do not take; return the widths."""
     dtype, device = points.dtype, points.device
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"fcnn_taylor kernel takes float32 or float64, got {dtype}")
@@ -130,12 +171,11 @@ def _launch(points, layers, order, actv):
         raise ValueError(f"fcnn_taylor kernel supports order 1 or 2, got {order}")
     if actv not in _ACTVS:
         raise ValueError(f"unsupported activation {actv!r}; expected 'tanh' or 'sin'")
-    n, d = points.shape
+    d = points.shape[1]
     if not 1 <= d <= _MAX_DIMS or not 1 <= len(layers) <= _MAX_LAYERS:
         raise ValueError(f"kernel takes 1-{_MAX_DIMS} inputs and 1-{_MAX_LAYERS} layers, "
                          f"got d={d} and {len(layers)} layers")
     dims = [d]
-    Wk, bk = [], []
     for i, (W, b) in enumerate(layers):
         for name, t in (('W', W), ('b', b)):
             if t.dtype != dtype or t.device != device:
@@ -145,34 +185,63 @@ def _launch(points, layers, order, actv):
             raise ValueError(f"layer {i}: W {tuple(W.shape)} and b {tuple(b.shape)} do not "
                              f"chain from width {dims[-1]}")
         dims.append(W.shape[1])
-        Wk.append(W.t().contiguous())
-        bk.append(b.contiguous())
+    return tuple(dims)
 
+
+def _row_major(t):
+    """``t`` itself where its data are already row-major, else a copy."""
+    return t if t.is_contiguous() else t.contiguous()
+
+
+def _launch(points, layers, order, actv):
+    """Check the inputs, allocate the outputs and launch the CUDA kernel on
+    the current stream. Weights may be any (n_in, n_out) view: the kernels
+    read them in ``nn.Linear``'s (n_out, n_in) row-major layout, which for
+    ``nn.Linear`` weights costs no copy."""
+    from ._build import load_library
+
+    dims = _check(points, layers, order, actv)
+    dtype, device = points.dtype, points.device
+    n, d = points.shape
     n_out = dims[-1]
-    c0 = torch.empty((n, n_out), dtype=dtype, device=device)
-    c1 = torch.empty((d, n, n_out), dtype=dtype, device=device)
-    c2 = torch.empty((d, n, n_out), dtype=dtype, device=device) if order == 2 else None
+    out = torch.empty((_streams(d, order), n, n_out), dtype=dtype, device=device)  # one allocation
+    c0, c1, c2 = out[0], out[1:1 + d], (out[1 + d:] if order == 2 else None)
     if n == 0:
         return (c0, c1, c2)[:order + 1]
-    esize = points.element_size()
-    tile, smem = _plan(n, d, dims, order, esize, device)
+    index = points.get_device()
+    key = (dtype, index, dims, order, n)
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = _PLANS[key] = _plan(n, dims, order, points.element_size(), _sm_count(index))
+    Wk = [_row_major(W.t()) for W, _ in layers]  # kept alive until the launch is enqueued
+    bk = [_row_major(b) for _, b in layers]
 
     lib = load_library()
-    fn = lib.taylor_mlp_forward_f32 if dtype == torch.float32 else lib.taylor_mlp_forward_f64
-    c_dims = (ctypes.c_int * len(dims))(*dims)
-    c_W = (ctypes.c_void_p * len(Wk))(*[w.data_ptr() for w in Wk])
-    c_b = (ctypes.c_void_p * len(bk))(*[t.data_ptr() for t in bk])
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = fn(ctypes.c_void_p(points.data_ptr()), n, d, len(layers), c_dims, c_W, c_b,
-                 order, _ACTVS[actv], tile, _THREADS, smem,
-                 ctypes.c_void_p(c0.data_ptr()), ctypes.c_void_p(c1.data_ptr()),
-                 ctypes.c_void_p(c2.data_ptr() if c2 is not None else None),
-                 ctypes.c_void_p(stream))
+    suffix = '_f32' if dtype == torch.float32 else '_f64'
+    p0, stride = out.data_ptr(), n * n_out * points.element_size()
+    outs = [points.data_ptr(), p0, p0 + stride, p0 + (1 + d) * stride if order == 2 else None]
+    if plan.kernel == 'taylor_mlp_1h':
+        args = (outs[0], n, d, dims[1], n_out, Wk[0].data_ptr(), bk[0].data_ptr(),
+                Wk[1].data_ptr(), bk[1].data_ptr(), order, _ACTVS[actv], plan.tile, plan.threads,
+                *outs[1:])
+    else:
+        args = (outs[0], n, d, len(layers), (ctypes.c_int * len(dims))(*dims),
+                (ctypes.c_void_p * len(Wk))(*[w.data_ptr() for w in Wk]),
+                (ctypes.c_void_p * len(bk))(*[t.data_ptr() for t in bk]),
+                order, _ACTVS[actv], plan.tile, plan.threads, plan.smem, plan.hstride, *outs[1:])
+    fn = getattr(lib, plan.kernel + suffix)
+    # the current stream's raw handle, read as torch's inductor-generated code
+    # reads it: ``torch.cuda.current_stream()`` builds a Stream object per call
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, stream)
     if err != 0:
-        raise RuntimeError(f"taylor_mlp kernel launch failed: CUDA error {err} "
-                           f"(n={n}, dims={dims}, order={order}, tile={tile}, smem={smem})")
-    LAUNCHES += 1
+        raise RuntimeError(f"{plan.kernel} kernel launch failed: CUDA error {err} "
+                           f"(n={n}, dims={dims}, order={order}, plan={plan})")
+    LAUNCHES[plan.kernel] += 1
     return (c0, c1, c2)[:order + 1]
 
 
@@ -204,12 +273,18 @@ class _TaylorMLPFn(torch.autograd.Function):
         return (result[0], None, None, *result[1:])
 
 
+@functools.lru_cache(maxsize=None)
+def _precision_once():
+    full_precision_matmuls()  # the backward's float32 matmuls must not drop to TF32
+
+
 def fcnn_taylor(points, layers, order, actv='tanh'):
     """Fused Taylor evaluation of a tanh or sin FCNN on ``points``.
 
     A CPU tensor runs :func:`fcnn_taylor_reference`. A CUDA tensor launches
-    the CUDA kernel (order 1 or 2, float32 or float64) or raises; it never
-    falls back to the twin.
+    a CUDA kernel (order 1 or 2, float32 or float64) or raises; it never
+    falls back to the twin. Where no gradient is needed, the kernel is
+    launched without the autograd function around it.
 
     :param points: (N, d) collocation points (the directions are the d axes).
     :param layers: ``[(W, b), ...]`` with ``W`` (n_in, n_out), ``b`` (n_out,).
@@ -221,6 +296,8 @@ def fcnn_taylor(points, layers, order, actv='tanh'):
         return fcnn_taylor_reference(points, layers, order, actv)
     if points.device.type != 'cuda':
         raise TypeError(f"fcnn_taylor runs on 'cpu' or 'cuda' tensors, got {points.device}")
-    full_precision_matmuls()  # the backward's float32 matmuls must not drop to TF32
+    _precision_once()
     flat = [t for W, b in layers for t in (W, b)]
-    return _TaylorMLPFn.apply(points, order, actv, *flat)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in [points, *flat]):
+        return _TaylorMLPFn.apply(points, order, actv, *flat)
+    return _launch(points, layers, order, actv)

@@ -15,7 +15,9 @@ __all__ = ['set_tensor_type', 'set_seed', 'get_default_dtype', 'get_default_devi
            'get_generator', 'resolve', 'full_precision_matmuls']
 
 _DEFAULT_DTYPE = torch.float32
-_DEFAULT_DEVICE = torch.device('cpu')
+# the card: a caller without one asks for the CPU. Kept as a str, so that
+# importing the port makes no torch.device and touches no CUDA.
+_DEFAULT_DEVICE = 'cuda'
 _SEED = 0
 # device -> torch.Generator seeded from _SEED; emptied by set_seed
 _GENERATORS = {}
@@ -24,7 +26,13 @@ _GENERATORS = {}
 def set_tensor_type(device_type=None, float_bits=32):
     """Set the port's default floating dtype and (optionally) device.
 
-    :param device_type: 'cpu', 'cuda', or None to keep the current device.
+    The default device is ``'cuda'``: nets, generators and solvers built
+    without a ``device`` go to the card, and where there is none, torch's
+    own error says so. Nothing falls back to the CPU; a caller without a GPU
+    asks for it with ``set_tensor_type('cpu')`` or ``device='cpu'``.
+
+    :param device_type: 'cpu', 'cuda' (or 'cuda:1', ...), or None to keep
+        the current device.
     :param float_bits: 32 or 64.
     """
     global _DEFAULT_DTYPE, _DEFAULT_DEVICE
@@ -37,7 +45,7 @@ def set_tensor_type(device_type=None, float_bits=32):
     if device_type is not None:
         if not isinstance(device_type, str):
             raise TypeError(f"device_type must be a str, got {device_type}")
-        _DEFAULT_DEVICE = torch.device(device_type)
+        _DEFAULT_DEVICE = str(torch.device(device_type))
 
 
 def get_default_dtype():
@@ -46,13 +54,16 @@ def get_default_dtype():
 
 
 def get_default_device():
-    """The port's default device for new points and networks."""
-    return _DEFAULT_DEVICE
+    """The port's default device for new points and networks (``cuda``
+    unless :func:`set_tensor_type` changed it)."""
+    return torch.device(_DEFAULT_DEVICE)
 
 
 def resolve(device=None, dtype=None):
-    """``(device, dtype)`` with the port's defaults filled in."""
-    device = torch.device(device) if device is not None else _DEFAULT_DEVICE
+    """``(device, dtype)`` with the port's defaults filled in: the device
+    is ``cuda`` unless :func:`set_tensor_type` changed it, with no fallback
+    to the CPU."""
+    device = torch.device(device if device is not None else _DEFAULT_DEVICE)
     return device, (dtype if dtype is not None else _DEFAULT_DTYPE)
 
 

@@ -19,9 +19,19 @@ from neurodiffeq_tpu_torch import fields as F
 from neurodiffeq_tpu_torch.conditions import DirichletBVP2D
 from neurodiffeq_tpu_torch.generators import Generator2D
 from neurodiffeq_tpu_torch.networks import FCNN, SinActv, Tanh
+from neurodiffeq_tpu_torch.utils import get_default_device, get_default_dtype, set_tensor_type
 
 torch.set_num_threads(2)
 TOL = 1e-10
+
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    """The port defaults to the card; these tests ask for the CPU."""
+    device, dtype = get_default_device(), get_default_dtype()
+    set_tensor_type('cpu', 64 if dtype == torch.float64 else 32)
+    yield
+    set_tensor_type(str(device), 64 if dtype == torch.float64 else 32)
 
 
 def _cond(mod):

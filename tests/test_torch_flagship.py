@@ -23,12 +23,22 @@ from neurodiffeq_tpu_torch.conditions import DirichletBVP2D
 from neurodiffeq_tpu_torch.generators import Generator2D
 from neurodiffeq_tpu_torch.networks import FCNN
 from neurodiffeq_tpu_torch.solvers import Solver2D
+from neurodiffeq_tpu_torch.utils import get_default_device, get_default_dtype, set_tensor_type
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from __graft_entry__ import _flagship_solver  # noqa: E402
 
 torch.set_num_threads(2)
 GRID, HIDDEN = (8, 8), (16,)
+
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    """The port defaults to the card; these tests ask for the CPU."""
+    device, dtype = get_default_device(), get_default_dtype()
+    set_tensor_type('cpu', 64 if dtype == torch.float64 else 32)
+    yield
+    set_tensor_type(str(device), 64 if dtype == torch.float64 else 32)
 
 
 def _torch_flagship(grid=GRID, hidden=HIDDEN, **kwargs):

@@ -22,11 +22,21 @@ import torch
 
 from neurodiffeq_tpu_torch.ops import taylor_mlp
 from neurodiffeq_tpu_torch.ops.taylor_mlp import fcnn_taylor, fcnn_taylor_reference
+from neurodiffeq_tpu_torch.utils import get_default_device, get_default_dtype, set_tensor_type
 
 torch.set_num_threads(2)
 
 REPO = Path(__file__).resolve().parent.parent
 RTOL = 1e-12
+
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    """The port defaults to the card; these tests ask for the CPU."""
+    device, dtype = get_default_device(), get_default_dtype()
+    set_tensor_type('cpu', 64 if dtype == torch.float64 else 32)
+    yield
+    set_tensor_type(str(device), 64 if dtype == torch.float64 else 32)
 
 # (layer widths, activation, order): the chip check's shapes at small widths
 CASES = [
@@ -93,7 +103,7 @@ def test_reference_matches_pure_jax_and_pallas(dims, actv, order):
 
 def test_cpu_entry_is_the_reference():
     pts, layers = _inputs((2, 16, 1))
-    launches = taylor_mlp.LAUNCHES
+    launches = dict(taylor_mlp.LAUNCHES)
     a = fcnn_taylor(torch.tensor(pts), _torch_layers(layers), 2)
     b = fcnn_taylor_reference(torch.tensor(pts), _torch_layers(layers), 2)
     for x, y in zip(a, b):
@@ -166,8 +176,9 @@ def test_port_imports_without_nvcc_or_jax():
         "import sys; import neurodiffeq_tpu_torch as p; "
         "from neurodiffeq_tpu_torch.ops import _build, taylor_mlp; "
         "assert _build._LIB is None and 'jax' not in sys.modules; "
-        "import torch; from neurodiffeq_tpu_torch.networks import FCNN; "
-        "print(FCNN(2, 1, hidden_units=(4,))(torch.zeros(3, 2)).shape)")
+        "import torch; assert not torch.cuda.is_initialized(); "
+        "from neurodiffeq_tpu_torch.networks import FCNN; "
+        "print(FCNN(2, 1, hidden_units=(4,), device='cpu')(torch.zeros(3, 2)).shape)")
     env = dict(os.environ, PATH=os.path.dirname(sys.executable), CUDA_HOME='/nonexistent')
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
@@ -178,29 +189,171 @@ def test_port_imports_without_nvcc_or_jax():
         assert not pattern.search(src.read_text()), src
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize('dtype,rtol', [(torch.float64, 1e-10), (torch.float32, 1e-4)])
-@pytest.mark.parametrize('dims,actv,order,n', [((2, 512, 1), 'tanh', 2, 1024),
-                                               ((2, 64, 64, 1), 'tanh', 2, 1000),
-                                               ((1, 32, 32, 1), 'sin', 1, 37),
-                                               ((1, 32, 32, 1), 'sin', 2, 37),
-                                               ((3, 16, 2), 'tanh', 2, 37),
-                                               ((2, 1), 'tanh', 2, 37)])
-def test_cuda_kernel_matches_reference(dims, actv, order, n, dtype, rtol):
-    """Kernel against twin on the card. float32 tolerance: the kernel sums
-    in another order than cuBLAS."""
+# (layer widths, activation, order, N): the chip check's table of shapes
+KERNEL_SHAPES = [
+    ((2, 512, 1), 'tanh', 2, 1024),
+    ((2, 512, 1), 'tanh', 2, 10201),
+    ((2, 512, 1), 'tanh', 2, 65536),
+    ((8, 64, 1), 'tanh', 2, 1023),
+    ((2, 50, 3), 'sin', 1, 37),
+    ((2, 50, 3), 'sin', 2, 1),
+    ((2, 50, 3), 'sin', 2, 37),
+    ((2, 32, 32, 1), 'tanh', 2, 1024),
+    ((3, 64, 64, 1), 'tanh', 2, 512),
+    ((2, 128, 128, 128, 128, 128, 3), 'tanh', 2, 16384),
+    ((2, 64, 64, 1), 'tanh', 2, 1000),
+    ((1, 32, 32, 1), 'sin', 1, 37),
+    ((1, 32, 32, 1), 'sin', 2, 37),
+    ((3, 16, 2), 'tanh', 2, 37),
+    ((2, 1), 'tanh', 2, 37),
+]
+H100_SMS = 132
+
+
+@pytest.mark.parametrize('esize', [4, 8])
+@pytest.mark.parametrize('dims,actv,order,n', KERNEL_SHAPES)
+def test_plan_picks_the_kernel_and_covers_the_batch(dims, actv, order, n, esize):
+    """One hidden layer takes the 1h kernel and nothing else does; every
+    plan fits a block's shared memory, launches whole warps, and its blocks
+    cover N (ragged N included) with no block past the end."""
+    plan = taylor_mlp._plan(n, dims, order, esize, H100_SMS)
+    s = 1 + order * dims[0]
+    assert plan.kernel == ('taylor_mlp_1h' if len(dims) == 3 else 'taylor_mlp')
+    assert 0 <= plan.smem <= 232448
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 256
+    assert plan.blocks * plan.tile >= n > (plan.blocks - 1) * plan.tile
+    if plan.kernel == 'taylor_mlp_1h':
+        assert 1 <= plan.tile <= taylor_mlp._max_tile_1h(s) and plan.smem == 0
+    elif len(dims) > 2:
+        assert plan.tile == plan.threads // 32 * taylor_mlp._points_per_warp(s)
+        assert plan.hstride == max(dims[1:-1])
+        assert plan.smem == esize * (2 * s * plan.tile * plan.hstride + 2 * 16 * 129)
+
+
+def test_plan_fills_the_card_at_the_flagship():
+    """N = 1024 through 2-512-1: two blocks on every SM, not 128 blocks of 8 points."""
+    plan = taylor_mlp._plan(1024, (2, 512, 1), 2, 4, H100_SMS)
+    assert plan.blocks >= H100_SMS and plan.threads == 256 and plan.tile == 4
+    # larger N: the registers cap the tile at 32 // 5 points, and fewer
+    # warps per block give each lane more units per warp sum
+    for n, threads in ((10201, 64), (65536, 32)):
+        big = taylor_mlp._plan(n, (2, 512, 1), 2, 4, H100_SMS)
+        assert (big.tile, big.threads) == (6, threads)
+    deep = taylor_mlp._plan(16384, (2,) + (128,) * 5 + (3,), 2, 4, H100_SMS)
+    assert deep.blocks >= 2 * H100_SMS and deep.threads == 256
+
+
+def test_plan_raises_where_one_warp_cannot_fit():
+    with pytest.raises(ValueError, match='shared memory'):
+        taylor_mlp._plan(64, (8, 4096, 4096, 1), 2, 8, H100_SMS)
+    taylor_mlp._plan(64, (8, 4096, 1), 2, 8, H100_SMS)  # one hidden layer keeps no streams
+
+
+def _bad_inputs(case):
+    """(points, layers, order, actv) that the kernels do not take, one fault each."""
+    pts, layers = _inputs((2, 8, 1))
+    pts, layers, order, actv = torch.tensor(pts), _torch_layers(layers), 2, 'tanh'
+    if case == 'points dtype':
+        pts = pts.half()
+    elif case == 'points not (N, d)':
+        pts = pts[None]
+    elif case == 'points not contiguous':
+        pts = pts.t().contiguous().t()
+    elif case == 'layer dtype':
+        layers[1] = (layers[1][0].float(), layers[1][1])
+    elif case == 'widths do not chain':
+        layers[1] = (layers[1][0][:4], layers[1][1])
+    elif case == 'bias shape':
+        layers[0] = (layers[0][0], layers[0][1][:3])
+    elif case == 'order':
+        order = 3
+    elif case == 'activation':
+        actv = 'relu'
+    elif case == 'too many inputs':
+        pts = torch.rand(5, 9, dtype=torch.float64)
+        layers[0] = (torch.rand(9, 8, dtype=torch.float64), layers[0][1])
+    elif case == 'too many layers':
+        layers = layers[:1] + [(torch.rand(8, 8, dtype=torch.float64), layers[0][1])] * 16 + layers[1:]
+    return pts, layers, order, actv
+
+
+@pytest.mark.parametrize('case,error', [
+    ('points dtype', TypeError), ('points not (N, d)', ValueError),
+    ('points not contiguous', ValueError), ('layer dtype', TypeError),
+    ('widths do not chain', ValueError), ('bias shape', ValueError), ('order', ValueError),
+    ('activation', ValueError), ('too many inputs', ValueError), ('too many layers', ValueError)])
+def test_kernel_checks_raise(case, error):
+    """The wrapper raises on what the kernels do not take, before any launch."""
+    with pytest.raises(error):
+        taylor_mlp._check(*_bad_inputs(case))
+    pts, layers, order, actv = _bad_inputs(None)
+    assert taylor_mlp._check(pts, layers, order, actv) == (2, 8, 1)
+
+
+@pytest.mark.parametrize('order', [1, 2])
+@pytest.mark.parametrize('dims,actv', [((2, 64, 1), 'tanh'), ((3, 16, 2), 'sin')])
+def test_folded_output_layer_matches_pure_jax(dims, actv, order):
+    """The 1h kernel's fold, in float64 numpy: with v = W2[j, o], unit j adds
+    a_j v to c0, f'_j (W1[d, j] v) to c1_d and f''_j (W1[d, j]^2 v) to c2_d."""
+    _, jnp, _pure_jax_taylor, _ = _jax()
+    pts, layers = _inputs(dims, n=29, seed=3)
+    (W1, b1), (W2, b2) = layers
+    z = pts @ W1 + b1
+    if actv == 'tanh':
+        a = np.tanh(z)
+        f1 = 1 - a * a
+        f2 = -2 * a * f1
+    else:
+        a, f1, f2 = np.sin(z), np.cos(z), -np.sin(z)
+    wv = W1[:, :, None] * W2[None]                # (d, h, out): W1[d, j] v
+    wwv = (W1 * W1)[:, :, None] * W2[None]        # (d, h, out): W1[d, j]^2 v
+    folded = [a @ W2 + b2, np.einsum('nj,djo->dno', f1, wv), np.einsum('nj,djo->dno', f2, wwv)]
+    want = _pure_jax_taylor(jnp.asarray(pts), _jax_flat(layers), 2, order, dims[0], actv)
+    assert len(want) == order + 1
+    for got, w in zip(folded, want):
+        _assert_close(got, w)
+
+
+def _cuda_inputs(dims, n, dtype):
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device (runs on the GPU machine)')
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     pts, layers = _inputs(dims, n=n)
-    p = torch.tensor(pts, dtype=dtype, device='cuda')
-    ls = [(torch.tensor(W, dtype=dtype, device='cuda'), torch.tensor(b, dtype=dtype, device='cuda'))
-          for W, b in layers]
-    launches = taylor_mlp.LAUNCHES
+    # weights in nn.Linear's (out, in) storage, seen through (in, out) views
+    return (torch.tensor(pts, dtype=dtype, device='cuda'),
+            [(torch.tensor(W.T, dtype=dtype, device='cuda').t(), torch.tensor(b, dtype=dtype, device='cuda'))
+             for W, b in layers])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,rtol', [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+@pytest.mark.parametrize('dims,actv,order,n', KERNEL_SHAPES)
+def test_cuda_kernel_matches_reference(dims, actv, order, n, dtype, rtol):
+    """Kernel against twin on the card. float32 tolerance: the kernel sums
+    in another order than cuBLAS."""
+    p, ls = _cuda_inputs(dims, n, dtype)
+    name = 'taylor_mlp_1h' if len(dims) == 3 else 'taylor_mlp'
+    launches = dict(taylor_mlp.LAUNCHES)
     got = fcnn_taylor(p, ls, order, actv)
     torch.cuda.synchronize()
-    assert taylor_mlp.LAUNCHES == launches + 1
+    assert taylor_mlp.LAUNCHES == {**launches, name: launches[name] + 1}
     want = fcnn_taylor_reference(p, ls, order, actv)
+    assert len(got) == order + 1
     for g, w in zip(got, want):
         _assert_close(g, w.cpu().numpy(), rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('dims,actv,order,n', [((2, 512, 1), 'tanh', 2, 10201),
+                                               ((2, 50, 3), 'sin', 2, 37),
+                                               ((2, 128, 128, 128, 128, 128, 3), 'tanh', 2, 16384)])
+def test_cuda_kernel_is_deterministic(dims, actv, order, n, dtype):
+    """No atomics: two launches on the same inputs give bitwise-equal outputs."""
+    p, ls = _cuda_inputs(dims, n, dtype)
+    first = fcnn_taylor(p, ls, order, actv)
+    second = fcnn_taylor(p, ls, order, actv)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
