@@ -12,11 +12,13 @@ line each or more:
    every shape of ``CHECK_SHAPES`` and ``TABLE_SHAPES``, and two launches
    of each must be bitwise equal. Error = max |kernel - twin| / max |twin|;
    limits 1e-10 (float64) and 1e-4 (float32: the kernel sums in another
-   order than cuBLAS);
+   order than cuBLAS). Then SIREN (w0 = 30, ``SIREN_SHAPES``, order 2),
+   whose Taylor path folds w0 into its layers and launches the kernel,
+   against the plain layer-by-layer engine, with the same limits;
 4. gradient through the kernel's autograd function against autograd over
    the twin, flagship shape, float64, limit 1e-10;
-5. the two paths, each with the launch counts reset just before and read
-   just after:
+5. the paths, each with the launch counts reset just before and read just
+   after:
    a. the main path, flagship training (Solver2D, FCNN 2-512-1 tanh,
       32 x 32 grid), float32, ``fit(2000)``: ``taylor_mlp_1h`` must carry
       it, no Taylor fallback may occur, the loss must fall, and
@@ -25,10 +27,19 @@ line each or more:
    b. the same problem through ``Solver2D`` with every default (the
       default device, the default FCNN 2-32-32-1, the default generators),
       ``fit(300)``: ``taylor_mlp`` must carry it and the loss must fall;
+   c. the ODE path, Lotka-Volterra through ``Solver1D`` (two FCNN 1-32-32-1
+      sin nets, ``IVP(0.1, 1.5)`` and ``IVP(0.1, 1.0)``, t in [0.1, 12], the
+      default generators of 32 points), float32, ``fit(3000)`` with a
+      ``PeriodLocal(500)``-gated callback: ``taylor_mlp`` must carry it, no
+      fallback, the loss must fall, the callback must fire at epochs
+      500, ..., 3000, max |u - odeint| < 0.05 on 500 points and the initial
+      values exact to 1e-5; then ``fit(200)`` of the same problem under the
+      ``h1`` loss, which reaches the kernel at order 2;
 6. timing: device time per call of kernel and twin at every shape of
    ``TABLE_SHAPES`` (``torch.profiler``) beside the kernel's bound, the
    wrapper's host enqueue time per call, and train-only epochs/s with the
-   kernel and with the twin swapped in, interleaved;
+   kernel and with the twin swapped in, interleaved; the Lotka-Volterra
+   epoch's rate and its device-busy share (full run only);
 7. the result.
 
 ``python3 chip_smoke.py --times-only`` runs phases 1, 2 and 6 alone, with
@@ -39,6 +50,7 @@ Any failure ends the run with a non-zero exit code and no result line. The
 card's name and power limit and the kernel record come before the last
 line, which is ``{"ok": true, "device": {...}}``.
 """
+import inspect
 import json
 import math
 import re
@@ -54,6 +66,7 @@ ROOT = Path(__file__).resolve().parent
 KERNEL_SOURCE = 'neurodiffeq_tpu_torch/csrc/taylor_mlp.cu'
 REPLACES = 'neurodiffeq_tpu/ops/pallas_mlp.py:115'
 GRID, HIDDEN, EPOCHS, DEFAULT_NET_EPOCHS = (32, 32), (512,), 2000, 300
+LV_EPOCHS, LV_H1_EPOCHS, LV_PERIOD = 3000, 200, 500
 F32, F64 = torch.float32, torch.float64
 CHECK_SHAPES = [  # (layer widths, activation, order, N)
     ((2, 512, 1), 'tanh', 2, 1024),
@@ -75,7 +88,10 @@ TABLE_SHAPES = [  # (layer widths, activation, order, N, dtype timed in phase 6)
     ((2, 32, 32, 1), 'tanh', 2, 1024, F32),  # Solver2D's default net, phase 5b
     ((3, 64, 64, 1), 'tanh', 2, 512, F32),   # spherical Poisson width
     ((2, 128, 128, 128, 128, 128, 3), 'tanh', 2, 16384, F32),  # cavity width
+    ((1, 32, 32, 1), 'sin', 1, 32, F32),     # Lotka-Volterra batch, phase 5c
+    ((1, 32, 32, 1), 'sin', 2, 32, F32),     # the same under the h1 loss
 ]
+SIREN_SHAPES = [((2, 32, 32, 1), 1024), ((2, 64, 1), 1024)]  # (layer widths, N), w0 = 30, order 2
 TOL = {F64: 1e-10, F32: 1e-4}
 # H100 SXM peaks outside the tensor cores (float32, float64) and HBM3's rate, NVIDIA's data sheet
 PEAK_FLOPS = {F32: 67e12, F64: 34e12}
@@ -168,6 +184,170 @@ def laplace_solver(**kwargs):
         y_max=1.0, y_max_val=lambda x: 0 * x)
     return Solver2D(pde_system=lambda u, x, y: [diff(u, x, 2) + diff(u, y, 2)],
                     conditions=[cond], xy_min=(0.0, 0.0), xy_max=(1.0, 1.0), **kwargs)
+
+
+def lv_solver(**kwargs):
+    """Lotka-Volterra, the BASELINE config of ``benchmarks/configs.py``: two
+    FCNN 1-32-32-1 sin nets through ``Solver1D`` with its default
+    generators, on the port's default device and dtype (cuda, float32)."""
+    from neurodiffeq_tpu_torch import diff
+    from neurodiffeq_tpu_torch.conditions import IVP
+    from neurodiffeq_tpu_torch.networks import FCNN, SinActv
+    from neurodiffeq_tpu_torch.solvers import Solver1D
+
+    return Solver1D(ode_system=lambda u, v, t: [diff(u, t) - (u - u * v), diff(v, t) - (u * v - v)],
+                    conditions=[IVP(0.1, 1.5), IVP(0.1, 1.0)], t_min=0.1, t_max=12.0,
+                    nets=[FCNN(actv=SinActv), FCNN(actv=SinActv)], **kwargs)
+
+
+def lv_reference(ts):
+    """(prey, predator) of Lotka-Volterra at ``ts`` by ``scipy.integrate.odeint``."""
+    from scipy.integrate import odeint
+    ref = odeint(lambda y, t: [y[0] - y[0] * y[1], y[0] * y[1] - y[1]], [1.5, 1.0], ts, rtol=1e-10, atol=1e-10)
+    return ref[:, 0], ref[:, 1]
+
+
+def check_siren():
+    """Phase 3, SIREN: {(dims, n, dtype): max abs error} of the kernel path
+    against the plain layer-by-layer engine, or SystemExit."""
+    from neurodiffeq_tpu_torch.networks import SIREN
+    from neurodiffeq_tpu_torch.ops.taylor import TContext, TSeries
+
+    errors = {}
+    with torch.no_grad():
+        for dtype in (F64, F32):
+            for i, (dims, n) in enumerate(SIREN_SHAPES):
+                torch.manual_seed(i)
+                net = SIREN(dims[0], dims[-1], hidden_units=dims[1:-1], w0=30.0, device='cuda', dtype=dtype)
+                pts = torch.rand(n, dims[0], generator=torch.Generator().manual_seed(200 + i),
+                                 dtype=F64).to('cuda', dtype)
+                d1 = torch.eye(dims[0], dtype=dtype, device='cuda')[:, None, :]
+                ctx = TContext(pts, 2)
+
+                def series(meta):
+                    return net.taylor_apply(TSeries(pts, [d1, torch.zeros_like(d1)], meta=meta), ctx)
+
+                got, again, want = series('raw_coords'), series('raw_coords'), series(None)
+                torch.cuda.synchronize()
+                got, again, want = ([s.c0] + s.derivs for s in (got, again, want))
+                errs = [rel_err(a, b) for a, b in zip(got, want)]
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                ok = same and all(e <= TOL[dtype] for e in errs)
+                phase('3 kernel', f"SIREN w0=30 {shape_name(dims, 'sin', 2, n, dtype)} against the plain engine: "
+                                  f"rel err {' '.join(f'{e:.2e}' for e in errs)} (limit {TOL[dtype]:.0e}), "
+                                  f"two launches {'bitwise equal' if same else 'DIFFER'} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit("chip_smoke: SIREN's kernel path disagrees with the plain engine")
+                errors[(dims, n, dtype)] = max((a - b).abs().max().item() for a, b in zip(got, want))
+    return errors
+
+
+def run_lv(F, taylor_mlp):
+    """Phase 5c: the ODE path. Returns the launch counts of the l2 and h1 fits."""
+    from neurodiffeq_tpu_torch.callbacks import ActionCallback, PeriodLocal
+    from neurodiffeq_tpu_torch.utils import set_seed
+
+    class Record(ActionCallback):
+        """Records the epochs and losses at which it fires."""
+
+        def __init__(self):
+            super().__init__()
+            self.fired = []
+
+        def __call__(self, solver):
+            self.fired.append((solver.local_epoch, solver.metrics_history['train_loss'][-1]))
+
+    set_seed(0)
+    solver = lv_solver()
+    record = Record()
+    F.reset_taylor_fallback_count()
+    taylor_mlp.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver.fit(LV_EPOCHS, callbacks=[record.conditioned_on(PeriodLocal(LV_PERIOD))], tqdm_file=None)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(taylor_mlp.LAUNCHES)
+    fallbacks = F.taylor_fallback_count()
+    hist = solver.metrics_history['train_loss']
+    early, late = float(np.mean(hist[:100])), float(np.mean(hist[-100:]))
+    ts = np.linspace(0.1, 12, 500)
+    prey, pred = solver.get_solution()(ts, to_numpy=True)
+    ref_prey, ref_pred = lv_reference(ts)
+    max_err = float(max(np.abs(prey - ref_prey).max(), np.abs(pred - ref_pred).max()))
+    u0 = [float(u[0]) for u in solver.get_solution()(np.array([0.1]), to_numpy=True)]
+    ic_err = max(abs(u0[0] - 1.5), abs(u0[1] - 1.0))
+    checks = {
+        'taylor_mlp launched during fit': launches['taylor_mlp'] > 0,
+        'no Taylor fallback': fallbacks == 0,
+        'loss fell': late < early,
+        'callback fired every 500 epochs': [e for e, _ in record.fired] == list(range(LV_PERIOD, LV_EPOCHS + 1,
+                                                                                     LV_PERIOD)),
+        'max error vs odeint < 0.05': bool(np.isfinite(prey).all() and np.isfinite(pred).all()) and max_err < 0.05,
+        'initial values exact to 1e-5': ic_err < 1e-5,
+    }
+    phase('5c Lotka-Volterra', f"Solver1D fit({LV_EPOCHS}) float32 in {fit_s:.1f} s ({LV_EPOCHS / fit_s:.1f} "
+                               f"epochs/s with validation): launches {launches} "
+                               f"({launches['taylor_mlp'] / LV_EPOCHS:.2f} taylor_mlp per epoch), {fallbacks} "
+                               f"fallbacks, train loss mean {early:.3e} (first 100) -> {late:.3e} (last 100), "
+                               f"callback fired at {[e for e, _ in record.fired]}, max |u - odeint| on 500 points "
+                               f"{max_err:.3e}, u(0.1) = {u0} (error {ic_err:.1e}); "
+                               + ', '.join(f"{k}: {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+    if not all(checks.values()):
+        raise SystemExit("chip_smoke: Lotka-Volterra check failed")
+
+    set_seed(0)
+    solver = lv_solver(loss_fn='h1')
+    F.reset_taylor_fallback_count()
+    taylor_mlp.reset_launches()
+    solver.fit(LV_H1_EPOCHS, tqdm_file=None)
+    torch.cuda.synchronize()
+    launches_h1 = dict(taylor_mlp.LAUNCHES)
+    fallbacks = F.taylor_fallback_count()
+    hist = solver.metrics_history['train_loss']
+    early, late = float(np.mean(hist[:20])), float(np.mean(hist[-20:]))
+    checks = {
+        'taylor_mlp launched during fit': launches_h1['taylor_mlp'] > 0,
+        'no Taylor fallback': fallbacks == 0,
+        'loss fell': bool(np.isfinite(hist).all()) and late < early,
+    }
+    phase('5c Lotka-Volterra', f"h1 loss, fit({LV_H1_EPOCHS}): launches {launches_h1} "
+                               f"({launches_h1['taylor_mlp'] / LV_H1_EPOCHS:.2f} taylor_mlp per epoch, order 2), "
+                               f"{fallbacks} fallbacks, train loss mean {early:.3e} (first 20) -> {late:.3e} "
+                               f"(last 20); " + ', '.join(f"{k}: {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+    if not all(checks.values()):
+        raise SystemExit("chip_smoke: Lotka-Volterra h1 check failed")
+    return launches, launches_h1
+
+
+def time_lv(card):
+    """Phase 6: the Lotka-Volterra epoch (train and validation, as ``fit``
+    runs it): epochs/s over interleaved windows, and device time per epoch
+    and kernels per epoch from the profiler, as a share of the epoch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    solver = lv_solver()
+    solver.fit(50, tqdm_file=None)
+    rates = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.fit(300, tqdm_file=None)
+        torch.cuda.synchronize()
+        rates.append(300 / (time.perf_counter() - t0))
+    n = 50
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        solver.fit(n, tqdm_file=None)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type.name == 'CUDA']
+    dev_ms = sum(e.device_time for e in kernels) / n / 1e3
+    med = float(np.median(rates))
+    phase('6 timing', f"{card}: Lotka-Volterra epochs/s (train + 4 validation batches, 2 nets) in 300-epoch "
+                      f"windows: {' '.join(f'{r:.2f}' for r in rates)} (median {med:.2f}, "
+                      f"{1e3 / med:.3f} ms per epoch); profiler over {n} epochs: {len(kernels) / n:.1f} device "
+                      f"kernels and {dev_ms:.4f} ms of device time per epoch, device busy "
+                      f"{dev_ms * med / 1e3:.1%} of the unprofiled epoch")
 
 
 def cuda_time_ms(fn, calls=200, warmup=10):
@@ -264,7 +444,9 @@ def time_end_to_end(card, taylor_mlp):
     fcnn_taylor, twin = taylor_mlp.fcnn_taylor, taylor_mlp.fcnn_taylor_reference
     n = GRID[0] * GRID[1]
     bench = flagship_solver(n_batches_valid=0)  # train-only epochs, as bench.py counts them
-    bench.fit(100)
+    # no progress bar; an older tree's fit takes no tqdm_file and shows none
+    quiet = {'tqdm_file': None} if 'tqdm_file' in inspect.signature(bench.fit).parameters else {}
+    bench.fit(100, **quiet)
     with torch.no_grad():
         pts = torch.rand(n, 2, device='cuda')
         ls = [(W.detach(), b.detach()) for W, b in bench.nets[0].layers()]
@@ -281,7 +463,7 @@ def time_end_to_end(card, taylor_mlp):
             lambda p, layers, order, actv='tanh': twin(p, layers, order, actv))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        bench.fit(300)
+        bench.fit(300, **quiet)
         torch.cuda.synchronize()
         rates[arm].append(300 / (time.perf_counter() - t0))
     taylor_mlp.fcnn_taylor = fcnn_taylor
@@ -332,8 +514,9 @@ def main():
         time_end_to_end(card, taylor_mlp)
         return
 
-    # ---- 3. kernels against the twin
+    # ---- 3. kernels against the twin; SIREN against the plain engine
     errors = check_kernels(fcnn_taylor, fcnn_taylor_reference)
+    check_siren()
 
     # ---- 4. gradient
     from neurodiffeq_tpu_torch.ops.taylor_mlp import _TaylorMLPFn
@@ -364,7 +547,7 @@ def main():
     taylor_mlp.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    solver.fit(EPOCHS)
+    solver.fit(EPOCHS, tqdm_file=None)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     launches_main = dict(taylor_mlp.LAUNCHES)
@@ -396,7 +579,7 @@ def main():
     solver = laplace_solver()
     F.reset_taylor_fallback_count()
     taylor_mlp.reset_launches()
-    solver.fit(DEFAULT_NET_EPOCHS)
+    solver.fit(DEFAULT_NET_EPOCHS, tqdm_file=None)
     torch.cuda.synchronize()
     launches_default = dict(taylor_mlp.LAUNCHES)
     fallbacks = F.taylor_fallback_count()
@@ -417,15 +600,21 @@ def main():
     if not all(checks.values()):
         raise SystemExit("chip_smoke: default Solver2D check failed")
 
+    # ---- 5c. the ODE path: Lotka-Volterra through Solver1D
+    launches_lv, launches_h1 = run_lv(F, taylor_mlp)
+
     # ---- 6. timing
     times = time_shapes(card, fcnn_taylor, fcnn_taylor_reference)
     time_end_to_end(card, taylor_mlp)
+    time_lv(card)
 
-    # ---- 7. result
+    # ---- 7. result: launches summed over the paths of phase 5
+    paths = {'5a': launches_main, '5b': launches_default, '5c': launches_lv, '5c h1': launches_h1}
+    phase('7 result', f"launches per path: {paths}")
     record = {'kernels': []}
-    for name, launches, key in (
-            ('taylor_mlp_1h', launches_main['taylor_mlp_1h'], ((2, 512, 1), 'tanh', 2, 1024, F32)),
-            ('taylor_mlp', launches_default['taylor_mlp'], ((2, 32, 32, 1), 'tanh', 2, 1024, F32))):
+    for name, key in (('taylor_mlp_1h', ((2, 512, 1), 'tanh', 2, 1024, F32)),
+                      ('taylor_mlp', ((2, 32, 32, 1), 'tanh', 2, 1024, F32))):
+        launches = sum(p[name] for p in paths.values())
         k_us, t_us, b_ms, b_by = times[key]
         record['kernels'].append({
             'name': name, 'route': 'cuda', 'source': KERNEL_SOURCE, 'replaces': REPLACES,

@@ -1,11 +1,23 @@
 """Deprecation helpers (counterpart of ``neurodiffeq_tpu/_version_utils.py``).
 
-``deprecated_alias`` renames deprecated keyword arguments to their new names
-with a ``FutureWarning``, and raises ``KeyError`` when both the old and the
-new name are passed.
+``warn_deprecate_class`` makes a class alias that warns with a
+``FutureWarning`` on instantiation. ``deprecated_alias`` renames deprecated
+keyword arguments to their new names with a ``FutureWarning``, and raises
+``KeyError`` when both the old and the new name are passed.
 """
 import functools
 import warnings
+
+
+def warn_deprecate_class(new_class):
+    """A factory that warns with a ``FutureWarning`` and constructs ``new_class``."""
+
+    @functools.wraps(new_class)
+    def old_class_getter(*args, **kwargs):
+        warnings.warn(f"This class name is deprecated, use {new_class} instead", FutureWarning)
+        return new_class(*args, **kwargs)
+
+    return old_class_getter
 
 
 def deprecated_alias(**aliases):

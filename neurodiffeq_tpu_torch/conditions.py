@@ -8,9 +8,11 @@ constrained solution flows through the condition exactly.
 """
 import warnings
 
-from .fields import network_field
+from ._version_utils import deprecated_alias
+from .fields import cat, exp, network_field
 
-__all__ = ['BaseCondition', 'DirichletBVP2D']
+__all__ = ['BaseCondition', 'EnsembleCondition', 'NoCondition', 'IVP', 'DirichletBVP',
+           'DirichletBVP2D']
 
 
 def _ann_field(net, coordinates, ith_unit=None):
@@ -52,6 +54,86 @@ class BaseCondition:
         warnings.warn(f"`{self.__class__.__name__}.set_impose_on` is deprecated and will be "
                       f"removed in the future", DeprecationWarning)
         self.ith_unit = ith_unit
+
+
+class EnsembleCondition(BaseCondition):
+    r"""Enforces sub-conditions on individual output units of a multi-output
+    network.
+
+    :param sub_conditions: Condition(s) to be ensemble'd.
+    :param force: Whether to force ensembl'ing even when ``.enforce`` is
+        overridden in a sub-condition.
+    """
+
+    def __init__(self, *sub_conditions, force=False):
+        super().__init__()
+        for i, c in enumerate(sub_conditions):
+            if c.__class__.enforce != BaseCondition.enforce:
+                msg = (f"{c.__class__.__name__} (index={i})'s overrides BaseCondition's "
+                       f"`.enforce` method. Ensembl'ing is likely not going to work.")
+                if force:
+                    warnings.warn(msg)
+                else:
+                    raise ValueError(msg + "\nTry with `force=True` if you know what you are doing.")
+        self.conditions = sub_conditions
+
+    def parameterize(self, output_tensor, *input_tensors):
+        r"""Re-parameterize each column individually with its sub-condition and
+        concatenate the results."""
+        if output_tensor.shape[1] != len(self.conditions):
+            raise ValueError(f"number of output units ({output_tensor.shape[1]}) "
+                             f"differs from number of conditions ({len(self.conditions)})")
+        return cat([con.parameterize(output_tensor[:, i:i + 1], *input_tensors)
+                    for i, con in enumerate(self.conditions)])
+
+
+class NoCondition(BaseCondition):
+    r"""A polymorphic condition performing no re-parameterization."""
+
+    def parameterize(self, output_tensor, *input_tensors):
+        return output_tensor
+
+
+class IVP(BaseCondition):
+    r"""An initial value problem:
+
+    - Dirichlet: :math:`u(t_0)=u_0`, enforced as
+      :math:`u(t) = u_0 + (1 - e^{-(t-t_0)})\,\mathrm{ANN}(t)`;
+    - Neumann: :math:`u'(t_0)=u_0'`, enforced as
+      :math:`u(t) = u_0 + (t-t_0)u_0' + (1 - e^{-(t-t_0)})^2\,\mathrm{ANN}(t)`.
+
+    :param t_0: The initial time.
+    :param u_0: The initial value of u.
+    :param u_0_prime: The initial derivative of u w.r.t. t, defaults to None.
+    """
+
+    @deprecated_alias(x_0='u_0', x_0_prime='u_0_prime')
+    def __init__(self, t_0, u_0=None, u_0_prime=None):
+        super().__init__()
+        self.t_0, self.u_0, self.u_0_prime = t_0, u_0, u_0_prime
+
+    def parameterize(self, output_tensor, t):
+        if self.u_0_prime is None:
+            return self.u_0 + (1 - exp(-t + self.t_0)) * output_tensor
+        return (self.u_0 + (t - self.t_0) * self.u_0_prime
+                + ((1 - exp(-t + self.t_0)) ** 2) * output_tensor)
+
+
+class DirichletBVP(BaseCondition):
+    r"""A double-ended Dirichlet boundary condition :math:`u(t_0)=u_0`,
+    :math:`u(t_1)=u_1`, enforced as
+    :math:`u(t)=(1-\tilde t)u_0+\tilde t u_1+(1-e^{(1-\tilde t)\tilde t})\mathrm{ANN}(t)`
+    with :math:`\tilde t = (t - t_0)/(t_1 - t_0)`."""
+
+    @deprecated_alias(x_0='u_0', x_1='u_1')
+    def __init__(self, t_0, u_0, t_1, u_1):
+        super().__init__()
+        self.t_0, self.u_0, self.t_1, self.u_1 = t_0, u_0, t_1, u_1
+
+    def parameterize(self, output_tensor, t):
+        t_tilde = (t - self.t_0) / (self.t_1 - self.t_0)
+        return (self.u_0 * (1 - t_tilde) + self.u_1 * t_tilde
+                + (1 - exp((1 - t_tilde) * t_tilde)) * output_tensor)
 
 
 class DirichletBVP2D(BaseCondition):

@@ -378,6 +378,10 @@ def network_field(module, coords, ith_unit=None):
     if getattr(module, 'supports_taylor', False):
         def trule(ctx):
             from .ops.taylor import TSeries, slice_series
+            # one network pass at the context's full order: a consumer that
+            # needs a deeper series later (the H1 losses differentiate the
+            # residual) finds it memoized instead of running the net again
+            ctx = ctx if ctx.order >= ctx.base.order else ctx.base
             p = ctx.points
             c0 = p[:, idxs]
             d1 = torch.eye(ctx.n_dirs, dtype=p.dtype, device=p.device)[:, idxs][:, None, :]
@@ -386,7 +390,12 @@ def network_field(module, coords, ith_unit=None):
             out = module.taylor_apply(TSeries(c0, derivs, meta=meta), ctx)
             return out if ith_unit is None else slice_series(out, ith_unit)
 
-    width = 1 if ith_unit is not None else module.n_output_units
+    if ith_unit is not None:
+        width = 1
+    elif hasattr(module, 'output_width'):  # a width that depends on the inputs (MonomialNN)
+        width = module.output_width(len(idxs))
+    else:
+        width = module.n_output_units
     return Field(cs, width, trule=trule)
 
 

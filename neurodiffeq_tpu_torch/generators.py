@@ -4,12 +4,25 @@ A generator is a description of a point set plus a ``device`` and a
 ``dtype``; ``sample(generator)`` draws one batch with an explicit
 ``torch.Generator`` on that device, and ``get_examples()`` draws with the
 port's global generator for the device (:func:`~neurodiffeq_tpu_torch.utils.get_generator`).
+Deterministic methods reproduce the JAX package's compiled arithmetic bit
+for bit; random methods match it in distribution (the JAX threefry streams
+cannot be reproduced in torch).
+
+Generators combine with ``g1 + g2`` (:class:`ConcatGenerator`) and
+``g1 * g2`` (:class:`EnsembleGenerator`).
 """
+import math
+
+import numpy as np
 import torch
 
 from .utils import get_generator, resolve
 
-__all__ = ['BaseGenerator', 'Generator2D']
+__all__ = ['BaseGenerator', 'Generator1D', 'Generator2D', 'ConcatGenerator', 'StaticGenerator',
+           'PredefinedGenerator', 'EnsembleGenerator']
+
+_NO_HALTON = ("method 'halton' is not ported yet "
+              "(ROADMAP.md §1 item 17, the high-dimensional toolkit: scrambled Halton)")
 
 
 def _linspace(start, stop, num, dtype, device):
@@ -27,6 +40,46 @@ def _linspace(start, stop, num, dtype, device):
     return torch.cat([out, torch.full((1,), stop, dtype=dtype, device=device)])
 
 
+def _chebyshev_first(a, b, n, dtype, device):
+    # XLA folds ``((i + 0.5) / n) * pi`` into ``(i + 0.5) * (pi / n)``
+    nodes = torch.cos((torch.arange(n, dtype=dtype, device=device) + 0.5) * (math.pi / n))
+    return ((a + b) + (b - a) * nodes) / 2
+
+
+def _chebyshev_second(a, b, n, dtype, device, noise=None):
+    i = torch.arange(n, dtype=dtype, device=device)
+    if noise is not None:
+        i = i + noise
+    nodes = torch.cos(i * (math.pi / float(n - 1)))
+    return ((a + b) + (b - a) * nodes) / 2
+
+
+def _chebyshev_second_noisy(gen, a, b, n, dtype, device):
+    noise = torch.rand(n, generator=gen, dtype=dtype, device=device) * 2 - 1
+    return _chebyshev_second(a, b, n, dtype, device, noise)
+
+
+def _latin_hypercube(gen, a, b, n, dtype, device):
+    step = (b - a) / n
+    lowers = a + step * torch.arange(n, dtype=dtype, device=device)
+    points = lowers + torch.rand(n, generator=gen, dtype=dtype, device=device) * step
+    return points[torch.randperm(n, generator=gen, device=device)]
+
+
+def _compute_log_negative(t_min, t_max, whence):
+    if t_min <= 0 or t_max <= 0:
+        raise ValueError(
+            f"In this version, the interval [{t_min}, {t_max}] cannot be used for "
+            f"log-sampling in {whence}. If you meant to sample from the interval "
+            f"[10 ^ {t_min}, 10 ^ {t_max}], please pass in {10 ** t_min} and {10 ** t_max}"
+        )
+    return float(np.log10(t_min)), float(np.log10(t_max))
+
+
+def _as_tuple(out):
+    return tuple(out) if isinstance(out, (tuple, list)) else (out,)
+
+
 class BaseGenerator:
     """Base class for generators: children implement ``sample(generator)``,
     returning a tuple of ``(size,)`` tensors, and set ``size``."""
@@ -40,15 +93,104 @@ class BaseGenerator:
 
     def get_examples(self):
         """Draw one batch with the global generator for this device."""
-        out = self.sample(get_generator(self.device))
+        out = _as_tuple(self.sample(get_generator(self.device)))
         return out[0] if len(out) == 1 else out
+
+    @staticmethod
+    def check_generator(obj):
+        if not isinstance(obj, BaseGenerator):
+            raise ValueError(f"{obj} is not a generator")
+
+    def __add__(self, other):
+        self.check_generator(other)
+        return ConcatGenerator(self, other)
+
+    def __mul__(self, other):
+        self.check_generator(other)
+        return EnsembleGenerator(self, other)
+
+    def __xor__(self, other):
+        raise NotImplementedError("MeshGenerator (g1 ^ g2) is not ported yet "
+                                  "(ROADMAP.md §1 item 18, the remaining combinators)")
 
     def _internal_vars(self):
         return dict(size=self.size)
 
+    @staticmethod
+    def _obj_repr(obj):
+        if isinstance(obj, (tuple, list)):
+            inner = ', '.join(BaseGenerator._obj_repr(item) for item in obj)
+            return f'({inner})' if isinstance(obj, tuple) else f'[{inner}]'
+        if isinstance(obj, (torch.Tensor, np.ndarray)):
+            return f'tensor(shape={tuple(obj.shape)})'
+        return repr(obj)
+
     def __repr__(self):
         d = self._internal_vars()
-        return f"{self.__class__.__name__}({', '.join(f'{k}={v!r}' for k, v in d.items())})"
+        return f"{self.__class__.__name__}({', '.join(f'{k}={self._obj_repr(v)}' for k, v in d.items())})"
+
+
+class Generator1D(BaseGenerator):
+    """1-D training points.
+
+    :param size: Number of points per batch.
+    :param t_min: Lower bound, defaults to 0.0.
+    :param t_max: Upper bound, defaults to 1.0.
+    :param method: one of 'uniform' (the default), 'equally-spaced',
+        'equally-spaced-noisy', 'log-spaced', 'log-spaced-noisy',
+        'chebyshev'/'chebyshev1', 'chebyshev2', 'chebyshev2-noisy',
+        'latin-hypercube'. ('halton' is not ported yet and raises.)
+    :param noise_std: standard deviation of the noise for noisy methods;
+        defaults to ``((t_max - t_min) / size) / 4``.
+    :param device: device of the points (the port's default if None).
+    :param dtype: dtype of the points (the port's default if None).
+    :raises ValueError: When provided with an unknown method.
+    """
+
+    _METHODS = ('uniform', 'equally-spaced', 'equally-spaced-noisy', 'log-spaced', 'log-spaced-noisy',
+                'chebyshev', 'chebyshev1', 'chebyshev2', 'chebyshev2-noisy', 'latin-hypercube')
+
+    def __init__(self, size, t_min=0.0, t_max=1.0, method='uniform', noise_std=None, device=None, dtype=None):
+        super().__init__(device, dtype)
+        if method == 'halton':
+            raise NotImplementedError(_NO_HALTON)
+        if method not in self._METHODS:
+            raise ValueError(f'Unknown method: {method}')
+        self.size = size
+        self.t_min, self.t_max = t_min, t_max
+        self.method = method
+        self.noise_std = noise_std if noise_std else ((t_max - t_min) / size) / 4.0
+        dt, dev = self.dtype, self.device
+        if method.startswith('log-spaced'):
+            lo, hi = _compute_log_negative(t_min, t_max, self.__class__)
+            # jnp.logspace: base ** linspace
+            self._base = torch.pow(10.0, _linspace(lo, hi, size, dt, dev))
+        elif method.startswith('equally-spaced'):
+            self._base = _linspace(t_min, t_max, size, dt, dev)
+        elif method in ('chebyshev', 'chebyshev1'):
+            self._base = _chebyshev_first(t_min, t_max, size, dt, dev)
+        elif method == 'chebyshev2':
+            self._base = _chebyshev_second(t_min, t_max, size, dt, dev)
+
+    def sample(self, generator):
+        """One batch ``(t,)``; ``generator`` lives on the points' device."""
+        m, n, dt, dev = self.method, self.size, self.dtype, self.device
+        if m == 'uniform':
+            t = torch.rand(n, generator=generator, dtype=dt, device=dev) * (self.t_max - self.t_min) + self.t_min
+        elif m.endswith('-noisy') and m != 'chebyshev2-noisy':
+            t = self._base + torch.randn(n, generator=generator, dtype=dt, device=dev) * self.noise_std
+        elif m == 'chebyshev2-noisy':
+            t = _chebyshev_second_noisy(generator, self.t_min, self.t_max, n, dt, dev)
+        elif m == 'latin-hypercube':
+            t = _latin_hypercube(generator, self.t_min, self.t_max, n, dt, dev)
+        else:
+            t = self._base
+        return (t,)
+
+    def _internal_vars(self):
+        d = super()._internal_vars()
+        d.update(dict(t_min=self.t_min, t_max=self.t_max, method=self.method, noise_std=self.noise_std))
+        return d
 
 
 class Generator2D(BaseGenerator):
@@ -57,33 +199,63 @@ class Generator2D(BaseGenerator):
     :param grid: grid shape ``(m, n)``, defaults to ``(10, 10)``.
     :param xy_min: lower bounds ``(x_0, y_0)``, defaults to ``(0.0, 0.0)``.
     :param xy_max: upper bounds ``(x_1, y_1)``, defaults to ``(1.0, 1.0)``.
-    :param method: 'equally-spaced' or 'equally-spaced-noisy' (the default):
-        the grid, or the grid plus Gaussian noise per point.
+    :param method: 'equally-spaced', 'equally-spaced-noisy' (the default: the
+        grid plus Gaussian noise per point), 'chebyshev'/'chebyshev1',
+        'chebyshev2', 'chebyshev2-noisy' or 'latin-hypercube' (the per-axis
+        nodes of the 1-D method, meshed). ('halton' is not ported yet.)
     :param xy_noise_std: per-axis noise std; defaults to grid-step / 4 per axis.
     :param device: device of the points (the port's default if None).
     :param dtype: dtype of the points (the port's default if None).
     """
 
+    _METHODS = ('equally-spaced', 'equally-spaced-noisy', 'chebyshev', 'chebyshev1', 'chebyshev2',
+                'chebyshev2-noisy', 'latin-hypercube')
+
     def __init__(self, grid=(10, 10), xy_min=(0.0, 0.0), xy_max=(1.0, 1.0),
                  method='equally-spaced-noisy', xy_noise_std=None, device=None, dtype=None):
         super().__init__(device, dtype)
-        if method not in ('equally-spaced', 'equally-spaced-noisy'):
-            raise ValueError(f'Unknown method: {method} (other methods are not ported yet)')
+        if method == 'halton':
+            raise NotImplementedError(_NO_HALTON)
+        if method not in self._METHODS:
+            raise ValueError(f'Unknown method: {method}')
         self.grid = grid
         self.size = grid[0] * grid[1]
         self.xy_min = xy_min
         self.xy_max = xy_max
         self.method = method
         self.xy_noise_std = xy_noise_std
-        axes = [_linspace(self.xy_min[i], self.xy_max[i], self.grid[i], self.dtype, self.device)
-                for i in range(2)]
+        self._grid_points = None
+        if method not in ('chebyshev2-noisy', 'latin-hypercube'):
+            self._grid_points = self._mesh(self._axes(None))
+
+    def _axes(self, generator):
+        m, dt, dev = self.method, self.dtype, self.device
+        axes = []
+        for i in range(2):
+            a, b, n = self.xy_min[i], self.xy_max[i], self.grid[i]
+            if m.startswith('equally-spaced'):
+                axes.append(_linspace(a, b, n, dt, dev))
+            elif m in ('chebyshev', 'chebyshev1'):
+                axes.append(_chebyshev_first(a, b, n, dt, dev))
+            elif m == 'chebyshev2':
+                axes.append(_chebyshev_second(a, b, n, dt, dev))
+            elif m == 'chebyshev2-noisy':
+                axes.append(_chebyshev_second_noisy(generator, a, b, n, dt, dev))
+            else:
+                axes.append(_latin_hypercube(generator, a, b, n, dt, dev))
+        return axes
+
+    @staticmethod
+    def _mesh(axes):
         gx, gy = torch.meshgrid(*axes, indexing='ij')
-        self._grid_points = (gx.flatten(), gy.flatten())
+        return gx.flatten(), gy.flatten()
 
     def sample(self, generator):
         """One batch ``(x, y)``; ``generator`` lives on the points' device."""
+        if self._grid_points is None:
+            return self._mesh(self._axes(generator))
         gx, gy = self._grid_points
-        if self.method == 'equally-spaced':
+        if self.method != 'equally-spaced-noisy':
             return gx, gy
         if self.xy_noise_std:
             sx, sy = self.xy_noise_std
@@ -97,4 +269,94 @@ class Generator2D(BaseGenerator):
         d = super()._internal_vars()
         d.update(dict(grid=self.grid, xy_min=self.xy_min, xy_max=self.xy_max,
                       method=self.method, xy_noise_std=self.xy_noise_std))
+        return d
+
+
+class _Combinator(BaseGenerator):
+    """A generator over sub-generators, on the device and dtype of the first."""
+
+    def __init__(self, *generators):
+        for g in generators:
+            self.check_generator(g)
+        super().__init__(generators[0].device, generators[0].dtype)
+        self.generators = generators
+
+    def _internal_vars(self):
+        d = super()._internal_vars()
+        d.update(dict(generators=self.generators))
+        return d
+
+
+class ConcatGenerator(_Combinator):
+    r"""Concatenates the sample vectors of its sub-generators (``g1 + g2``)."""
+
+    def __init__(self, *generators):
+        super().__init__(*generators)
+        self.size = sum(gen.size for gen in generators)
+
+    def sample(self, generator):
+        all_examples = [_as_tuple(g.sample(generator)) for g in self.generators]
+        n_cols = len(all_examples[0])
+        if any(len(e) != n_cols for e in all_examples):
+            raise ValueError("Sub-generators return different numbers of columns")
+        return tuple(torch.cat([e[j] for e in all_examples]) for j in range(n_cols))
+
+
+class EnsembleGenerator(_Combinator):
+    r"""Returns ALL the samples of its sub-generators as one tuple
+    (``g1 * g2``). Sub-generators must have equal sizes."""
+
+    def __init__(self, *generators):
+        super().__init__(*generators)
+        self.size = generators[0].size
+        for i, gen in enumerate(generators):
+            if gen.size != self.size:
+                raise ValueError(f"gens[{i}].size ({gen.size}) != gens[0].size ({self.size})")
+
+    def sample(self, generator):
+        return tuple(t for g in self.generators for t in _as_tuple(g.sample(generator)))
+
+
+class StaticGenerator(BaseGenerator):
+    """Samples the sub-generator once at construction (with the global
+    generator of its device) and returns the same samples every time."""
+
+    def __init__(self, generator):
+        super().__init__(generator.device, generator.dtype)
+        self.generator = generator
+        self.size = generator.size
+        self.examples = _as_tuple(generator.sample(get_generator(generator.device)))
+
+    def sample(self, generator):
+        return self.examples
+
+    def _internal_vars(self):
+        d = super()._internal_vars()
+        d.update(dict(generator=self.generator, examples=self.examples))
+        return d
+
+
+class PredefinedGenerator(BaseGenerator):
+    """A generator of fixed, user-provided points (arrays or tensors of equal
+    length, flattened).
+
+    :param device: device of the points (the port's default if None).
+    :param dtype: dtype of the points (the port's default if None).
+    """
+
+    def __init__(self, *xs, device=None, dtype=None):
+        super().__init__(device, dtype)
+        self.size = len(xs[0])
+        for x in xs:
+            if self.size != len(x):
+                raise ValueError(f'tensors of different lengths encountered {self.size} != {len(x)}')
+        self.xs = tuple(torch.as_tensor(x if torch.is_tensor(x) else np.asarray(x),
+                                        dtype=self.dtype, device=self.device).flatten() for x in xs)
+
+    def sample(self, generator):
+        return self.xs
+
+    def _internal_vars(self):
+        d = super()._internal_vars()
+        d.update(dict(xs=self.xs))
         return d

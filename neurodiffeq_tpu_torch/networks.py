@@ -1,13 +1,18 @@
 r"""Neural network modules (counterpart of ``neurodiffeq_tpu/networks.py``).
 
-``FCNN``, ``Tanh`` and ``SinActv`` are ``nn.Module``\ s. ``FCNN`` uses
-``nn.Linear``'s default initialization, whose bound for weights and biases
-is the same ``1/sqrt(fan_in)`` as the JAX package's ``_linear_init``.
+Every network and activation is an ``nn.Module``. ``FCNN``, ``Resnet`` and
+``FourierFCNN`` use ``nn.Linear``'s default initialization, whose bound for
+weights and biases is the same ``1/sqrt(fan_in)`` as the JAX package's
+``_linear_init``; ``SIREN`` has its own (Sitzmann et al. 2020).
 
 Besides ``forward``, a module may support batched Taylor propagation
 (``supports_taylor`` and ``taylor_apply(series, ctx)``), the hot evaluation
-path of :mod:`neurodiffeq_tpu_torch.fields`.
+path of :mod:`neurodiffeq_tpu_torch.fields`; activations provide
+``taylor_series(series, ctx)``. Each network's ``load_jax_params`` copies the
+JAX package's parameter pytree (numpy arrays) into the module, so that both
+packages compute the same function.
 """
+import math
 import warnings
 
 import numpy as np
@@ -16,8 +21,30 @@ from torch import nn
 
 from .utils import resolve
 
-__all__ = ['FCNN', 'Tanh', 'SinActv']
+__all__ = ['FCNN', 'Resnet', 'MonomialNN', 'FourierFCNN', 'SIREN',
+           'Tanh', 'SinActv', 'Swish', 'APTx']
 
+
+def _copy_(dst, src):
+    """Copy a numpy array into a tensor of the same shape."""
+    src = np.asarray(src)
+    if tuple(src.shape) != tuple(dst.shape):
+        raise ValueError(f"shape {src.shape} does not match {tuple(dst.shape)}")
+    dst.copy_(torch.tensor(src))
+
+
+@torch.no_grad()
+def _load_layers(linears, layers):
+    """Copy the JAX layer list ``[{'W': (n_in, n_out), 'b': (n_out,)}, ...]``
+    into ``nn.Linear`` modules."""
+    if len(layers) != len(linears):
+        raise ValueError(f"expected {len(linears)} layers, got {len(layers)}")
+    for lin, lp in zip(linears, layers):
+        _copy_(lin.weight, np.asarray(lp['W']).T)
+        _copy_(lin.bias, lp['b'])
+
+
+# ------------------------------------------------------------------ activations
 
 class Tanh(nn.Module):
     """Hyperbolic tangent activation."""
@@ -43,6 +70,78 @@ class SinActv(nn.Module):
         return elementwise_series(torch.sin, [series], ctx.order)
 
 
+def _scalars(module, names, trainable, values):
+    """Register ``values`` as ``nn.Parameter`` scalars (trainable) or keep
+    them as Python floats."""
+    for name, v in zip(names, values):
+        if trainable:
+            setattr(module, name, nn.Parameter(torch.tensor(float(v))))
+        else:
+            setattr(module, name, float(v))
+
+
+def _closed_form(series, ctx, c0, f1, f2):
+    """Series of an activation from its value and closed-form f', f''."""
+    from .ops.taylor import TSeries, _chain_unary
+    return _chain_unary(series, ctx.order, c0, f1, f2) if ctx.order else TSeries(c0, [])
+
+
+class Swish(nn.Module):
+    r"""Swish activation: ``x * sigmoid(beta * x)``, with ``beta`` an
+    ``nn.Parameter`` if ``trainable``."""
+
+    def __init__(self, beta=1.0, trainable=False):
+        super().__init__()
+        self.trainable = trainable
+        _scalars(self, ('beta',), trainable, (beta,))
+
+    def forward(self, x):
+        return x * torch.sigmoid(self.beta * x)
+
+    def taylor_series(self, series, ctx):
+        # f = x s(bx); f' = s + bx s(1-s); f'' = 2bs(1-s) + b^2 x s(1-s)(1-2s)
+        b, x = self.beta, series.c0
+        s = torch.sigmoid(b * x)
+        sp = s * (1 - s)
+        return _closed_form(series, ctx, x * s, s + b * x * sp,
+                            2 * b * sp + b * b * x * sp * (1 - 2 * s))
+
+    @torch.no_grad()
+    def load_jax_params(self, params):
+        if self.trainable:
+            _copy_(self.beta, params['beta'])
+        return self
+
+
+class APTx(nn.Module):
+    r"""APTx activation: ``(alpha + tanh(beta x)) * gamma * x``, with the
+    three scalars ``nn.Parameter``\ s if ``trainable``."""
+
+    def __init__(self, alpha=1.0, beta=1.0, gamma=0.5, trainable=False):
+        super().__init__()
+        self.trainable = trainable
+        _scalars(self, ('alpha', 'beta', 'gamma'), trainable, (alpha, beta, gamma))
+
+    def forward(self, x):
+        return (self.alpha + torch.tanh(self.beta * x)) * self.gamma * x
+
+    def taylor_series(self, series, ctx):
+        # f = g x (a + t), t = tanh(bx); f' = g(a + t) + g x b (1 - t^2);
+        # f'' = 2 g b (1 - t^2) - 2 g x b^2 t (1 - t^2)
+        a, b, g, x = self.alpha, self.beta, self.gamma, series.c0
+        t = torch.tanh(b * x)
+        tp = 1 - t * t
+        return _closed_form(series, ctx, g * x * (a + t), g * (a + t) + g * x * b * tp,
+                            2 * g * b * tp - 2 * g * x * b * b * t * tp)
+
+    @torch.no_grad()
+    def load_jax_params(self, params):
+        if self.trainable:
+            for name in ('alpha', 'beta', 'gamma'):
+                _copy_(getattr(self, name), params[name])
+        return self
+
+
 def _as_activation(actv):
     """Accept an activation class/factory or instance; return an instance."""
     if actv is None:
@@ -54,6 +153,26 @@ def _as_activation(actv):
         if isinstance(made, nn.Module):
             return made
     raise TypeError(f"Unsupported activation {actv}")
+
+
+def _mlp_taylor(series, ctx, layers, actvs):
+    """Batched Taylor propagation through ``x -> ... actv(x W + b) ... W + b``.
+
+    On raw coordinate inputs at order 1-2 with one activation kind (tanh or
+    sin), the propagation is one fused Taylor-MLP call
+    (:func:`~neurodiffeq_tpu_torch.ops.taylor_mlp.fcnn_taylor`, the CUDA
+    kernel for CUDA tensors); otherwise it goes layer by layer."""
+    from .ops.taylor import TSeries, affine_series
+    kinds = {getattr(a, 'kernel_kind', None) for a in actvs}
+    if series.meta == 'raw_coords' and 1 <= ctx.order <= 2 and len(kinds) <= 1 and None not in kinds:
+        from .ops import taylor_mlp
+        # a net with no hidden layer has no activation: any kind will do
+        outs = taylor_mlp.fcnn_taylor(series.c0, layers, ctx.order, actv=kinds.pop() if kinds else 'tanh')
+        return TSeries(outs[0], list(outs[1:]))
+    for (W, b), actv in zip(layers[:-1], actvs):
+        series = actv.taylor_series(affine_series(series, W, b), ctx)
+    W, b = layers[-1]
+    return affine_series(series, W, b)
 
 
 class FCNN(nn.Module):
@@ -97,7 +216,7 @@ class FCNN(nn.Module):
         self.linears = nn.ModuleList(
             nn.Linear(n_in, n_out, device=device, dtype=dtype)
             for n_in, n_out in zip(units[:-1], units[1:]))
-        self.actvs = nn.ModuleList(_as_activation(actv) for _ in hidden_units)
+        self.actvs = nn.ModuleList(_as_activation(actv) for _ in hidden_units).to(device=device, dtype=dtype)
 
     def forward(self, x):
         for lin, actv in zip(self.linears[:-1], self.actvs):
@@ -106,7 +225,7 @@ class FCNN(nn.Module):
 
     @property
     def supports_taylor(self):
-        return all(isinstance(a, (Tanh, SinActv)) for a in self.actvs)
+        return all(hasattr(a, 'taylor_series') for a in self.actvs)
 
     def layers(self):
         """``[(W, b), ...]`` with ``W`` as the ``(n_in, n_out)`` view of each
@@ -114,38 +233,204 @@ class FCNN(nn.Module):
         return [(lin.weight.t(), lin.bias) for lin in self.linears]
 
     def taylor_apply(self, series, ctx):
-        """Batched Taylor propagation of the whole network. On raw
-        coordinate inputs at order 1-2 with one activation kind (tanh or
-        sin), the propagation is one fused Taylor-MLP call
-        (:func:`~neurodiffeq_tpu_torch.ops.taylor_mlp.fcnn_taylor`, the
-        CUDA kernel for CUDA tensors); otherwise it goes layer by layer."""
-        from .ops.taylor import TSeries, affine_series
-        kinds = {a.kernel_kind for a in self.actvs}
-        if series.meta == 'raw_coords' and 1 <= ctx.order <= 2 and len(kinds) <= 1:
-            from .ops.taylor_mlp import fcnn_taylor
-            # a net with no hidden layer has no activation: any kind will do
-            outs = fcnn_taylor(series.c0, self.layers(), ctx.order,
-                               actv=kinds.pop() if kinds else 'tanh')
-            return TSeries(outs[0], list(outs[1:]))
-        for (W, b), actv in zip(self.layers()[:-1], self.actvs):
-            series = actv.taylor_series(affine_series(series, W, b), ctx)
-        W, b = self.layers()[-1]
-        return affine_series(series, W, b)
+        """Batched Taylor propagation of the whole network: one fused
+        Taylor-MLP call where it applies (:func:`_mlp_taylor`), else layer
+        by layer."""
+        return _mlp_taylor(series, ctx, self.layers(), list(self.actvs))
 
     @torch.no_grad()
-    def load_jax_params(self, layers):
-        """Copy the JAX package's parameter list ``[{'W': (n_in, n_out),
-        'b': (n_out,)}, ...]`` (numpy arrays) into this module, so that both
-        packages compute the same function."""
-        if len(layers) != len(self.linears):
-            raise ValueError(f"expected {len(self.linears)} layers, got {len(layers)}")
-        for lin, lp in zip(self.linears, layers):
-            W, b = np.asarray(lp['W']), np.asarray(lp['b'])
-            if W.shape != (lin.in_features, lin.out_features) or b.shape != (lin.out_features,):
-                raise ValueError(f"layer shapes {W.shape}, {b.shape} do not match {lin}")
-            lin.weight.copy_(torch.tensor(W.T))
-            lin.bias.copy_(torch.tensor(b))
+    def load_jax_params(self, params):
+        """Copy the JAX package's FCNN parameters into this module: the
+        pytree ``{'layers': [{'W': (n_in, n_out), 'b': (n_out,)}, ...],
+        'actv': [...]}`` or just its ``'layers'`` list (numpy arrays)."""
+        _load_layers(self.linears, params['layers'] if isinstance(params, dict) else params)
+        if isinstance(params, dict):
+            for actv, ap in zip(self.actvs, params.get('actv') or []):
+                if ap is not None:
+                    actv.load_jax_params(ap)
         return self
 
     def extra_repr(self):
         return f"hidden_units={self.hidden_units}"
+
+
+class Resnet(nn.Module):
+    """FCNN plus a trainable bias-free linear skip connection."""
+
+    def __init__(self, n_input_units=1, n_output_units=1, n_hidden_units=None, n_hidden_layers=None,
+                 actv=Tanh, hidden_units=(32, 32), device=None, dtype=None):
+        super().__init__()
+        device, dtype = resolve(device, dtype)
+        self.residual = FCNN(n_input_units=n_input_units, n_output_units=n_output_units,
+                             n_hidden_units=n_hidden_units, n_hidden_layers=n_hidden_layers,
+                             actv=actv, hidden_units=hidden_units, device=device, dtype=dtype)
+        self.skip = nn.Linear(n_input_units, n_output_units, bias=False, device=device, dtype=dtype)
+        self.n_input_units = n_input_units
+        self.n_output_units = n_output_units
+
+    def forward(self, x):
+        return self.skip(x) + self.residual(x)
+
+    @property
+    def supports_taylor(self):
+        return self.residual.supports_taylor
+
+    def taylor_apply(self, series, ctx):
+        from .ops.taylor import add_series, affine_series
+        return add_series(affine_series(series, self.skip.weight.t()),
+                          self.residual.taylor_apply(series, ctx))
+
+    @torch.no_grad()
+    def load_jax_params(self, params):
+        self.residual.load_jax_params(params['residual'])
+        _copy_(self.skip.weight, np.asarray(params['skip_W']).T)
+        return self
+
+
+class FourierFCNN(nn.Module):
+    r"""FCNN over random Fourier features: ``x -> [cos(xB), sin(xB)] -> FCNN``
+    with ``B[i,j] ~ N(0, (2*pi*sigma)^2)`` fixed at initialization (a
+    buffer: it is saved with the module and never trained).
+
+    :param n_input_units: Number of coordinate inputs, defaults to 1.
+    :param n_output_units: Number of outputs, defaults to 1.
+    :param n_features: Number of random frequencies; the FCNN sees
+        ``2 * n_features`` inputs, defaults to 64.
+    :param sigma: Frequency bandwidth, defaults to 1.0.
+    :param actv: Activation constructor for the FCNN, defaults to :class:`Tanh`.
+    :param hidden_units: FCNN hidden widths, defaults to ``(32, 32)``.
+    """
+
+    def __init__(self, n_input_units=1, n_output_units=1, n_features=64, sigma=1.0, actv=Tanh,
+                 hidden_units=(32, 32), device=None, dtype=None):
+        super().__init__()
+        device, dtype = resolve(device, dtype)
+        self.n_input_units = n_input_units
+        self.n_output_units = n_output_units
+        self.n_features = int(n_features)
+        self.sigma = float(sigma)
+        self.register_buffer('B', (2.0 * math.pi * self.sigma) * torch.randn(
+            n_input_units, self.n_features, device=device, dtype=dtype))
+        self.fcnn = FCNN(n_input_units=2 * self.n_features, n_output_units=n_output_units,
+                         actv=actv, hidden_units=hidden_units, device=device, dtype=dtype)
+
+    def forward(self, x):
+        z = x @ self.B
+        return self.fcnn(torch.cat([torch.cos(z), torch.sin(z)], dim=-1))
+
+    @property
+    def supports_taylor(self):
+        return self.fcnn.supports_taylor
+
+    def taylor_apply(self, series, ctx):
+        from .ops.taylor import affine_series, concat_series, elementwise_series
+        z = affine_series(series, self.B)
+        feats = concat_series([elementwise_series(torch.cos, [z], ctx.order),
+                               elementwise_series(torch.sin, [z], ctx.order)], ctx.order)
+        return self.fcnn.taylor_apply(feats, ctx)
+
+    @torch.no_grad()
+    def load_jax_params(self, params):
+        _copy_(self.B, params['B'])
+        self.fcnn.load_jax_params(params['fcnn'])
+        return self
+
+    def extra_repr(self):
+        return f"n_features={self.n_features}, sigma={self.sigma}"
+
+
+class SIREN(nn.Module):
+    r"""Sinusoidal representation network: every hidden layer is
+    ``sin(w0 * (h W + b))`` (Sitzmann et al. 2020).
+
+    Weight init: first layer ``U(-1/fan_in, 1/fan_in)``; every later layer
+    ``U(-sqrt(6/fan_in)/w0, sqrt(6/fan_in)/w0)`` (the readout included);
+    biases ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))``.
+
+    :param n_input_units: Number of coordinate inputs, defaults to 1.
+    :param n_output_units: Number of outputs, defaults to 1.
+    :param hidden_units: Hidden widths, defaults to ``(32, 32)``.
+    :param w0: Frequency scale of the sine layers, defaults to 30.0.
+    :param w0_first: Frequency scale of the first layer; defaults to ``w0``.
+    """
+    supports_taylor = True
+
+    def __init__(self, n_input_units=1, n_output_units=1, hidden_units=(32, 32), w0=30.0,
+                 w0_first=None, device=None, dtype=None):
+        super().__init__()
+        device, dtype = resolve(device, dtype)
+        self.n_input_units = n_input_units
+        self.n_output_units = n_output_units
+        self.hidden_units = tuple(hidden_units)
+        self.w0 = float(w0)
+        self.w0_first = float(w0 if w0_first is None else w0_first)
+        units = (n_input_units,) + self.hidden_units + (n_output_units,)
+        self.linears = nn.ModuleList(nn.Linear(n_in, n_out, device=device, dtype=dtype)
+                                     for n_in, n_out in zip(units[:-1], units[1:]))
+        with torch.no_grad():
+            for i, lin in enumerate(self.linears):
+                n_in = lin.in_features
+                bound = 1.0 / n_in if i == 0 else math.sqrt(6.0 / n_in) / self.w0
+                lin.weight.uniform_(-bound, bound)
+                lin.bias.uniform_(-1.0 / math.sqrt(n_in), 1.0 / math.sqrt(n_in))
+        self._sin = SinActv()
+
+    def _layer_w0(self, i):
+        return self.w0_first if i == 0 else self.w0
+
+    def forward(self, x):
+        for i, lin in enumerate(self.linears[:-1]):
+            x = torch.sin(self._layer_w0(i) * lin(x))
+        return self.linears[-1](x)
+
+    def taylor_apply(self, series, ctx):
+        # sin(w0 (h W + b)) is an FCNN sin layer with weights w0 W and w0 b:
+        # the folded layers take the FCNN path and its kernel, and gradients
+        # flow through the folding
+        lins = self.linears
+        layers = [(self._layer_w0(i) * lin.weight.t(), self._layer_w0(i) * lin.bias)
+                  for i, lin in enumerate(lins[:-1])] + [(lins[-1].weight.t(), lins[-1].bias)]
+        return _mlp_taylor(series, ctx, layers, [self._sin] * len(self.hidden_units))
+
+    def load_jax_params(self, params):
+        """Copy the JAX package's SIREN parameters ``{'layers': [...]}``."""
+        _load_layers(self.linears, params['layers'])
+        return self
+
+    def extra_repr(self):
+        return f"hidden_units={self.hidden_units}, w0={self.w0}, w0_first={self.w0_first}"
+
+
+class MonomialNN(nn.Module):
+    """Expands input to ``[x^d for d in degrees]`` concatenated along columns.
+    Output width = n_inputs * n_degrees."""
+    supports_taylor = True
+
+    def __init__(self, degrees):
+        super().__init__()
+        if isinstance(degrees, int):
+            degrees = [d for d in range(1, degrees + 1)]
+        self.degrees = tuple(degrees)
+        if len(self.degrees) == 0:
+            raise ValueError("No degrees used, check `degrees` argument again")
+        if 0 in self.degrees:
+            warnings.warn("One of the degrees is 0 which might introduce redundant features")
+        if len(set(self.degrees)) < len(self.degrees):
+            warnings.warn(f"Duplicate degrees found: {self.degrees}")
+
+    def output_width(self, n_inputs):
+        return n_inputs * len(self.degrees)
+
+    def forward(self, x):
+        return torch.cat([x ** d for d in self.degrees], dim=-1)
+
+    def taylor_apply(self, series, ctx):
+        from .ops.taylor import concat_series, elementwise_series
+        return concat_series([elementwise_series(lambda x, _d=d: x ** _d, [series], ctx.order)
+                              for d in self.degrees], ctx.order)
+
+    def load_jax_params(self, params):
+        return self
+
+    def extra_repr(self):
+        return f"degrees={self.degrees}"

@@ -1,18 +1,24 @@
-r"""Training engines (counterpart of ``neurodiffeq_tpu/solvers.py``): the
-parts the 2-D Laplace flagship uses.
+r"""Training engines (counterpart of ``neurodiffeq_tpu/solvers.py``):
+``Solver1D`` for ODE systems and ``Solver2D`` for 2-D PDEs.
 
 One training epoch samples ``n_batches_train`` batches, evaluates the
 residual through the batched Taylor engine, sums the batches' gradients
-(``backward`` accumulates) and takes one optimizer step. One validation
-epoch averages the loss over ``n_batches_valid`` batches; it runs under
+(``backward`` accumulates) and takes one optimizer step. A closure-style
+optimizer (``torch.optim.LBFGS``: its ``step`` takes a ``closure`` with no
+default) takes one step per batch instead. One validation epoch averages
+the loss over ``n_batches_valid`` batches; it runs under
 ``torch.no_grad()``, since the residual's derivatives are propagated
 forward and need no autograd graph. The parameters with the lowest
-validation loss are kept (``best_params``).
+validation loss are kept (``best_params``). ``fit`` runs one epoch at a
+time and calls its callbacks after each.
 
 The JAX package's compiled-epoch machinery (flat parameter carry,
-seed-keyed compile cache, scanned fit chunks, speculative dispatch) has no
-counterpart here: PyTorch runs eagerly.
+seed-keyed compile cache, scanned fit chunks, speculative dispatch,
+``profile_dir``) has no counterpart here: PyTorch runs eagerly.
 """
+import inspect
+import sys
+import warnings
 from abc import ABC, abstractmethod
 from copy import deepcopy
 
@@ -21,12 +27,25 @@ import torch
 
 from ._version_utils import deprecated_alias
 from .fields import Field, cat as field_cat, coords_from_points
-from .generators import Generator2D
+from .generators import Generator1D, Generator2D
 from .losses import _losses
 from .networks import FCNN, Tanh
 from .utils import full_precision_matmuls, get_generator, resolve
 
-__all__ = ['BaseSolver', 'Solver2D', 'BaseSolution', 'Solution2D']
+try:  # tqdm is optional at run time
+    from tqdm.auto import tqdm
+except ImportError:  # pragma: no cover
+    tqdm = None
+
+__all__ = ['BaseSolver', 'Solver1D', 'Solver2D', 'BaseSolution', 'Solution1D', 'Solution2D']
+
+
+def _requires_closure(optimizer):
+    """Whether ``optimizer.step`` needs a closure: a ``closure`` parameter
+    with no default, as in ``torch.optim.LBFGS`` (the upstream reference's
+    test)."""
+    p = inspect.signature(optimizer.step).parameters.get('closure')
+    return p is not None and p.default is inspect.Parameter.empty
 
 
 class BaseSolver(ABC):
@@ -36,11 +55,14 @@ class BaseSolver(ABC):
     :param conditions: list of conditions, one per target function.
     :param nets: list of network modules; defaults to one
         ``FCNN(hidden_units=(32, 32), actv=Tanh)`` per condition. They are
-        moved to ``device`` and ``dtype``.
+        moved to ``device`` and ``dtype``. A module listed more than once is
+        one set of parameters.
     :param train_generator: generator of training points (required).
     :param valid_generator: generator of validation points (required).
+    :param analytic_solutions: **[DEPRECATED]** use ``metrics`` instead.
     :param optimizer: a ``torch.optim.Optimizer`` over the nets' parameters;
-        defaults to ``torch.optim.Adam(lr=1e-3)``.
+        defaults to ``torch.optim.Adam(lr=1e-3)``. Closure-style optimizers
+        (``torch.optim.LBFGS``) are detected and stepped once per batch.
     :param loss_fn: key of the loss registry or a callable
         ``(residual_field, funcs, coords) -> scalar``; defaults to ``'l2'``.
     :param n_batches_train: batches per training epoch (gradients are
@@ -50,6 +72,10 @@ class BaseSolver(ABC):
         (tensors) of funcs and coordinates.
     :param n_input_units: inputs per default network.
     :param n_output_units: outputs per default network.
+    :param residual_weights: None, or one positive weight per equation:
+        equation k's residual is scaled by ``w_k ** (1 / p)`` in the
+        training loss, where ``p`` is the loss's ``residual_power``
+        (default 2), so that the loss weighs it by ``w_k``.
     :param device: device of nets and points (the port's default if None).
     :param dtype: dtype of nets and points (the port's default if None).
     :param generator: ``torch.Generator`` on ``device`` for sampling; defaults
@@ -58,21 +84,31 @@ class BaseSolver(ABC):
 
     @deprecated_alias(criterion='loss_fn')
     def __init__(self, diff_eqs, conditions, nets=None, train_generator=None, valid_generator=None,
-                 optimizer=None, loss_fn=None, n_batches_train=1, n_batches_valid=4, metrics=None,
-                 n_input_units=None, n_output_units=None, device=None, dtype=None, generator=None):
+                 analytic_solutions=None, optimizer=None, loss_fn=None, n_batches_train=1,
+                 n_batches_valid=4, metrics=None, n_input_units=None, n_output_units=None,
+                 residual_weights=None, device=None, dtype=None, generator=None):
         self.device, self.dtype = resolve(device, dtype)
         if self.device.type == 'cuda':
             full_precision_matmuls()
         self.diff_eqs = diff_eqs
         self.conditions = conditions
         self.n_funcs = len(conditions)
+        if residual_weights is not None:
+            try:
+                residual_weights = [float(w) for w in residual_weights]
+            except (TypeError, ValueError):
+                raise ValueError(f"residual_weights must be None or a sequence of positive "
+                                 f"numbers; got {residual_weights!r}")
+            if any(w <= 0 for w in residual_weights):
+                raise ValueError("residual_weights must be positive")
+        self.residual_weights = residual_weights
         if nets is None:
             nets = [FCNN(n_input_units=n_input_units, n_output_units=n_output_units,
                          hidden_units=(32, 32), actv=Tanh, device=self.device, dtype=self.dtype)
                     for _ in range(self.n_funcs)]
         self.nets = [net.to(device=self.device, dtype=self.dtype) for net in nets]
-        # one entry per distinct module: a net shared by several conditions
-        # is trained (and tracked) once
+        # one entry per distinct module, in order of first appearance: a net
+        # shared by several conditions is trained (and tracked) once
         self._unique_nets = list({id(n): n for n in self.nets}.values())
 
         if train_generator is None:
@@ -86,20 +122,38 @@ class BaseSolver(ABC):
         self.n_batches = {'train': n_batches_train, 'valid': n_batches_valid}
         self.rng = generator if generator is not None else get_generator(self.device)
 
-        params = [p for net in self._unique_nets for p in net.parameters()]
-        self.optimizer = optimizer if optimizer is not None else torch.optim.Adam(params, lr=1e-3)
-        self._set_loss_fn(loss_fn)
-
         self.metrics_fn = metrics if metrics else {}
+        if analytic_solutions:
+            warnings.warn('The `analytic_solutions` argument is deprecated and could lead to unstable '
+                          'behavior. Pass a `metrics` dict instead.', FutureWarning)
+
+            def analytic_mse(*args):
+                x = args[-n_input_units:]
+                u_hat = analytic_solutions(*x)
+                u_hat = list(u_hat) if isinstance(u_hat, (list, tuple)) else [u_hat]
+                return ((torch.stack(args[:-n_input_units]) - torch.stack(u_hat)) ** 2).mean()
+
+            if 'analytic_mse' in self.metrics_fn:
+                warnings.warn("Ignoring `analytic_solutions` in presence of key 'analytic_mse' in `metrics`",
+                              FutureWarning)
+            else:
+                self.metrics_fn['analytic_mse'] = analytic_mse
         self.metrics_history = {'train_loss': [], 'valid_loss': []}
         self.metrics_history.update({'train__' + name: [] for name in self.metrics_fn})
         self.metrics_history.update({'valid__' + name: [] for name in self.metrics_fn})
+
+        self.set_optimizer(optimizer if optimizer is not None else torch.optim.Adam(self._parameters(), lr=1e-3))
+        self._set_loss_fn(loss_fn)
 
         self.best_params = None
         self.lowest_loss = None
         self.local_epoch = 0
         self._max_local_epoch = 0
         self._stop_training = False
+
+    # -------------------------------------------------------- configuration
+    def _parameters(self):
+        return [p for net in self._unique_nets for p in net.parameters()]
 
     def _set_loss_fn(self, criterion):
         if criterion is None:
@@ -111,6 +165,30 @@ class BaseSolver(ABC):
         else:
             raise TypeError(f"Unknown type of criterion {type(criterion)}")
 
+    def set_loss_fn(self, loss_fn):
+        """Swap the loss function (a registry key or a callable)."""
+        self._set_loss_fn(loss_fn)
+
+    def set_optimizer(self, optimizer, reset_state=True):
+        """Swap the optimizer. With ``reset_state`` its state (moments,
+        step counts, L-BFGS history) starts empty."""
+        self.optimizer = optimizer
+        self._closure_style = _requires_closure(optimizer)
+        if reset_state:
+            optimizer.state.clear()
+        if self._closure_style and self.n_batches['valid'] == 0:
+            warnings.warn(
+                "Setting n_batches_valid=0 will update lowest_loss and best_net with training "
+                "loss instead of validation loss. This is a problem for closure-style optimizers "
+                "because they update the parameters before the training loss is computed. "
+                "This leads to potentially worse solution in `best_net`!", RuntimeWarning)
+
+    def set_generator(self, generator, phase='train'):
+        """Swap the collocation generator of ``phase`` (``'train'`` or ``'valid'``)."""
+        if phase not in self.generator:
+            raise ValueError(f"phase must be one of {list(self.generator)}, got {phase!r}")
+        self.generator[phase] = generator
+
     @property
     def global_epoch(self):
         return len(self.metrics_history['train_loss'])
@@ -121,23 +199,39 @@ class BaseSolver(ABC):
         return cond.enforce(net, *coordinates)
 
     def _forward(self, cols, nets=None):
-        """Sampled columns -> (funcs, coord_fields); shared by loss and residuals."""
+        """Sampled columns -> (funcs, coord_fields); shared by loss and residuals.
+        The per-condition nets run one after another."""
         points = torch.cat([c.reshape(-1, 1) for c in cols], dim=1)
         coord_fields = coords_from_points(points)
         funcs = [self.compute_func_val(net, cond, *coord_fields)
                  for net, cond in zip(nets or self.nets, self.conditions)]
         return funcs, coord_fields
 
-    def _residuals(self, funcs, coord_fields):
+    def _residuals(self, funcs, coord_fields, weighted=False):
         residuals = self.diff_eqs(*funcs, *coord_fields)
         if isinstance(residuals, Field):
             residuals = [residuals]
+        if weighted and self.residual_weights is not None:
+            residuals = self._apply_residual_weights(list(residuals))
         return field_cat(residuals)
+
+    def _apply_residual_weights(self, residuals):
+        """Scale each equation's residual by ``w_k ** (1/p)``, ``p`` the loss
+        function's ``residual_power`` (default 2): a quadratic loss then sees
+        ``sum_k w_k mean(r_k^2)`` and a loss linear in the residual
+        ``sum_k w_k mean(r_k)``. Only the training loss is weighted;
+        ``get_residuals`` returns raw residuals."""
+        rw = self.residual_weights
+        if len(rw) != len(residuals):
+            raise ValueError(f"residual_weights has {len(rw)} entries but the system "
+                             f"produced {len(residuals)} residuals")
+        power = getattr(self.loss_fn, 'residual_power', 2)
+        return [r * (w ** (1.0 / power)) for r, w in zip(residuals, rw)]
 
     def _loss_and_metrics(self, cols):
         """Enforce, residuals, loss + additional loss, metrics."""
         funcs, coord_fields = self._forward(cols)
-        residual = self._residuals(funcs, coord_fields)
+        residual = self._residuals(funcs, coord_fields, weighted=True)
         loss = self.loss_fn(residual, funcs, coord_fields)
         loss = loss + self.additional_loss(residual, funcs, coord_fields)
         metrics = {name: torch.as_tensor(fn(*[f.value for f in funcs], *[c.value for c in coord_fields]))
@@ -145,29 +239,51 @@ class BaseSolver(ABC):
         return loss, metrics
 
     def additional_loss(self, residual, funcs, coords):
-        r"""Additional loss terms; override in subclasses. Must return a scalar."""
+        r"""Additional loss terms; override in subclasses. Must return a
+        scalar. Under ``residual_weights``, ``residual`` is the weighted one."""
         return 0.0
 
     def _generate_batch(self, phase):
         return [c.reshape(-1, 1) for c in self.generator[phase].sample(self.rng)]
 
     # ---------------------------------------------------------------- epochs
+    def _closure_step(self, cols):
+        """One closure-style optimizer step on one batch; returns the loss
+        and metrics at the parameters before the step."""
+        first = []
+
+        def closure():
+            self.optimizer.zero_grad(set_to_none=True)
+            loss, metrics = self._loss_and_metrics(cols)
+            loss.backward()
+            if not first:
+                first.append((loss.detach(), metrics))
+            return loss
+
+        self.optimizer.step(closure)
+        return first[0]
+
     def _run_epoch(self, phase):
         """One epoch of ``phase``; returns the mean loss and metrics as tensors."""
         n_batches = self.n_batches[phase]
         train = phase == 'train'
-        if train:
+        closure = train and self._closure_style
+        if train and not closure:
             self.optimizer.zero_grad(set_to_none=True)
         total, metric_sums = 0.0, {name: 0.0 for name in self.metrics_fn}
         with torch.set_grad_enabled(train):
             for _ in range(n_batches):
-                loss, metrics = self._loss_and_metrics(self._generate_batch(phase))
-                if train:
-                    loss.backward()
+                cols = self._generate_batch(phase)
+                if closure:
+                    loss, metrics = self._closure_step(cols)
+                else:
+                    loss, metrics = self._loss_and_metrics(cols)
+                    if train:
+                        loss.backward()
                 total = total + loss.detach()
                 for name in self.metrics_fn:
                     metric_sums[name] = metric_sums[name] + metrics[name].detach()
-        if train:
+        if train and not closure:
             self.optimizer.step()
         return total / n_batches, {k: v / n_batches for k, v in metric_sums.items()}
 
@@ -189,6 +305,8 @@ class BaseSolver(ABC):
 
     def run_valid_epoch(self):
         r"""Run a validation epoch, update history and the best parameters."""
+        if self.n_batches['valid'] <= 0:
+            return
         loss, metrics = self._run_epoch('valid')
         self._record('valid', float(loss), {k: float(v) for k, v in metrics.items()})
         self._update_best('valid')
@@ -210,15 +328,44 @@ class BaseSolver(ABC):
         elif self.n_batches['valid'] == 0:
             self._update_best('train')
 
-    def fit(self, max_epochs):
+    def fit(self, max_epochs, callbacks=(), tqdm_file=sys.stderr, **kwargs):
         r"""Run ``max_epochs`` epochs of training and validation, tracking the
-        best parameters. (Callbacks are not ported yet.)"""
+        best parameters.
+
+        :param max_epochs: Number of epochs to run.
+        :param callbacks: callables taking the solver, called after every
+            epoch; one may stop training by setting ``_stop_training``.
+        :param tqdm_file: file for the tqdm progress bar; None (or no tqdm
+            installed) shows none.
+        """
+        if kwargs.pop('monitor', None):
+            raise NotImplementedError(
+                "Passing `monitor` is deprecated, and MonitorCallback, which replaces it, is not "
+                "ported yet (ROADMAP.md §1 item 13a, the callbacks left out)")
+        if kwargs:
+            raise ValueError(f'Unknown keyword argument(s): {list(kwargs.keys())}')
         self._stop_training = False
         self._max_local_epoch = max_epochs
         self.local_epoch = 0
-        while self.local_epoch < max_epochs and not self._stop_training:
-            self.local_epoch += 1
-            self.run_epochs()
+        pbar = None
+        if tqdm is not None and tqdm_file is not None:
+            pbar = tqdm(total=max_epochs, desc='Training Progress', colour='blue', file=tqdm_file,
+                        dynamic_ncols=True)
+        try:
+            while self.local_epoch < max_epochs and not self._stop_training:
+                self.local_epoch += 1
+                self.run_epochs()
+                for cb in callbacks:
+                    cb(self)
+                if pbar is not None:
+                    pbar.update(1)
+        finally:
+            if pbar is not None:
+                pbar.close()
+            for cb in callbacks:
+                flush = getattr(cb, 'flush', None)
+                if callable(flush):
+                    flush()
 
     # ------------------------------------------------------------ inspection
     def _nets_for(self, best, copy_nets=True):
@@ -234,6 +381,60 @@ class BaseSolver(ABC):
             for net, state in zip(unique, self.best_params):
                 net.load_state_dict(state)
         return nets
+
+    @property
+    def best_nets(self):
+        """Copies of the nets loaded with the lowest-loss parameters (None
+        before the first epoch)."""
+        return None if self.best_params is None else self._nets_for(best=True)
+
+    @torch.no_grad()
+    def load_jax_params(self, params):
+        """Load the JAX package's solver parameters: its ``params`` list, one
+        pytree of numpy arrays per distinct net (in order of first
+        appearance, as ``_net_param_index`` numbers them), each through the
+        matching module's ``load_jax_params``."""
+        if len(params) != len(self._unique_nets):
+            raise ValueError(f"expected parameters of {len(self._unique_nets)} nets, got {len(params)}")
+        for net, p in zip(self._unique_nets, params):
+            net.load_jax_params(p)
+        return self
+
+    def _get_internal_variables(self):
+        return {
+            "metrics": self.metrics_fn,
+            "n_batches": self.n_batches,
+            "best_nets": self.best_nets,
+            "best_params": self.best_params,
+            "criterion": self.loss_fn,
+            "loss_fn": self.loss_fn,
+            "conditions": self.conditions,
+            "global_epoch": self.global_epoch,
+            "lowest_loss": self.lowest_loss,
+            "n_funcs": self.n_funcs,
+            "nets": self.nets,
+            "params": [net.state_dict() for net in self._unique_nets],
+            "optimizer": self.optimizer,
+            "diff_eqs": self.diff_eqs,
+            "generator": self.generator,
+            "train_generator": self.generator['train'],
+            "valid_generator": self.generator['valid'],
+        }
+
+    @deprecated_alias(param_names='var_names')
+    def get_internals(self, var_names=None, return_type='list'):
+        r"""Internal variable(s) of the solver: all of them (as a dict) for
+        ``None`` or ``'all'``, one for a name, else a list or dict."""
+        available_variables = self._get_internal_variables()
+        if var_names == "all" or var_names is None:
+            return available_variables
+        if isinstance(var_names, str):
+            return available_variables[var_names]
+        if return_type == 'list':
+            return [available_variables[name] for name in var_names]
+        if return_type == "dict":
+            return {name: available_variables[name] for name in var_names}
+        raise ValueError(f"unrecognized return_type = {return_type}")
 
     @abstractmethod
     def get_solution(self, copy=True, best=True):
@@ -308,6 +509,66 @@ class BaseSolution(ABC):
         return us if len(self.nets) > 1 else us[0]
 
 
+class Solution1D(BaseSolution):
+    def _compute_u(self, net, condition, ts):
+        return condition.enforce(net, ts)
+
+
+class Solver1D(BaseSolver):
+    r"""A solver for ODEs (single-input differential equations).
+
+    :param ode_system: maps funcs and the time coordinate to residuals.
+    :param conditions: list of conditions, one per target function.
+    :param t_min: lower bound of the time domain (ignored if both generators given).
+    :param t_max: upper bound of the time domain.
+
+    The default generators are ``Generator1D(32, t_min, t_max)`` with
+    ``'equally-spaced-noisy'`` (training) and ``'equally-spaced'``
+    (validation). The other parameters are :class:`BaseSolver`'s.
+    """
+
+    def __init__(self, ode_system, conditions, t_min=None, t_max=None, nets=None,
+                 train_generator=None, valid_generator=None, analytic_solutions=None, optimizer=None,
+                 loss_fn=None, n_batches_train=1, n_batches_valid=4, metrics=None, n_output_units=1,
+                 residual_weights=None, device=None, dtype=None, generator=None):
+        if train_generator is None or valid_generator is None:
+            if t_min is None or t_max is None:
+                raise ValueError(
+                    f"Either generator is not provided, t_min and t_max should be both provided: \n"
+                    f"got t_min={t_min}, t_max={t_max}, "
+                    f"train_generator={train_generator}, valid_generator={valid_generator}")
+        device, dtype = resolve(device, dtype)
+        if train_generator is None:
+            train_generator = Generator1D(32, t_min=t_min, t_max=t_max, method='equally-spaced-noisy',
+                                          device=device, dtype=dtype)
+        if valid_generator is None:
+            valid_generator = Generator1D(32, t_min=t_min, t_max=t_max, method='equally-spaced',
+                                          device=device, dtype=dtype)
+        self.t_min, self.t_max = t_min, t_max
+        super().__init__(
+            diff_eqs=ode_system, conditions=conditions, nets=nets,
+            train_generator=train_generator, valid_generator=valid_generator,
+            analytic_solutions=analytic_solutions, optimizer=optimizer, loss_fn=loss_fn,
+            n_batches_train=n_batches_train, n_batches_valid=n_batches_valid, metrics=metrics,
+            n_input_units=1, n_output_units=n_output_units, residual_weights=residual_weights,
+            device=device, dtype=dtype, generator=generator)
+
+    def get_solution(self, copy=True, best=True):
+        r"""A callable solution evaluated as ``solution(ts)``.
+
+        :param copy: copy the networks, so that later training does not
+            change the solution. Defaults to True.
+        :param best: use the lowest-loss parameters. Defaults to True.
+        """
+        conditions = deepcopy(self.conditions) if copy else self.conditions
+        return Solution1D(self._nets_for(best, copy_nets=copy), conditions)
+
+    def _get_internal_variables(self):
+        d = super()._get_internal_variables()
+        d.update({'t_min': self.t_min, 't_max': self.t_max})
+        return d
+
+
 class Solution2D(BaseSolution):
     def _compute_u(self, net, condition, xs, ys):
         return condition.enforce(net, xs, ys)
@@ -323,9 +584,9 @@ class Solver2D(BaseSolver):
     """
 
     def __init__(self, pde_system, conditions, xy_min=None, xy_max=None, nets=None,
-                 train_generator=None, valid_generator=None, optimizer=None, loss_fn=None,
-                 n_batches_train=1, n_batches_valid=4, metrics=None, n_output_units=1,
-                 device=None, dtype=None, generator=None):
+                 train_generator=None, valid_generator=None, analytic_solutions=None, optimizer=None,
+                 loss_fn=None, n_batches_train=1, n_batches_valid=4, metrics=None, n_output_units=1,
+                 residual_weights=None, device=None, dtype=None, generator=None):
         if train_generator is None or valid_generator is None:
             if xy_min is None or xy_max is None:
                 raise ValueError(
@@ -343,9 +604,10 @@ class Solver2D(BaseSolver):
         super().__init__(
             diff_eqs=pde_system, conditions=conditions, nets=nets,
             train_generator=train_generator, valid_generator=valid_generator,
-            optimizer=optimizer, loss_fn=loss_fn, n_batches_train=n_batches_train,
-            n_batches_valid=n_batches_valid, metrics=metrics, n_input_units=2,
-            n_output_units=n_output_units, device=device, dtype=dtype, generator=generator)
+            analytic_solutions=analytic_solutions, optimizer=optimizer, loss_fn=loss_fn,
+            n_batches_train=n_batches_train, n_batches_valid=n_batches_valid, metrics=metrics,
+            n_input_units=2, n_output_units=n_output_units, residual_weights=residual_weights,
+            device=device, dtype=dtype, generator=generator)
 
     def get_solution(self, copy=True, best=True):
         r"""A callable solution evaluated as ``solution(xs, ys)``.
@@ -356,4 +618,9 @@ class Solver2D(BaseSolver):
         """
         conditions = deepcopy(self.conditions) if copy else self.conditions
         return Solution2D(self._nets_for(best, copy_nets=copy), conditions)
+
+    def _get_internal_variables(self):
+        d = super()._get_internal_variables()
+        d.update({'xy_min': self.xy_min, 'xy_max': self.xy_max})
+        return d
 
