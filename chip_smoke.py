@@ -35,11 +35,22 @@ line each or more:
       500, ..., 3000, max |u - odeint| < 0.05 on 500 points and the initial
       values exact to 1e-5; then ``fit(200)`` of the same problem under the
       ``h1`` loss, which reaches the kernel at order 2;
+   d. the spherical path, the Gaussian-charge Poisson problem through
+      ``SolverSpherical`` (FCNN 3-64-64-1 tanh, ``DirichletBVPSpherical``
+      on r in [0.1, 3], the default ``GeneratorSpherical`` of 512 points,
+      ``l2``, Adam under the cosine decay 1e-3 -> 1e-5 as a ``LambdaLR``
+      stepped by a callback), on the port's defaults (cuda, float32),
+      ``fit(5000)``: ``taylor_mlp`` must carry it at 5 launches per epoch
+      (1 train and 4 validation batches) with no ``taylor_mlp_1h`` launch
+      and no fallback, the loss must fall, the rate must end at 1e-5,
+      ``get_solution()`` must be within ``SPH_LIMIT`` relative error of
+      ``K Q / r erf(r / sqrt 2)`` on 256 radii at random angles, hold
+      u(0.1) and u(3) to 1e-5, and ``get_residuals`` must be finite;
 6. timing: device time per call of kernel and twin at every shape of
    ``TABLE_SHAPES`` (``torch.profiler``) beside the kernel's bound, the
    wrapper's host enqueue time per call, and train-only epochs/s with the
    kernel and with the twin swapped in, interleaved; the Lotka-Volterra
-   epoch's rate and its device-busy share (full run only);
+   and the spherical epochs' rates and device-busy shares (full run only);
 7. the result.
 
 ``python3 chip_smoke.py --times-only`` runs phases 1, 2 and 6 alone, with
@@ -67,6 +78,11 @@ KERNEL_SOURCE = 'neurodiffeq_tpu_torch/csrc/taylor_mlp.cu'
 REPLACES = 'neurodiffeq_tpu/ops/pallas_mlp.py:115'
 GRID, HIDDEN, EPOCHS, DEFAULT_NET_EPOCHS = (32, 32), (512,), 2000, 300
 LV_EPOCHS, LV_H1_EPOCHS, LV_PERIOD = 3000, 200, 500
+# 5000 epochs keep phase 5d near 1.5 minutes on the card; the limit is about
+# twice the 1.747e-2 that the port's CPU float32 run of this phase gave at
+# the same epoch count, and under the JAX package's own 0.08 at 2500 epochs
+SPH_EPOCHS, SPH_LIMIT = 5000, 0.035
+SPH_R0, SPH_R1 = 0.1, 3.0
 F32, F64 = torch.float32, torch.float64
 CHECK_SHAPES = [  # (layer widths, activation, order, N)
     ((2, 512, 1), 'tanh', 2, 1024),
@@ -75,6 +91,7 @@ CHECK_SHAPES = [  # (layer widths, activation, order, N)
     ((1, 32, 32, 1), 'sin', 2, 37),
     ((3, 16, 2), 'tanh', 2, 37),
     ((2, 1), 'tanh', 2, 37),
+    ((3, 32, 32, 1), 'tanh', 2, 512),
 ]
 TABLE_SHAPES = [  # (layer widths, activation, order, N, dtype timed in phase 6)
     ((2, 512, 1), 'tanh', 2, 1024, F32),     # flagship train and validation batch
@@ -86,7 +103,8 @@ TABLE_SHAPES = [  # (layer widths, activation, order, N, dtype timed in phase 6)
     ((2, 50, 3), 'sin', 2, 1, F32),
     ((2, 50, 3), 'sin', 2, 37, F32),
     ((2, 32, 32, 1), 'tanh', 2, 1024, F32),  # Solver2D's default net, phase 5b
-    ((3, 64, 64, 1), 'tanh', 2, 512, F32),   # spherical Poisson width
+    ((3, 64, 64, 1), 'tanh', 2, 512, F32),   # spherical Poisson width, phase 5d
+    ((3, 32, 32, 1), 'tanh', 2, 512, F32),   # SolverSpherical's default net
     ((2, 128, 128, 128, 128, 128, 3), 'tanh', 2, 16384, F32),  # cavity width
     ((1, 32, 32, 1), 'sin', 1, 32, F32),     # Lotka-Volterra batch, phase 5c
     ((1, 32, 32, 1), 'sin', 2, 32, F32),     # the same under the h1 loss
@@ -207,6 +225,86 @@ def lv_reference(ts):
     return ref[:, 0], ref[:, 1]
 
 
+def sph_exact(r):
+    """The potential of the unit Gaussian charge: K Q / r erf(r / sqrt 2)."""
+    from scipy.special import erf
+    return 1 / (4 * np.pi) / r * erf(r / np.sqrt(2))
+
+
+def sph_solver(epochs):
+    """Spherical Poisson, the BASELINE config of ``benchmarks/configs.py``,
+    on the port's default device and dtype (cuda, float32), with the cosine
+    decay 1e-3 -> 1e-5 over ``epochs`` (optax's ``cosine_decay_schedule``,
+    alpha = 1e-2) as a ``LambdaLR``. Returns the solver and a callback that
+    steps the schedule once per epoch."""
+    from neurodiffeq_tpu_torch import fields as F
+    from neurodiffeq_tpu_torch.conditions import DirichletBVPSpherical
+    from neurodiffeq_tpu_torch.networks import FCNN
+    from neurodiffeq_tpu_torch.operators import spherical_laplacian
+    from neurodiffeq_tpu_torch.solvers import SolverSpherical
+
+    coeff = 1 / np.power(2 * np.pi, 1.5)
+    v0, v1 = float(sph_exact(SPH_R0)), float(sph_exact(SPH_R1))
+    solver = SolverSpherical(
+        pde_system=lambda u, r, th, ph: [spherical_laplacian(u, r, th, ph) + coeff * F.exp(-(r ** 2) / 2)],
+        conditions=[DirichletBVPSpherical(SPH_R0, lambda th, ph: v0 + 0 * th, SPH_R1, lambda th, ph: v1 + 0 * th)],
+        r_min=SPH_R0, r_max=SPH_R1, nets=[FCNN(n_input_units=3, n_output_units=1, hidden_units=(64, 64))])
+    alpha = 1e-2
+    sched = torch.optim.lr_scheduler.LambdaLR(
+        solver.optimizer, lambda k: alpha + (1 - alpha) * 0.5 * (1 + math.cos(math.pi * min(k, epochs) / epochs)))
+    return solver, lambda s: sched.step()
+
+
+def run_sph(F, taylor_mlp):
+    """Phase 5d: the spherical path. Returns its launch counts."""
+    from neurodiffeq_tpu_torch.utils import set_seed
+
+    set_seed(0)
+    solver, step_schedule = sph_solver(SPH_EPOCHS)
+    F.reset_taylor_fallback_count()
+    taylor_mlp.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver.fit(SPH_EPOCHS, callbacks=[step_schedule], tqdm_file=None)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(taylor_mlp.LAUNCHES)
+    fallbacks = F.taylor_fallback_count()
+    hist = solver.metrics_history['train_loss']
+    early, late = float(np.mean(hist[:100])), float(np.mean(hist[-100:]))
+    lr = solver.optimizer.param_groups[0]['lr']
+    rng = np.random.RandomState(42)  # the angles as benchmarks/configs.py samples them
+    rs = np.linspace(SPH_R0, SPH_R1, 256)
+    ths, phs = rng.rand(256) * np.pi * 0.9 + 0.05, rng.rand(256) * 2 * np.pi
+    sol = solver.get_solution()
+    u = sol(rs, ths, phs, to_numpy=True)
+    rel = float((np.abs(u - sph_exact(rs)) / np.abs(sph_exact(rs))).max())
+    ub = sol(np.array([SPH_R0, SPH_R0, SPH_R1, SPH_R1]), np.array([0.3, 2.5, 1.0, 3.0]),
+             np.array([0.1, 4.0, 2.0, 6.0]), to_numpy=True)
+    bc_err = float(np.abs(ub - sph_exact(np.array([SPH_R0, SPH_R0, SPH_R1, SPH_R1]))).max())
+    res = solver.get_residuals(rs, ths, phs, to_numpy=True)
+    checks = {
+        'taylor_mlp carried it at 5 launches per epoch': launches['taylor_mlp'] == 5 * SPH_EPOCHS,
+        'taylor_mlp_1h not launched': launches['taylor_mlp_1h'] == 0,
+        'no Taylor fallback': fallbacks == 0,
+        'loss fell': late < early,
+        'rate ended at 1e-5': abs(lr - 1e-5) < 1e-12,
+        f'max rel error < {SPH_LIMIT}': bool(np.isfinite(u).all()) and rel < SPH_LIMIT,
+        'u(0.1) and u(3) exact to 1e-5': bc_err < 1e-5,
+        'residuals finite': res.shape == rs.shape and bool(np.isfinite(res).all()),
+    }
+    phase('5d spherical', f"SolverSpherical fit({SPH_EPOCHS}) float32 in {fit_s:.1f} s ({SPH_EPOCHS / fit_s:.1f} "
+                          f"epochs/s with validation): launches {launches} "
+                          f"({launches['taylor_mlp'] / SPH_EPOCHS:.2f} taylor_mlp per epoch), {fallbacks} "
+                          f"fallbacks, train loss mean {early:.3e} (first 100) -> {late:.3e} (last 100), final "
+                          f"lr {lr:.3e}, max |u - exact| / |exact| on 256 radii {rel:.4e}, boundary error "
+                          f"{bc_err:.1e}, max |residual| {np.abs(res).max():.3e}; "
+                          + ', '.join(f"{k}: {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+    if not all(checks.values()):
+        raise SystemExit("chip_smoke: spherical Poisson check failed")
+    return launches
+
+
 def check_siren():
     """Phase 3, SIREN: {(dims, n, dtype): max abs error} of the kernel path
     against the plain layer-by-layer engine, or SystemExit."""
@@ -320,34 +418,32 @@ def run_lv(F, taylor_mlp):
     return launches, launches_h1
 
 
-def time_lv(card):
-    """Phase 6: the Lotka-Volterra epoch (train and validation, as ``fit``
-    runs it): epochs/s over interleaved windows, and device time per epoch
-    and kernels per epoch from the profiler, as a share of the epoch."""
+def time_epochs(card, label, solver, callbacks=()):
+    """Phase 6: the epoch as ``fit`` runs it (train and validation):
+    epochs/s over three 300-epoch windows, and device time per epoch and
+    kernels per epoch from the profiler, as a share of the epoch."""
     from torch.profiler import ProfilerActivity, profile
 
-    solver = lv_solver()
-    solver.fit(50, tqdm_file=None)
+    solver.fit(50, callbacks=callbacks, tqdm_file=None)
     rates = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        solver.fit(300, tqdm_file=None)
+        solver.fit(300, callbacks=callbacks, tqdm_file=None)
         torch.cuda.synchronize()
         rates.append(300 / (time.perf_counter() - t0))
     n = 50
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        solver.fit(n, tqdm_file=None)
+        solver.fit(n, callbacks=callbacks, tqdm_file=None)
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type.name == 'CUDA']
     dev_ms = sum(e.device_time for e in kernels) / n / 1e3
     med = float(np.median(rates))
-    phase('6 timing', f"{card}: Lotka-Volterra epochs/s (train + 4 validation batches, 2 nets) in 300-epoch "
-                      f"windows: {' '.join(f'{r:.2f}' for r in rates)} (median {med:.2f}, "
-                      f"{1e3 / med:.3f} ms per epoch); profiler over {n} epochs: {len(kernels) / n:.1f} device "
-                      f"kernels and {dev_ms:.4f} ms of device time per epoch, device busy "
-                      f"{dev_ms * med / 1e3:.1%} of the unprofiled epoch")
+    phase('6 timing', f"{card}: {label} epochs/s in 300-epoch windows: {' '.join(f'{r:.2f}' for r in rates)} "
+                      f"(median {med:.2f}, {1e3 / med:.3f} ms per epoch); profiler over {n} epochs: "
+                      f"{len(kernels) / n:.1f} device kernels and {dev_ms:.4f} ms of device time per epoch, "
+                      f"device busy {dev_ms * med / 1e3:.1%} of the unprofiled epoch")
 
 
 def cuda_time_ms(fn, calls=200, warmup=10):
@@ -603,17 +699,24 @@ def main():
     # ---- 5c. the ODE path: Lotka-Volterra through Solver1D
     launches_lv, launches_h1 = run_lv(F, taylor_mlp)
 
+    # ---- 5d. the spherical path: Poisson through SolverSpherical
+    launches_sph = run_sph(F, taylor_mlp)
+
     # ---- 6. timing
     times = time_shapes(card, fcnn_taylor, fcnn_taylor_reference)
     time_end_to_end(card, taylor_mlp)
-    time_lv(card)
+    time_epochs(card, 'Lotka-Volterra (train + 4 validation batches, 2 nets)', lv_solver())
+    solver, step_schedule = sph_solver(SPH_EPOCHS)
+    time_epochs(card, 'spherical Poisson (train + 4 validation batches of 512 points)', solver, [step_schedule])
 
     # ---- 7. result: launches summed over the paths of phase 5
-    paths = {'5a': launches_main, '5b': launches_default, '5c': launches_lv, '5c h1': launches_h1}
+    paths = {'5a': launches_main, '5b': launches_default, '5c': launches_lv, '5c h1': launches_h1,
+             '5d': launches_sph}
     phase('7 result', f"launches per path: {paths}")
     record = {'kernels': []}
+    # each kernel timed at the shape of the newest path it carries
     for name, key in (('taylor_mlp_1h', ((2, 512, 1), 'tanh', 2, 1024, F32)),
-                      ('taylor_mlp', ((2, 32, 32, 1), 'tanh', 2, 1024, F32))):
+                      ('taylor_mlp', ((3, 64, 64, 1), 'tanh', 2, 512, F32))):
         launches = sum(p[name] for p in paths.values())
         k_us, t_us, b_ms, b_by = times[key]
         record['kernels'].append({

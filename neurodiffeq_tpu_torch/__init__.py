@@ -1,13 +1,15 @@
 r"""neurodiffeq_tpu_torch: the PyTorch / CUDA port of ``neurodiffeq_tpu``.
 
 A second package beside the JAX one, with the same module names. It covers
-the 2-D Laplace and the ODE training paths so far: the ``Field``/``diff``
-layer and its batched Taylor engine (orders <= 2), the networks (``FCNN``,
-``Resnet``, ``FourierFCNN``, ``SIREN``, ``MonomialNN`` and their
-activations), ``Generator1D``/``Generator2D`` and the ``+``/``*``
-combinators, the 1-D conditions and ``DirichletBVP2D``, the cartesian
-operators, the loss registry, the callbacks, and ``Solver1D``/``Solver2D``
-with ``fit(max_epochs, callbacks, tqdm_file)``. The fused Taylor-mode
+the 2-D Laplace, the ODE and the spherical training paths so far: the
+``Field``/``diff`` layer and its batched Taylor engine (orders <= 2), the
+networks (``FCNN``, ``Resnet``, ``FourierFCNN``, ``SIREN``, ``MonomialNN``
+and their activations), ``Generator1D``/``Generator2D``/
+``GeneratorSpherical`` and the ``+``/``*`` combinators, the 1-D,
+``DirichletBVP2D`` and spherical conditions, the cartesian, spherical and
+cylindrical operators, the function bases, the loss registry, the
+callbacks, and ``Solver1D``/``Solver2D``/``SolverSpherical`` with
+``fit(max_epochs, callbacks, tqdm_file)``. The fused Taylor-mode
 FCNN runs as a hand-written CUDA kernel for Hopper
 (``csrc/taylor_mlp.cu``) on CUDA tensors and as its plain PyTorch twin on
 CPU tensors. The package imports ``torch`` and never ``jax``.
@@ -18,6 +20,7 @@ from . import networks
 from . import generators
 from . import conditions
 from . import operators
+from . import function_basis
 from . import losses
 from . import solvers
 from . import callbacks
@@ -26,5 +29,5 @@ from .fields import diff
 
 __version__ = '0.1.0'
 
-__all__ = ['diff', 'utils', 'fields', 'networks', 'generators', 'conditions', 'operators', 'losses',
-           'solvers', 'callbacks']
+__all__ = ['diff', 'utils', 'fields', 'networks', 'generators', 'conditions', 'operators',
+           'function_basis', 'losses', 'solvers', 'callbacks']

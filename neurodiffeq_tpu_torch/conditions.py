@@ -8,11 +8,16 @@ constrained solution flows through the condition exactly.
 """
 import warnings
 
+import numpy as np
+import torch
+
 from ._version_utils import deprecated_alias
-from .fields import cat, exp, network_field
+from .fields import abs as fabs, cat, exp, network_field, tanh
+from .utils import resolve
 
 __all__ = ['BaseCondition', 'EnsembleCondition', 'NoCondition', 'IVP', 'DirichletBVP',
-           'DirichletBVP2D']
+           'DirichletBVP2D', 'DirichletBVPSpherical', 'InfDirichletBVPSpherical',
+           'DirichletBVPSphericalBasis', 'InfDirichletBVPSphericalBasis']
 
 
 def _ann_field(net, coordinates, ith_unit=None):
@@ -166,3 +171,112 @@ class DirichletBVP2D(BaseCondition):
                + (1 - y_tilde) * (self.g0(x) - ((1 - x_tilde) * self.g0(x0) + x_tilde * self.g0(x1)))
                + y_tilde * (self.g1(x) - ((1 - x_tilde) * self.g1(x0) + x_tilde * self.g1(x1))))
         return Axy + x_tilde * (1 - x_tilde) * y_tilde * (1 - y_tilde) * output_tensor
+
+
+class DirichletBVPSpherical(BaseCondition):
+    r"""Dirichlet conditions on an interior and, optionally, an exterior
+    sphere: :math:`u(r_0,\theta,\phi)=f(\theta,\phi)` and
+    :math:`u(r_1,\theta,\phi)=g(\theta,\phi)`.
+
+    - one-ended: :math:`u = f + (1 - e^{-|r - r_0|})\,\mathrm{ANN}`;
+    - two-ended: :math:`u = (1-\tilde r) f + \tilde r g + (1 - e^{(1-\tilde r)\tilde r})\,\mathrm{ANN}`,
+      with :math:`\tilde r = (r - r_0)/(r_1 - r_0)`.
+
+    :param f, g: callables of the (theta, phi) Fields (written with the
+        Field-aware math of :mod:`neurodiffeq_tpu_torch.fields`).
+    """
+
+    def __init__(self, r_0, f, r_1=None, g=None):
+        super().__init__()
+        if (r_1 is None) ^ (g is None):
+            raise ValueError(f'r_1 and g must be both/neither set to None; got r_1={r_1}, g={g}')
+        self.r_0, self.r_1 = r_0, r_1
+        self.f, self.g = f, g
+
+    def parameterize(self, output_tensor, r, theta, phi):
+        if self.r_1 is None:
+            return (1 - exp(-fabs(r - self.r_0))) * output_tensor + self.f(theta, phi)
+        r_tilde = (r - self.r_0) / (self.r_1 - self.r_0)
+        return (self.f(theta, phi) * (1 - r_tilde)
+                + self.g(theta, phi) * r_tilde
+                + (1. - exp((1 - r_tilde) * r_tilde)) * output_tensor)
+
+
+class InfDirichletBVPSpherical(BaseCondition):
+    r"""Like :class:`DirichletBVPSpherical` with the exterior sphere at
+    infinity: :math:`u = f e^{-k(r-r_0)} + g \tanh(r-r_0) + e^{-k(r-r_0)}\tanh(r-r_0)\,\mathrm{ANN}`.
+
+    :param order: the smallest k such that u decays like :math:`e^{-kr}`.
+    """
+
+    def __init__(self, r_0, f, g, order=1):
+        super().__init__()
+        self.r_0, self.f, self.g, self.order = r_0, f, g, order
+
+    def parameterize(self, output_tensor, r, theta, phi):
+        dr = r - self.r_0
+        return (self.f(theta, phi) * exp(-self.order * dr)
+                + self.g(theta, phi) * tanh(dr)
+                + exp(-self.order * dr) * tanh(dr) * output_tensor)
+
+
+def _coefficients(values, device, dtype):
+    """Harmonic coefficients as a (1, K) row on the resolved device (None
+    stays None). A row broadcasts over the points even when K equals their
+    number, where a (K,) vector would be taken as one value per point."""
+    if values is None:
+        return None
+    device, dtype = resolve(device, dtype)
+    values = values if torch.is_tensor(values) else np.asarray(values)
+    return torch.as_tensor(values, dtype=dtype, device=device).reshape(1, -1)
+
+
+class DirichletBVPSphericalBasis(BaseCondition):
+    r"""A Dirichlet condition on the vector of harmonic coefficients
+    :math:`\mathbf{R}(r)` of a radial network:
+    :math:`\mathbf{R}(r_0)=\mathbf{R}_0` and, optionally,
+    :math:`\mathbf{R}(r_1)=\mathbf{R}_1`.
+
+    :param device: device of the coefficients (the port's default if None).
+    :param dtype: dtype of the coefficients (the port's default if None).
+    """
+
+    def __init__(self, r_0, R_0, r_1=None, R_1=None, max_degree=None, device=None, dtype=None):
+        super().__init__()
+        if max_degree is not None:
+            warnings.warn("`max_degree` is deprecated and ignored", FutureWarning)
+        if (r_1 is None) ^ (R_1 is None):
+            raise ValueError(f'r_1 and R_1 must be both/neither set to None; got r_1={r_1}, R_1={R_1}')
+        self.r_0, self.r_1 = r_0, r_1
+        self.R_0 = _coefficients(R_0, device, dtype)
+        self.R_1 = _coefficients(R_1, device, dtype)
+
+    def parameterize(self, output_tensor, r):
+        if self.r_1 is None:
+            return (1 - exp(-r + self.r_0)) * output_tensor + self.R_0
+        r_tilde = (r - self.r_0) / (self.r_1 - self.r_0)
+        return (self.R_0 * (1 - r_tilde) + self.R_1 * r_tilde
+                + (1. - exp((1 - r_tilde) * r_tilde)) * output_tensor)
+
+
+class InfDirichletBVPSphericalBasis(BaseCondition):
+    r"""Like :class:`DirichletBVPSphericalBasis` with the exterior boundary
+    at infinity, where the coefficients tend to :math:`\mathbf{R}_\infty`.
+
+    :param device: device of the coefficients (the port's default if None).
+    :param dtype: dtype of the coefficients (the port's default if None).
+    """
+
+    def __init__(self, r_0, R_0, R_inf, order=1, max_degree=None, device=None, dtype=None):
+        super().__init__()
+        if max_degree is not None:
+            warnings.warn("`max_degree` is deprecated and ignored", FutureWarning)
+        self.r_0, self.order = r_0, order
+        self.R_0 = _coefficients(R_0, device, dtype)
+        self.R_inf = _coefficients(R_inf, device, dtype)
+
+    def parameterize(self, output_tensor, r):
+        dr = r - self.r_0
+        return (self.R_0 * exp(-self.order * dr)
+                + self.R_inf * tanh(dr)
+                + exp(-self.order * dr) * tanh(dr) * output_tensor)

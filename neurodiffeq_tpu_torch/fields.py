@@ -32,7 +32,8 @@ __all__ = [
     'Field', 'CoordSet', 'coords_from_points', 'network_field', 'cat', 'diff',
     'taylor_fallback_count', 'reset_taylor_fallback_count',
     # field-aware math
-    'exp', 'log', 'sin', 'cos', 'tanh', 'sinh', 'cosh', 'sqrt', 'abs', 'sigmoid', 'erf',
+    'exp', 'log', 'sin', 'cos', 'tan', 'tanh', 'sinh', 'cosh', 'sqrt', 'abs', 'sigmoid', 'atan',
+    'atan2', 'asin', 'acos', 'erf',
 ]
 
 _NO_FALLBACK = ("this sub-expression has no batched Taylor rule, and the per-sample "
@@ -233,8 +234,9 @@ class Field:
     def mean(self, dim=None):
         return self.value.mean() if dim is None else self.value.mean(dim=dim)
 
-    def sum(self, axis=None):
-        """Full reduction returns a tensor; ``axis=1`` keeps a (N, 1) Field."""
+    def sum(self, axis=None, keepdims=False):
+        """Full reduction returns a tensor; ``axis=1`` keeps a (N, 1) Field
+        whatever ``keepdims`` says (a Field is always 2-D)."""
         if axis in (1, -1):
             trule = None
             if self.trule is not None:
@@ -244,7 +246,7 @@ class Field:
 
             return Field(self.coords, 1, trule=trule, torder=self.torder,
                          combine=('sum', None, [('field', None)], [self]))
-        return self.value.sum() if axis is None else self.value.sum(dim=axis)
+        return self.value.sum() if axis is None else self.value.sum(dim=axis, keepdim=keepdims)
 
     def item(self):
         return self.value.item()
@@ -347,13 +349,25 @@ exp = lift(torch.exp)
 log = lift(torch.log)
 sin = lift(torch.sin)
 cos = lift(torch.cos)
+tan = lift(torch.tan)
 tanh = lift(torch.tanh)
 sinh = lift(torch.sinh)
 cosh = lift(torch.cosh)
 sqrt = lift(torch.sqrt)
 abs = lift(torch.abs)  # noqa: A001 - deliberate parity with the JAX package
 sigmoid = lift(torch.sigmoid)
+atan = lift(torch.atan)
+_atan2 = lift(torch.atan2)
+asin = lift(torch.asin)
+acos = lift(torch.acos)
 erf = lift(torch.erf)
+
+
+def atan2(y, x):
+    """Field-aware ``atan2(y, x)``; Python numbers may stand for either
+    argument (``torch.atan2`` itself takes tensors only)."""
+    return _atan2(*(torch.tensor(float(a), dtype=torch.float64) if isinstance(a, numbers.Number) else a
+                    for a in (y, x)))
 
 
 def network_field(module, coords, ith_unit=None):

@@ -18,8 +18,8 @@ import torch
 
 from .utils import get_generator, resolve
 
-__all__ = ['BaseGenerator', 'Generator1D', 'Generator2D', 'ConcatGenerator', 'StaticGenerator',
-           'PredefinedGenerator', 'EnsembleGenerator']
+__all__ = ['BaseGenerator', 'Generator1D', 'Generator2D', 'GeneratorSpherical', 'ConcatGenerator',
+           'StaticGenerator', 'PredefinedGenerator', 'EnsembleGenerator']
 
 _NO_HALTON = ("method 'halton' is not ported yet "
               "(ROADMAP.md §1 item 17, the high-dimensional toolkit: scrambled Halton)")
@@ -269,6 +269,54 @@ class Generator2D(BaseGenerator):
         d = super()._internal_vars()
         d.update(dict(grid=self.grid, xy_min=self.xy_min, xy_max=self.xy_max,
                       method=self.method, xy_noise_std=self.xy_noise_std))
+        return d
+
+
+class GeneratorSpherical(BaseGenerator):
+    r"""Points in spherical coordinates ``(r, theta, phi)``, with directions
+    spread over the sphere as the JAX package draws them: three uniforms
+    normalised under ``sqrt`` (plus ``1e-6``) with random signs, then
+    ``theta = arccos(z)`` and ``phi = pi - atan2(y, x)``, in ``[0, 2 pi]``.
+
+    :param size: number of points.
+    :param r_min: interior radius.
+    :param r_max: exterior radius.
+    :param method: 'equally-spaced-noisy' (``r^2 ~ U``, uniform in volume)
+        or 'equally-radius-noisy' (``r ~ U``).
+    :param device: device of the points (the port's default if None).
+    :param dtype: dtype of the points (the port's default if None).
+    """
+
+    def __init__(self, size, r_min=0., r_max=1., method='equally-spaced-noisy', device=None, dtype=None):
+        super().__init__(device, dtype)
+        if r_min < 0 or r_max < r_min:
+            raise ValueError(f"Illegal range [{r_min}, {r_max}]")
+        if method not in ('equally-spaced-noisy', 'equally-radius-noisy'):
+            raise ValueError(f'Unknown method: {method}')
+        self.size = size
+        self.r_min, self.r_max = r_min, r_max
+        self.method = method
+
+    def sample(self, generator):
+        """One batch ``(r, theta, phi)``; ``generator`` lives on the points' device."""
+        n, dt, dev = self.size, self.dtype, self.device
+        a, b, c, u = torch.rand((4, n), generator=generator, dtype=dt, device=dev)
+        signs = torch.randint(0, 2, (3, n), generator=generator, device=dev).to(dt) * 2 - 1
+        denom = a + b + c
+        x, y, z = (torch.sqrt(t / denom) + 1e-6 for t in (a, b, c))
+        x, y, z = x * signs[0], y * signs[1], z * signs[2]
+        theta = torch.arccos(z)
+        phi = -torch.atan2(y, x) + math.pi
+        if self.method == 'equally-spaced-noisy':
+            lower, upper = self.r_min ** 2, self.r_max ** 2
+            r = torch.sqrt((upper - lower) * u + lower)
+        else:
+            r = (self.r_max - self.r_min) * u + self.r_min
+        return r, theta, phi
+
+    def _internal_vars(self):
+        d = super()._internal_vars()
+        d.update(dict(r_min=self.r_min, r_max=self.r_max, method=self.method))
         return d
 
 

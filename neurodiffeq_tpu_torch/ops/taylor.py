@@ -16,8 +16,9 @@ batch-dependent values.
 Rules: coordinates and constants have closed-form series; affine layers map
 coefficients exactly; elementwise ops use closed-form chain rules (first
 and second partials computed once on ``(N, m)`` data and broadcast over
-directions), and a path ``torch.func.jvp`` for ops without one. Orders
-above 2 and genuinely mixed partials are not ported yet (``ROADMAP.md``).
+directions; ``atan2`` has its binary rule), and a path ``torch.func.jvp``
+for ops without one. Orders above 2 and genuinely mixed partials are not
+ported yet (``ROADMAP.md``).
 The expression DAG is memoized per :class:`TContext`, so the network forward
 pass is computed once for u, u_x, u_xx, u_y and u_yy.
 """
@@ -248,6 +249,26 @@ def _d_erf(x, v):
     return f1, -2 * x * f1
 
 
+def _d_tan(x, v):
+    f1 = 1 + v * v
+    return f1, 2 * v * f1
+
+
+def _d_atan(x, v):
+    f1 = 1 / (1 + x * x)
+    return f1, -2 * x * f1 * f1
+
+
+def _d_asin(x, v):
+    f1 = torch.rsqrt(1 - x * x)
+    return f1, x * f1 * f1 * f1
+
+
+def _d_acos(x, v):
+    f1 = -torch.rsqrt(1 - x * x)
+    return f1, x * f1 * f1 * f1
+
+
 _UNARY_RULES = {
     torch.tanh: _d_tanh,
     torch.exp: lambda x, v: (v, v),
@@ -261,11 +282,15 @@ _UNARY_RULES = {
     torch.neg: lambda x, v: (-torch.ones_like(x), None),
     torch.abs: lambda x, v: (torch.sign(x), None),
     torch.erf: _d_erf,
+    torch.tan: _d_tan,
+    torch.atan: _d_atan,
+    torch.asin: _d_asin,
+    torch.acos: _d_acos,
 }
 
 # every op a Field may be lifted through with a Taylor rule
 RULE_OPS = frozenset(_UNARY_RULES) | {
-    operator.add, operator.sub, operator.mul, operator.truediv, operator.pow}
+    operator.add, operator.sub, operator.mul, operator.truediv, operator.pow, torch.atan2}
 
 
 def _elementwise_manual(op, operands, order, c0_out):
@@ -290,6 +315,18 @@ def _elementwise_manual(op, operands, order, c0_out):
             derivs = [q1]
             if order == 2:
                 derivs.append((a.derivs[1] - q * b.derivs[1] - 2 * q1 * b.derivs[0]) * inv_b)
+            return TSeries(c0_out, derivs)
+        if op is torch.atan2:  # atan2(y, x): d = (x dy - y dx) / (x^2 + y^2)
+            y0, x0 = a.c0, b.c0
+            inv = 1 / (x0 * x0 + y0 * y0)
+            fy, fx = x0 * inv, -y0 * inv
+            y1, x1 = a.derivs[0], b.derivs[0]
+            derivs = [fy * y1 + fx * x1]
+            if order == 2:
+                # f_yy = -f_xx = -2xy / rho^2, f_xy = (y^2 - x^2) / rho^2
+                fxx, fxy = 2 * x0 * y0 * inv * inv, (y0 * y0 - x0 * x0) * inv * inv
+                derivs.append(fy * a.derivs[1] + fx * b.derivs[1]
+                              + fxx * (x1 * x1 - y1 * y1) + 2 * fxy * x1 * y1)
             return TSeries(c0_out, derivs)
 
     if len(operands) == 1:

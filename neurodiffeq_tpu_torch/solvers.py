@@ -1,5 +1,6 @@
 r"""Training engines (counterpart of ``neurodiffeq_tpu/solvers.py``):
-``Solver1D`` for ODE systems and ``Solver2D`` for 2-D PDEs.
+``Solver1D`` for ODE systems, ``Solver2D`` for 2-D PDEs and
+``SolverSpherical`` for PDEs in spherical coordinates.
 
 One training epoch samples ``n_batches_train`` batches, evaluates the
 residual through the batched Taylor engine, sums the batches' gradients
@@ -26,8 +27,9 @@ import numpy as np
 import torch
 
 from ._version_utils import deprecated_alias
+from .conditions import BaseCondition
 from .fields import Field, cat as field_cat, coords_from_points
-from .generators import Generator1D, Generator2D
+from .generators import Generator1D, Generator2D, GeneratorSpherical
 from .losses import _losses
 from .networks import FCNN, Tanh
 from .utils import full_precision_matmuls, get_generator, resolve
@@ -37,7 +39,8 @@ try:  # tqdm is optional at run time
 except ImportError:  # pragma: no cover
     tqdm = None
 
-__all__ = ['BaseSolver', 'Solver1D', 'Solver2D', 'BaseSolution', 'Solution1D', 'Solution2D']
+__all__ = ['BaseSolver', 'Solver1D', 'Solver2D', 'SolverSpherical', 'BaseSolution', 'Solution1D',
+           'Solution2D', 'SolutionSpherical', 'SolutionSphericalHarmonics']
 
 
 def _requires_closure(optimizer):
@@ -624,3 +627,112 @@ class Solver2D(BaseSolver):
         d.update({'xy_min': self.xy_min, 'xy_max': self.xy_max})
         return d
 
+
+class SolutionSpherical(BaseSolution):
+    def _compute_u(self, net, condition, rs, thetas, phis):
+        return condition.enforce(net, rs, thetas, phis)
+
+
+class SolutionSphericalHarmonics(SolutionSpherical):
+    r"""A solution whose radial networks give harmonic coefficients,
+    expanded against a (theta, phi) basis.
+
+    :param harmonics_fn: maps the (theta, phi) Fields to an (N, K) basis Field.
+    :param max_degree: **[DEPRECATED]** use ``harmonics_fn``; builds
+        ``RealSphericalHarmonics(max_degree)``.
+    """
+
+    def __init__(self, nets, conditions, max_degree=None, harmonics_fn=None):
+        super().__init__(nets, conditions)
+        if (harmonics_fn is None) and (max_degree is None):
+            raise ValueError("harmonics_fn should be specified")
+        if max_degree is not None:
+            warnings.warn("`max_degree` is DEPRECATED; pass `harmonics_fn` instead, which takes precedence",
+                          FutureWarning)
+            from .function_basis import RealSphericalHarmonics
+            self.harmonics_fn = RealSphericalHarmonics(max_degree=max_degree)
+        if harmonics_fn is not None:
+            self.harmonics_fn = harmonics_fn
+
+    def _compute_u(self, net, condition, rs, thetas, phis):
+        products = condition.enforce(net, rs) * self.harmonics_fn(thetas, phis)
+        return products.sum(axis=1, keepdims=True)
+
+
+class SolverSpherical(BaseSolver):
+    r"""A solver for PDEs in spherical coordinates (r, theta, phi).
+
+    :param pde_system: maps funcs and the (r, theta, phi) coordinates to residuals.
+    :param conditions: list of conditions, one per target function.
+    :param r_min: radius of the interior boundary (ignored if both generators given).
+    :param r_max: radius of the exterior boundary.
+    :param enforcer: optional override ``enforcer(net, cond, coords) -> Field``.
+
+    The default generators are ``GeneratorSpherical(512, r_min, r_max)``
+    (``'equally-spaced-noisy'``) for both phases. A condition receives as
+    many coordinates as its ``parameterize`` takes, so a basis condition's
+    radial net sees ``r`` alone. The other parameters are
+    :class:`BaseSolver`'s.
+    """
+
+    def __init__(self, pde_system, conditions, r_min=None, r_max=None, nets=None,
+                 train_generator=None, valid_generator=None, analytic_solutions=None, optimizer=None,
+                 loss_fn=None, n_batches_train=1, n_batches_valid=4, metrics=None, enforcer=None,
+                 n_output_units=1, residual_weights=None, device=None, dtype=None, generator=None):
+        if train_generator is None or valid_generator is None:
+            if r_min is None or r_max is None:
+                raise ValueError(
+                    f"Either generator is not provided, r_min and r_max should be both provided: "
+                    f"got r_min={r_min}, r_max={r_max}, train_generator={train_generator}, "
+                    f"valid_generator={valid_generator}")
+        device, dtype = resolve(device, dtype)
+        if train_generator is None:
+            train_generator = GeneratorSpherical(512, r_min, r_max, method='equally-spaced-noisy',
+                                                 device=device, dtype=dtype)
+        if valid_generator is None:
+            valid_generator = GeneratorSpherical(512, r_min, r_max, method='equally-spaced-noisy',
+                                                 device=device, dtype=dtype)
+        self.r_min, self.r_max = r_min, r_max
+        self.enforcer = enforcer
+        super().__init__(
+            diff_eqs=pde_system, conditions=conditions, nets=nets,
+            train_generator=train_generator, valid_generator=valid_generator,
+            analytic_solutions=analytic_solutions, optimizer=optimizer, loss_fn=loss_fn,
+            n_batches_train=n_batches_train, n_batches_valid=n_batches_valid, metrics=metrics,
+            n_input_units=3, n_output_units=n_output_units, residual_weights=residual_weights,
+            device=device, dtype=dtype, generator=generator)
+
+    def _auto_enforce(self, net, cond, *coordinates):
+        r"""Enforce the condition with as many coordinates as its
+        ``parameterize`` (or an overridden ``enforce``) takes."""
+        if self.enforcer:
+            return self.enforcer(net, cond, coordinates)
+        # the first parameter is `output_tensor` (parameterize) or `net` (enforce)
+        counted = cond.parameterize if cond.__class__.enforce == BaseCondition.enforce else cond.enforce
+        params = inspect.signature(counted).parameters.values()
+        if any(p.kind == inspect.Parameter.VAR_POSITIONAL for p in params):
+            return cond.enforce(net, *coordinates)  # e.g. NoCondition's *input_tensors
+        return cond.enforce(net, *coordinates[:len(params) - 1])
+
+    def compute_func_val(self, net, cond, *coordinates):
+        return self._auto_enforce(net, cond, *coordinates)
+
+    def get_solution(self, copy=True, best=True, harmonics_fn=None):
+        r"""A callable solution evaluated as ``solution(rs, thetas, phis)``.
+
+        :param copy: copy the networks, so that later training does not
+            change the solution. Defaults to True.
+        :param best: use the lowest-loss parameters. Defaults to True.
+        :param harmonics_fn: if given, the nets' outputs are radial
+            coefficients expanded against this (theta, phi) basis.
+        """
+        conditions = deepcopy(self.conditions) if copy else self.conditions
+        nets = self._nets_for(best, copy_nets=copy)
+        if harmonics_fn:
+            return SolutionSphericalHarmonics(nets, conditions, harmonics_fn=harmonics_fn)
+        return SolutionSpherical(nets, conditions)
+
+    def _get_internal_variables(self):
+        d = super()._get_internal_variables()
+        d.update({'r_min': self.r_min, 'r_max': self.r_max, 'enforcer': self.enforcer})
+        return d

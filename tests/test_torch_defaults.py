@@ -13,10 +13,11 @@ import pytest
 import torch
 
 from neurodiffeq_tpu_torch import fields as F, diff
-from neurodiffeq_tpu_torch.conditions import DirichletBVP2D
-from neurodiffeq_tpu_torch.generators import Generator2D
+from neurodiffeq_tpu_torch.conditions import DirichletBVP2D, DirichletBVPSpherical, DirichletBVPSphericalBasis
+from neurodiffeq_tpu_torch.generators import Generator2D, GeneratorSpherical
 from neurodiffeq_tpu_torch.networks import FCNN
-from neurodiffeq_tpu_torch.solvers import Solver2D
+from neurodiffeq_tpu_torch.operators import spherical_laplacian
+from neurodiffeq_tpu_torch.solvers import Solver2D, SolverSpherical
 from neurodiffeq_tpu_torch.utils import get_default_device, get_default_dtype, resolve, set_tensor_type
 
 torch.set_num_threads(2)
@@ -100,3 +101,24 @@ def test_explicit_cpu_device_overrides_the_cuda_default():
     gen = Generator2D((4, 4), (0, 0), (1, 1), device='cpu')
     assert {t.device for t in gen.get_examples()} == {CPU}
     assert _devices(_laplace(device='cpu')) == {CPU}
+
+
+def test_spherical_entry_points_default_to_cuda():
+    """``GeneratorSpherical``, ``SolverSpherical`` and the basis conditions'
+    coefficients built without a device go to the card; without one they
+    raise instead of landing on the CPU."""
+    set_tensor_type('cuda')
+    gen = GeneratorSpherical(8, 0.1, 1.0)
+    assert gen.device.type == 'cuda'
+    makes = [lambda: SolverSpherical(lambda u, r, th, ph: spherical_laplacian(u, r, th, ph),
+                                     [DirichletBVPSpherical(0.1, lambda th, ph: 0 * th)], 0.1, 1.0),
+             lambda: DirichletBVPSphericalBasis(0.1, [1.0, 2.0]).R_0,
+             gen.get_examples]
+    if not torch.cuda.is_available():
+        for make in makes:
+            with pytest.raises((AssertionError, RuntimeError)):
+                make()
+        return
+    solver, coefficients, points = (make() for make in makes)
+    assert {d.type for d in _devices(solver)} == {'cuda'}
+    assert coefficients.device.type == 'cuda' and {t.device.type for t in points} == {'cuda'}
