@@ -390,18 +390,27 @@ def network_field(module, coords, ith_unit=None):
 
     trule = None
     if getattr(module, 'supports_taylor', False):
+        # a contiguous run of inputs is a basic slice: its columns are views
+        cols = slice(idxs[0], idxs[-1] + 1) if idxs == list(range(idxs[0], idxs[-1] + 1)) else idxs
+        key = ('net', id(module), tuple(idxs))
+
         def trule(ctx):
             from .ops.taylor import TSeries, slice_series
-            # one network pass at the context's full order: a consumer that
-            # needs a deeper series later (the H1 losses differentiate the
-            # residual) finds it memoized instead of running the net again
-            ctx = ctx if ctx.order >= ctx.base.order else ctx.base
-            p = ctx.points
-            c0 = p[:, idxs]
-            d1 = torch.eye(ctx.n_dirs, dtype=p.dtype, device=p.device)[:, idxs][:, None, :]
-            derivs = ([d1] + [torch.zeros_like(d1)] * (ctx.order - 1))[:ctx.order]
-            meta = 'raw_coords' if idxs == list(range(ctx.n_dirs)) else None
-            out = module.taylor_apply(TSeries(c0, derivs, meta=meta), ctx)
+            # One network pass per context for the module and its inputs, at
+            # the context's full order: the conditions of a shared net slice
+            # its columns from it, and a consumer that needs a deeper series
+            # later (the H1 losses differentiate the residual) finds it
+            # memoized instead of running the net again.
+            hit = ctx.cache.get(key)
+            if hit is None or hit[1].order < max(ctx.order, ctx.root.order):
+                run = ctx.at_order(max(ctx.order, ctx.root.order))
+                p = run.points
+                d1 = run.directions[:, cols][:, None, :]
+                derivs = ([d1] + [torch.zeros_like(d1)] * (run.order - 1))[:run.order]
+                # the fused kernel assumes the identity directions on all the inputs
+                meta = 'raw_coords' if run.is_axes and idxs == list(range(p.shape[1])) else None
+                hit = ctx.cache[key] = (module, module.taylor_apply(TSeries(p[:, cols], derivs, meta=meta), run))
+            out = hit[1]
             return out if ith_unit is None else slice_series(out, ith_unit)
 
     if ith_unit is not None:

@@ -18,7 +18,7 @@ import torch
 
 from .utils import get_generator, resolve
 
-__all__ = ['BaseGenerator', 'Generator1D', 'Generator2D', 'GeneratorSpherical', 'ConcatGenerator',
+__all__ = ['BaseGenerator', 'Generator1D', 'Generator2D', 'Generator3D', 'GeneratorSpherical', 'ConcatGenerator',
            'StaticGenerator', 'PredefinedGenerator', 'EnsembleGenerator']
 
 _NO_HALTON = ("method 'halton' is not ported yet "
@@ -269,6 +269,74 @@ class Generator2D(BaseGenerator):
         d = super()._internal_vars()
         d.update(dict(grid=self.grid, xy_min=self.xy_min, xy_max=self.xy_max,
                       method=self.method, xy_noise_std=self.xy_noise_std))
+        return d
+
+
+class Generator3D(BaseGenerator):
+    r"""3-D training points on an ``m x n x k`` grid (flattened); not to be
+    confused with :class:`GeneratorSpherical`.
+
+    :param grid: grid shape ``(m, n, k)``, defaults to ``(10, 10, 10)``.
+    :param xyz_min: lower bounds, defaults to ``(0.0, 0.0, 0.0)``.
+    :param xyz_max: upper bounds, defaults to ``(1.0, 1.0, 1.0)``.
+    :param method: 'equally-spaced', 'equally-spaced-noisy' (the default: the
+        grid plus Gaussian noise of a quarter grid step per axis and point),
+        'chebyshev'/'chebyshev1', 'chebyshev2' or 'latin-hypercube' (the
+        per-axis nodes of the 1-D method, meshed). ('halton' is not ported
+        yet and raises.)
+    :param device: device of the points (the port's default if None).
+    :param dtype: dtype of the points (the port's default if None).
+    """
+
+    _METHODS = ('equally-spaced', 'equally-spaced-noisy', 'chebyshev', 'chebyshev1', 'chebyshev2',
+                'latin-hypercube')
+
+    def __init__(self, grid=(10, 10, 10), xyz_min=(0.0, 0.0, 0.0), xyz_max=(1.0, 1.0, 1.0),
+                 method='equally-spaced-noisy', device=None, dtype=None):
+        super().__init__(device, dtype)
+        if method == 'halton':
+            raise NotImplementedError(_NO_HALTON)
+        if method not in self._METHODS:
+            raise ValueError(f"Unknown method: {method}")
+        self.size = grid[0] * grid[1] * grid[2]
+        self.grid = grid
+        self.xyz_min = xyz_min
+        self.xyz_max = xyz_max
+        self.method = method
+        self._grid_points = None if method == 'latin-hypercube' else self._mesh(self._axes(None))
+
+    def _axes(self, generator):
+        m, dt, dev = self.method, self.dtype, self.device
+        axes = []
+        for i in range(3):
+            a, b, n = self.xyz_min[i], self.xyz_max[i], self.grid[i]
+            if m.startswith('equally-spaced'):
+                axes.append(_linspace(a, b, n, dt, dev))
+            elif m in ('chebyshev', 'chebyshev1'):
+                axes.append(_chebyshev_first(a, b, n, dt, dev))
+            elif m == 'chebyshev2':
+                axes.append(_chebyshev_second(a, b, n, dt, dev))
+            else:
+                axes.append(_latin_hypercube(generator, a, b, n, dt, dev))
+        return axes
+
+    @staticmethod
+    def _mesh(axes):
+        return tuple(g.flatten() for g in torch.meshgrid(*axes, indexing='ij'))
+
+    def sample(self, generator):
+        """One batch ``(x, y, z)``; ``generator`` lives on the points' device."""
+        if self._grid_points is None:
+            return self._mesh(self._axes(generator))
+        if self.method != 'equally-spaced-noisy':
+            return self._grid_points
+        noise = torch.randn((3, self.size), generator=generator, dtype=self.dtype, device=self.device)
+        return tuple(g + noise[i] * (((self.xyz_max[i] - self.xyz_min[i]) / self.grid[i]) / 4.0)
+                     for i, g in enumerate(self._grid_points))
+
+    def _internal_vars(self):
+        d = super()._internal_vars()
+        d.update(dict(grid=self.grid, xyz_min=self.xyz_min, xyz_max=self.xyz_max, method=self.method))
         return d
 
 

@@ -4,7 +4,10 @@ Each entry maps ``(residual, funcs, coords) -> scalar`` where ``residual``
 is an ``(N, n_eq)`` :class:`~neurodiffeq_tpu_torch.fields.Field` and
 ``coords`` are coordinate Fields. The H1 norms differentiate the residual
 itself (:func:`~neurodiffeq_tpu_torch.operators.grad`), which is why
-residuals stay Fields all the way to the loss.
+residuals stay Fields all the way to the loss. Over several coordinates
+those gradients hold mixed partials, so H1 of a first-order residual takes
+total order 2; H1 of a second-order residual needs order 3, which raises
+(``ROADMAP.md`` §1 item 16).
 
 Losses that are linear in the residual columns declare
 ``residual_power = 1``; solvers then scale equation k by ``w_k`` instead of

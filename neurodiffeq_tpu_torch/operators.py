@@ -11,10 +11,10 @@ is not ported).
 The spherical operators use the expanded metric forms of the JAX package
 (``u_rr + 2 u_r / r + ...`` rather than ``diff(r^2 u_r, r) / r^2``), so that
 each second derivative is a pure partial of a raw field component. A
-derivative of a derivative along another axis is a mixed partial, which
-raises ``NotImplementedError`` naming ``ROADMAP.md`` §1 item 14: the
-identities ``spherical_div(*spherical_grad(u))`` and ``curl(grad(u)) = 0``
-need it, the operators themselves on network fields do not. Physics
+derivative of a derivative along another axis is a mixed partial, recovered
+in batch by polarization (:func:`~neurodiffeq_tpu_torch.ops.taylor.partial_entry`),
+so the composed identities (``div(*grad(u))``, ``curl(*grad(u)) = 0``, div
+of a curl, curl of a curl) run in every coordinate system. Physics
 convention: theta is the polar angle, phi the azimuth.
 """
 from .fields import Field, atan2, cos, diff, sin, sqrt

@@ -4,8 +4,8 @@ Counterpart of ``neurodiffeq_tpu/ops/taylor.py``. A :class:`TSeries` holds,
 for one batch of N collocation points:
 
 - ``c0``: the value, shape ``(N, m)``;
-- ``derivs[k-1]``: the k-th directional derivatives along the D coordinate
-  axes, stacked into one ``(D, N|1, m)`` tensor.
+- ``derivs[k-1]``: the k-th directional derivatives along the context's D
+  probe directions, stacked into one ``(D, N|1, m)`` tensor.
 
 Only the stacked layout exists here. Coordinate tangents are constant across
 the batch and stay so through every affine layer, so the first-order tangent
@@ -17,14 +17,24 @@ Rules: coordinates and constants have closed-form series; affine layers map
 coefficients exactly; elementwise ops use closed-form chain rules (first
 and second partials computed once on ``(N, m)`` data and broadcast over
 directions; ``atan2`` has its binary rule), and a path ``torch.func.jvp``
-for ops without one. Orders above 2 and genuinely mixed partials are not
-ported yet (``ROADMAP.md``).
+for ops without one.
+
+The main context's directions are the coordinate axes. A genuinely mixed
+partial such as u_xy is recovered by polarization: an auxiliary context
+probes synthetic directions over the partial's axes (for u_xy the one
+direction (x + y) / sqrt 2) and :func:`partial_entry` solves the directional
+derivatives for the mixed entry, subtracting the pure ones
+(:func:`_extraction_plan`). Mixed partials of total order 2 work, so the
+div-grad and curl identities and the H1 losses of first-order residuals
+over several coordinates stay batched. Orders above 2 raise, naming
+``ROADMAP.md`` §1 item 16.
 The expression DAG is memoized per :class:`TContext`, so the network forward
 pass is computed once for u, u_x, u_xx, u_y and u_yy.
 """
 import math
 import operator
 
+import numpy as np
 import torch
 
 __all__ = ['TSeries', 'TContext', 'teval', 'elementwise_series', 'constant_series',
@@ -33,9 +43,6 @@ __all__ = ['TSeries', 'TContext', 'teval', 'elementwise_series', 'constant_serie
 
 _HIGH_ORDER = ("Taylor orders above 2 are not ported yet "
                "(ROADMAP.md §1 item 16, 'Taylor orders >= 3 without jet')")
-_MIXED = ("genuinely mixed partials are not ported yet "
-          "(ROADMAP.md §1 item 14, the lid-driven cavity slice: polarization extraction)")
-
 
 class TSeries:
     __slots__ = ('c0', 'derivs', 'meta')
@@ -51,18 +58,33 @@ class TSeries:
 
 
 class TContext:
-    """Evaluation context for one collocation set: the probe directions are
-    the coordinate axes; ``cache`` memoizes (field -> TSeries / value) by id."""
+    """Evaluation context for one collocation set; ``cache`` memoizes
+    (field -> TSeries / value) by id.
+
+    The main context's probe directions are the coordinate axes
+    (``is_axes``). An auxiliary context (:meth:`aux_for`) probes synthetic
+    directions over a subset ``axes`` of the coordinates, from which
+    :func:`partial_entry` recovers mixed partials by polarization; it has a
+    cache of its own, and ``base`` points every context and view at the
+    main context, on whose cache the auxiliary contexts and the extracted
+    partials memoize. ``root`` is the context at its own full order, which
+    its :meth:`at_order` views share."""
 
     def __init__(self, points, order):
         if order > 2:
             raise NotImplementedError(_HIGH_ORDER)
         self.points = points
         self.order = order
-        self.n_dirs = points.shape[1]
+        d = points.shape[1]
+        self.directions = _directions(np.eye(d), points)  # (D = d, d)
+        self.n_dirs = d
         # (id, kind) -> (field, payload); the field reference keeps ids stable
         self.cache = {}
         self.base = self
+        self.root = self
+        self.is_axes = True
+        self.axes = None       # aux only: the coordinate indices the directions span
+        self.dirs_sub = None   # aux only: the (J, len(axes)) numpy direction matrix
 
     def memo(self, field, kind, compute):
         key = (id(field), kind)
@@ -74,23 +96,62 @@ class TContext:
         return out
 
     def at_order(self, order):
-        """A view of this context at another series order, sharing the cache."""
+        """A view of this context at another series order, sharing its
+        directions and cache."""
         if order == self.order:
             return self
         if order > 2:
             raise NotImplementedError(_HIGH_ORDER)
         view = object.__new__(TContext)
-        view.points = self.points
+        view.__dict__.update(self.__dict__)
         view.order = order
-        view.n_dirs = self.n_dirs
-        view.cache = self.cache
-        view.base = self.base
         return view
+
+    def aux_for(self, axes, order):
+        """The auxiliary polarization context for mixed partials over
+        ``axes`` at total ``order``: its directions are the extraction
+        plan's, embedded into the full coordinate space. Memoized on the
+        base context, so that every extraction over the same (axes, order)
+        shares one series evaluation of each field."""
+        base = self.base
+        key = ('auxctx', axes, order)
+        hit = base.cache.get(key)
+        if hit is not None:
+            return hit[1]
+        dirs = _extraction_plan(len(axes), order)[2]
+        full = np.zeros((dirs.shape[0], base.points.shape[1]))
+        full[:, list(axes)] = dirs
+        ctx = object.__new__(TContext)
+        ctx.points = base.points
+        ctx.order = order
+        ctx.directions = _directions(full, base.points)
+        ctx.n_dirs = dirs.shape[0]
+        ctx.cache = {}
+        ctx.base = base
+        ctx.root = ctx
+        ctx.is_axes = False
+        ctx.axes = axes
+        ctx.dirs_sub = dirs
+        base.cache[key] = (None, ctx)
+        return ctx
 
     def zeros(self):
         """A ``(D, 1, 1)`` zero derivative entry on the context's device."""
         p = self.points
         return torch.zeros((self.n_dirs, 1, 1), dtype=p.dtype, device=p.device)
+
+
+_DIRECTIONS = {}  # (matrix bytes, shape, dtype, device) -> tensor
+
+
+def _directions(matrix, points):
+    """The direction matrix as a tensor of the points' dtype on their device,
+    made once per matrix, dtype and device (it is never written to)."""
+    key = (matrix.tobytes(), matrix.shape, points.dtype, points.device)
+    out = _DIRECTIONS.get(key)
+    if out is None:
+        out = _DIRECTIONS[key] = torch.tensor(matrix, dtype=points.dtype, device=points.device)
+    return out
 
 
 def teval(field, ctx, order=None):
@@ -109,6 +170,89 @@ def teval(field, ctx, order=None):
     return out
 
 
+def _compositions(n, m):
+    """All m-tuples of nonnegative ints summing to n, in lexicographic order."""
+    if m == 1:
+        return [(n,)]
+    out = []
+    for first in range(n + 1):
+        for rest in _compositions(n - first, m - 1):
+            out.append((first,) + rest)
+    return out
+
+
+def _multinomial(n, beta):
+    c = math.factorial(n)
+    for b in beta:
+        c //= math.factorial(b)
+    return c
+
+
+_EXTRACTION_PLANS = {}
+
+
+def _extraction_plan(m, n):
+    r"""Static polarization plan for the full-support mixed partials of total
+    order ``n`` over ``m`` coordinate axes (every axis order >= 1).
+
+    The n-th directional derivative along :math:`v` expands as
+    :math:`D^n_v u = \sum_{|\beta|=n} \binom{n}{\beta} v^\beta \partial^\beta u`.
+    Partials whose support misses an axis are cheaper problems (pure ones
+    read off the axis-aligned series; smaller-support mixed ones recurse),
+    so the plan solves only for the :math:`J = \binom{n-1}{m-1}`
+    full-support unknowns, subtracting the known terms from each directional
+    derivative first. u_xy needs one synthetic direction:
+    :math:`u_{xy} = D^2_{(x+y)/\sqrt2}u - (u_{xx}+u_{yy})/2`.
+
+    Returns ``(betas_full, betas_partial, dirs, Minv, Mpartial)``:
+
+    - ``betas_full``: the J solved multi-indices (each a tuple of m orders);
+    - ``betas_partial``: multi-indices of order n with at least one zero axis
+      (their values are supplied by the caller, recursively);
+    - ``dirs``: (J, m) float64 directions: half-circle angles avoiding the
+      axes for m = 2, seeded rank-checked unit vectors for m >= 3 (drawn from
+      ``np.random.RandomState(seed)`` as the JAX package draws them, so the
+      two packages' plans are equal bit for bit);
+    - ``Minv``: (J, J) inverse of the full-support coefficient matrix;
+    - ``Mpartial``: (J, len(betas_partial)) coefficients of the known terms.
+    """
+    key = (m, n)
+    hit = _EXTRACTION_PLANS.get(key)
+    if hit is not None:
+        return hit
+    all_betas = _compositions(n, m)
+    betas_full = [b for b in all_betas if all(x >= 1 for x in b)]
+    betas_partial = [b for b in all_betas if not all(x >= 1 for x in b)]
+    J = len(betas_full)
+    if m == 1:
+        dirs = np.ones((1, 1))
+    elif m == 2:
+        thetas = np.pi * (np.arange(J) + 1.0) / (2 * (J + 1))
+        dirs = np.stack([np.cos(thetas), np.sin(thetas)], axis=1)
+    else:
+        for seed in range(64):
+            rng = np.random.RandomState(seed)
+            dirs = rng.normal(size=(J, m))
+            dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+            if np.linalg.cond(_plan_matrix(dirs, betas_full, n)) < 1e7:
+                break
+        else:  # pragma: no cover - 64 seeds are never all ill-conditioned
+            raise RuntimeError(f"no well-conditioned direction set for m={m}, n={n}")
+    Minv = np.linalg.inv(_plan_matrix(dirs, betas_full, n))
+    Mpartial = _plan_matrix(dirs, betas_partial, n)
+    plan = (betas_full, betas_partial, dirs, Minv, Mpartial)
+    _EXTRACTION_PLANS[key] = plan
+    return plan
+
+
+def _plan_matrix(dirs, betas, n):
+    M = np.empty((len(dirs), len(betas)))
+    for j, v in enumerate(dirs):
+        for b, beta in enumerate(betas):
+            M[j, b] = _multinomial(n, beta) * np.prod(v ** np.asarray(beta))
+    return M
+
+
 def _merge_alpha(alpha, axis, order):
     """Add ``order`` derivatives along ``axis`` to a multi-index (tuple of
     (axis, order) pairs sorted by axis)."""
@@ -118,49 +262,118 @@ def _merge_alpha(alpha, axis, order):
 
 
 def partial_entry(field, alpha, ctx):
-    r"""The pure partial :math:`\partial^k u / \partial x_i^k` of a
-    Taylor-capable field as a broadcast-shaped ``(N|1, m)`` tensor, read off
-    the axis-aligned series of its innermost trule-bearing parent.
-    ``alpha`` is a tuple of ``(axis, order)`` pairs; more than one pair
-    raises ``NotImplementedError``."""
+    r"""The (possibly mixed) partial :math:`\partial^\alpha` of a
+    Taylor-capable field, as a broadcast-shaped ``(N|1, m)`` tensor.
+
+    ``alpha`` is a tuple of ``(axis, order)`` pairs (orders >= 1).
+    Derivative fields fold into their parent first
+    (:math:`\partial^\alpha \partial^p_a u = \partial^{\alpha + p e_a} u`),
+    so chains of ``diff`` extract from the innermost trule-bearing field. A
+    pure partial reads off the main context's axis-aligned series, always:
+    a network's series there is computed once at the context's full order
+    (and on the card by the fused kernel), where the JAX package would run
+    the net again in a single-direction context when the main series is
+    shallower. A mixed partial is solved from an auxiliary polarization
+    context (:func:`_extraction_plan`). Total orders above 2 raise.
+    Everything memoizes on the base context.
+    """
     base = ctx.base
     while getattr(field, '_dinfo', None) is not None:
         parent, palpha = field._dinfo
         for ax, o in palpha:
             alpha = _merge_alpha(alpha, ax, o)
         field = parent
-    if len(alpha) != 1:
-        raise NotImplementedError(_MIXED)
     key = ('pent', id(field), alpha)
     hit = base.cache.get(key)
     if hit is not None:
         return hit[1]
-    axis, order = alpha[0]
-    out = teval(field, base, order=order).derivs[order - 1][axis]
+    n_total = sum(o for _, o in alpha)
+    if n_total > 2:
+        raise NotImplementedError(_HIGH_ORDER)
+    if len(alpha) == 1:
+        axis, order = alpha[0]
+        out = teval(field, base, order=order).derivs[order - 1][axis]
+    else:
+        axes = tuple(ax for ax, _ in alpha)
+        betas_full, betas_partial, _, Minv, Mpartial = _extraction_plan(len(axes), n_total)
+        entries = teval(field, ctx.aux_for(axes, n_total), order=n_total).derivs[n_total - 1]
+        # the known smaller-support terms: pure reads or recursive extractions
+        known = [partial_entry(field, tuple((ax, b) for ax, b in zip(axes, beta) if b), ctx)
+                 for beta in betas_partial]
+        out = None
+        for j, w in enumerate(Minv[betas_full.index(tuple(o for _, o in alpha))]):
+            rhs = entries[j]
+            for c, pv in zip(Mpartial[j], known):
+                rhs = rhs - float(c) * pv
+            term = float(w) * rhs
+            out = term if out is None else out + term
     base.cache[key] = (field, out)
     return out
 
 
 def derivative_series(parent, alpha, ctx):
-    r"""Series of the single-axis derivative field :math:`\partial^p_i u`.
+    r"""Series of the derivative field :math:`\partial^\alpha u` (``alpha``:
+    a tuple of ``(axis, order)`` pairs).
 
-    Its entries along its own axis are read off the parent's series
-    evaluated ``p`` orders deeper (one shared network pass). Entries along
-    other axes are mixed partials, which raise ``NotImplementedError``."""
-    if len(alpha) != 1:
-        raise NotImplementedError(_MIXED)
+    For a single-axis derivative under an axis-aligned context, the entries
+    along its own axis are read off the parent's series evaluated ``p``
+    orders deeper (one shared network pass, which keeps patterns like
+    ``diff(r^2 * u_r, r)`` batched). Every other entry is a mixed partial,
+    recovered by :func:`partial_entry`. Under an auxiliary context (this
+    derivative field is an operand of an expression being polarized), each
+    directional derivative expands over the context's axes:
+    :math:`D^k_v \partial^\alpha u = \sum_{|\beta|=k} \binom{k}{\beta}
+    v^\beta \partial^{\alpha+\beta} u`.
+    """
     K = ctx.order
     n = ctx.points.shape[0]
-    dir_index, p = alpha[0]
-    ps = teval(parent, ctx, order=p + K)
-    m = ps.c0.shape[1]
-    c0 = ps.derivs[p - 1][dir_index].expand(n, m)
+
+    if len(alpha) == 1 and ctx.is_axes:
+        dir_index, p = alpha[0]
+        ps = teval(parent, ctx, order=p + K)
+        m = ps.c0.shape[1]
+        c0 = ps.derivs[p - 1][dir_index].expand(n, m)
+        derivs = []
+        for k in range(1, K + 1):
+            same = ps.derivs[p + k - 1][dir_index]
+            derivs.append(_pack_dirs([same if d == dir_index
+                                      else partial_entry(parent, _merge_alpha(alpha, d, k), ctx)
+                                      for d in range(ctx.n_dirs)]))
+        return TSeries(c0, derivs)
+
+    c0 = partial_entry(parent, alpha, ctx)
+    c0 = c0.expand(n, c0.shape[1])
     derivs = []
+    if ctx.is_axes:
+        for k in range(1, K + 1):
+            derivs.append(_pack_dirs([partial_entry(parent, _merge_alpha(alpha, d, k), ctx)
+                                      for d in range(ctx.n_dirs)]))
+        return TSeries(c0, derivs)
+
+    axes, dirs = ctx.axes, ctx.dirs_sub
     for k in range(1, K + 1):
-        if ctx.n_dirs > 1:
-            raise NotImplementedError(_MIXED)
-        derivs.append(ps.derivs[p + k - 1])
+        row = []
+        for j in range(ctx.n_dirs):
+            entry = None
+            for beta in _compositions(k, len(axes)):
+                coeff = _multinomial(k, beta) * float(np.prod(dirs[j] ** np.asarray(beta)))
+                al = alpha
+                for ax, b in zip(axes, beta):
+                    if b:
+                        al = _merge_alpha(al, ax, b)
+                term = coeff * partial_entry(parent, al, ctx)
+                entry = term if entry is None else entry + term
+            row.append(entry)
+        derivs.append(_pack_dirs(row))
     return TSeries(c0, derivs)
+
+
+def _pack_dirs(row):
+    """Stack per-direction ``(N|1, m)`` entries into one ``(D, N|1, m)``
+    tensor, broadcasting them to a common row and column count."""
+    rows = max(e.shape[0] for e in row)
+    m = max(e.shape[1] for e in row)
+    return torch.stack([e.expand(rows, m) for e in row])
 
 
 def constant_series(value, ctx, n_samples):
@@ -177,11 +390,10 @@ def constant_series(value, ctx, n_samples):
 
 def coordinate_series(index, ctx):
     """Series of the index-th coordinate: value = points[:, i], first
-    derivative = e_i per direction (constant across the batch), second = 0."""
-    p = ctx.points
-    c0 = p[:, index:index + 1]
-    d1 = torch.zeros((ctx.n_dirs, 1, 1), dtype=p.dtype, device=p.device)
-    d1[index] = 1
+    derivative = the directions' i-th components (constant across the
+    batch), second = 0."""
+    c0 = ctx.points[:, index:index + 1]
+    d1 = ctx.directions[:, index][:, None, None]
     derivs = [d1] + [ctx.zeros()] * (ctx.order - 1)
     return TSeries(c0, derivs[:ctx.order])
 

@@ -1,6 +1,7 @@
 r"""Training engines (counterpart of ``neurodiffeq_tpu/solvers.py``):
-``Solver1D`` for ODE systems, ``Solver2D`` for 2-D PDEs and
-``SolverSpherical`` for PDEs in spherical coordinates.
+``Solver1D`` for ODE systems, ``Solver2D`` for 2-D PDEs,
+``SolverSpherical`` for PDEs in spherical coordinates and the
+dimension-agnostic ``GenericSolver``.
 
 One training epoch samples ``n_batches_train`` batches, evaluates the
 residual through the batched Taylor engine, sums the batches' gradients
@@ -39,8 +40,8 @@ try:  # tqdm is optional at run time
 except ImportError:  # pragma: no cover
     tqdm = None
 
-__all__ = ['BaseSolver', 'Solver1D', 'Solver2D', 'SolverSpherical', 'BaseSolution', 'Solution1D',
-           'Solution2D', 'SolutionSpherical', 'SolutionSphericalHarmonics']
+__all__ = ['BaseSolver', 'GenericSolver', 'Solver1D', 'Solver2D', 'SolverSpherical', 'BaseSolution',
+           'GenericSolution', 'Solution1D', 'Solution2D', 'SolutionSpherical', 'SolutionSphericalHarmonics']
 
 
 def _requires_closure(optimizer):
@@ -510,6 +511,28 @@ class BaseSolution(ABC):
         if to_numpy:
             us = [u.cpu().numpy() for u in us]
         return us if len(self.nets) > 1 else us[0]
+
+
+class GenericSolution(BaseSolution):
+    def _compute_u(self, net, condition, *coord_fields):
+        return condition.enforce(net, *coord_fields)
+
+
+class GenericSolver(BaseSolver):
+    r"""A dimension-agnostic solver: the generators give the coordinates, as
+    many as the problem has, and the conditions take them all. With no
+    ``nets``, ``n_input_units`` sizes the default networks. The parameters
+    are :class:`BaseSolver`'s."""
+
+    def get_solution(self, copy=True, best=True):
+        r"""A callable solution evaluated as ``solution(*coords)``.
+
+        :param copy: copy the networks, so that later training does not
+            change the solution. Defaults to True.
+        :param best: use the lowest-loss parameters. Defaults to True.
+        """
+        conditions = deepcopy(self.conditions) if copy else self.conditions
+        return GenericSolution(self._nets_for(best, copy_nets=copy), conditions)
 
 
 class Solution1D(BaseSolution):

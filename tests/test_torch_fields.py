@@ -127,11 +127,16 @@ def test_torch_math_on_a_field_raises():
 
 
 def test_unported_paths_raise():
-    x, y = F.coords_from_points(torch.rand(6, 2, dtype=torch.float64))
+    """A field without a Taylor rule raises, for want of the compose
+    fallback; a mixed partial of a network field equals torch's double
+    backward."""
+    pts = torch.rand(6, 2, dtype=torch.float64)
+    x, y = F.coords_from_points(pts)
     _, _, tnet = _nets()
-    u = _cond(F).enforce(tnet, x, y)
-    with pytest.raises(NotImplementedError, match='mixed'):
-        F.diff(F.diff(u, x), y).value
+    leaf = pts.clone().requires_grad_()
+    (g,) = torch.autograd.grad(tnet(leaf).sum(), leaf, create_graph=True)
+    (hx,) = torch.autograd.grad(g[:, 0].sum(), leaf)
+    _close(F.diff(F.diff(F.network_field(tnet, (x, y)), x), y).value[:, 0], hx[:, 1])
     relu_net = FCNN(2, 1, hidden_units=(4,), actv=torch.nn.ReLU, dtype=torch.float64)
     F.reset_taylor_fallback_count()
     with pytest.raises(NotImplementedError, match='fallback'):

@@ -347,25 +347,34 @@ def test_coordinate_conversions_round_trip():
 @pytest.mark.parametrize('identity', ['spherical div grad', 'spherical curl grad', 'cylindrical curl grad',
                                       'cartesian curl grad', 'h1 of a spherical residual'])
 def test_identities_needing_mixed_partials_raise(identity):
-    """A derivative field differentiated along another axis is a mixed
-    partial, which is not ported yet: evaluating it raises, naming item 14.
-    So does the H1 loss of a first-order residual over (r, theta, phi)."""
+    """These need mixed partials: the identities hold to 1e-10 of the scale
+    of their terms, and the H1 loss of a first-order residual over (r,
+    theta, phi) equals plain torch autograd's."""
     (net,) = _nets(3, 1, 1, (8,), seed=30)[2]
-    coords = F.coords_from_points(torch.tensor(_sphere_points(8, 31)))
+    pts = torch.tensor(_sphere_points(8, 31))
+    coords = F.coords_from_points(pts)
     u = NoCondition().enforce(net, *coords)
-    with pytest.raises(NotImplementedError, match='item 14'):
+    F.reset_taylor_fallback_count()
+    if identity == 'h1 of a spherical residual':
+        got = L._losses['h1'](O.spherical_grad(u, *coords)[1], [u], list(coords))
+        leaf = pts.clone().requires_grad_()
+        (g,) = torch.autograd.grad(net(leaf).sum(), leaf, create_graph=True)
+        res = g[:, 1] / leaf[:, 0]  # u_theta / r
+        (res_grad,) = torch.autograd.grad(res.sum(), leaf)
+        _close(got, (torch.cat([res[:, None], res_grad], dim=1) ** 2).mean().detach())
+    else:
+        scale = max(diff(u, c, 2).value.abs().max().item() for c in coords)
         if identity == 'spherical div grad':
-            out = [O.spherical_div(*O.spherical_grad(u, *coords), *coords)]
+            out = [O.spherical_div(*O.spherical_grad(u, *coords), *coords) - O.spherical_laplacian(u, *coords)]
         elif identity == 'spherical curl grad':
             out = O.spherical_curl(*O.spherical_grad(u, *coords), *coords)
         elif identity == 'cylindrical curl grad':
             out = O.cylindrical_curl(*O.cylindrical_grad(u, *coords), *coords)
-        elif identity == 'cartesian curl grad':
-            out = O.curl(*O.grad(u, *coords), *coords)
         else:
-            out = [L._losses['h1'](O.spherical_grad(u, *coords)[1], [u], list(coords))]
+            out = O.curl(*O.grad(u, *coords), *coords)
         for f in out:
-            f.value
+            assert f.value.abs().max().item() <= 1e-10 * scale
+    assert F.taylor_fallback_count() == 0
 
 
 def test_h1_of_the_poisson_residual_needs_order_3():
