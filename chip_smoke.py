@@ -9,12 +9,20 @@ line each or more:
    ``nvidia-smi --query-gpu=name,power.limit``;
 2. build: compiles the kernel library from ``neurodiffeq_tpu_torch/csrc``;
 3. each kernel against the plain twin on the card, float64 and float32, at
-   every shape of ``CHECK_SHAPES`` and ``TABLE_SHAPES``, and two launches
+   every shape of ``CHECK_SHAPES``, ``TABLE_SHAPES`` and ``REACH_SHAPES``, and two launches
    of each must be bitwise equal. Error = max |kernel - twin| / max |twin|;
    limits 1e-10 (float64) and 1e-4 (float32: the kernel sums in another
    order than cuBLAS). Then SIREN (w0 = 30, ``SIREN_SHAPES``, order 2),
    whose Taylor path folds w0 into its layers and launches the kernel,
-   against the plain layer-by-layer engine, with the same limits;
+   against the plain layer-by-layer engine, with the same limits.
+   ``CHECK_SHAPES`` include nets at the edges of the kernels' reach:
+   more than 8 inputs (direction chunks), 20 layers, hidden
+   widths whose streams overflow shared memory (a global scratch) and a
+   one-hidden-layer net of more than 65,535 outputs. Then an FCNN 9-32-32-1
+   tanh at order 2 through ``GenericSolver``'s ``_forward`` on 1,000 points
+   must launch ``taylor_mlp`` exactly once, and its u_xx and u_x on every
+   axis must equal double-backward ``torch.autograd`` on the module (the
+   same limits);
    b. mixed partials: u_xy of the cavity net 2-(128x5)-3 at N = 1,024 by
    polarization against double-backward ``torch.autograd`` on the plain
    module (the same limits), and the cartesian div-grad and curl-grad and
@@ -66,19 +74,34 @@ line each or more:
    g. ``GenericSolver`` on ``tests/test_generic_3d.py``'s 3-D Poisson problem
       (FCNN 3-32-32-1, ``Generator3D`` 10^3), ``fit(1000)``: 5 launches per
       epoch, max error < 5e-2 on 200 points, the faces exact to 1e-6;
+   h. the solution bundle (``benchmarks/configs.py:216-258``): du/dt + lam u
+      = 0 over lam in [0.5, 1.5] through ``BundleSolver1D`` with every
+      default (FCNN 2-32-32-1 tanh on (t, lam), 32 x 32 meshes), ``fit(1500)``:
+      exactly 5 ``taylor_mlp`` launches per epoch (d = 2, order 1), no
+      ``taylor_mlp_1h``, no fallback, max |u - exp(-lam t)| < 2e-2 on 40
+      points at lam = 0.6, 1.0, 1.4; then through the frozen solution 300
+      Adam steps on lam (the inverse workflow of ``tests/test_inverse.py``)
+      must recover lam = 1.23 within 0.05, and ``Hypersolver(Euler(),
+      n_steps=50)`` against the solution at lam = 1, ``fit(1000)``, must
+      come within 2e-2 of exp(-t), and within 1e-3 of the solution it was
+      trained on and 10 times closer to it than plain Euler on the same
+      grid; neither launches a kernel (plain forwards);
 6. timing: device time per call of kernel and twin at every shape of
-   ``TABLE_SHAPES`` (``torch.profiler``) beside the kernel's bound, the
+   ``TABLE_SHAPES`` and ``REACH_SHAPES`` (``torch.profiler``; the latter
+   only where the tree's kernels take them) beside the kernel's bound, the
    wrapper's host enqueue time per call, and train-only epochs/s with the
    kernel and with the twin swapped in, interleaved; the backward of the
    kernel's autograd function at both cavity widths; the Lotka-Volterra,
-   spherical and both cavity epochs' rates in 300-epoch windows (the last
-   three from the windows of their own fits in 5d, 5e and 5f), device time
-   split by kernel kind, and device-busy shares (full run only);
-7. the result.
+   spherical, both cavity and the bundle epochs' rates in 300-epoch windows
+   (all but the first from the windows of their own fits in 5d, 5e, 5f and
+   5h), device time split by kernel kind, and device-busy shares;
+7. the result (full run only).
 
-``python3 chip_smoke.py --times-only`` runs phases 1, 2 and 6 alone, with
-nothing but ``fcnn_taylor`` and ``fcnn_taylor_reference`` of the kernel
-module, so that it also times an older tree of the port.
+``python3 chip_smoke.py --phases 5h,6`` runs phases 1 and 2 and the listed
+ones of ``PHASES`` (phase 6 times the paths among them) and prints no
+result line: for development, and, as ``--phases 6``, to time an older tree
+of the port (copy the script there). With no arguments every phase runs;
+the whole run is meant to stay within about 900 s, build included.
 
 Any failure ends the run with a non-zero exit code and no result line. The
 card's name and power limit and the kernel record come before the last
@@ -120,6 +143,18 @@ PSI_LIMIT_U, PSI_LIMIT_V = 0.16, 0.11
 # keep the script's time (the port's CPU float32 run of this phase gave 4.08e-3
 # at 1,000 epochs)
 GEN3D_EPOCHS, GEN3D_LIMIT = 1000, 5e-2
+# BASELINE config 5 (benchmarks/configs.py:216-258): its 1,500 epochs and its
+# 300 inverse steps and 1,000 hypersolver epochs; the limits are about 2.5
+# times the JAX package's 7.8e-3 and 7.5e-3 (benchmarks/RESULTS.md:57, quality
+# records) and tests/test_inverse.py's 0.05
+BUNDLE_EPOCHS, BUNDLE_LIMIT, INVERSE_STEPS, INVERSE_LIMIT = 1500, 2e-2, 300, 0.05
+HYPER_EPOCHS, HYPER_STEPS, HYPER_LIMIT = 1000, 50, 2e-2
+# the corrected Euler against the bundle solution it learns: the port's CPU
+# float32 runs of this phase gave 8.8e-5 and 2.2e-4 (seeds 0, 1), plain Euler
+# 8.6e-3 and 1.1e-2; a corrector that does nothing or the wrong thing fails both
+HYPER_SOL_LIMIT, HYPER_GAIN = 1e-3, 10
+WIDE_INPUTS = (9, 32, 32, 1)  # more inputs than one direction chunk: two chunks in one launch
+PHASES = ('3', '4', '5a', '5b', '5c', '5d', '5e', '5f', '5g', '5h', '6')
 WINDOW = 300  # epochs per timing window of phase 6
 IDENTITY_EPS = 1e-4  # tests/test_operators.py, BASELINE.md:17
 F32, F64 = torch.float32, torch.float64
@@ -131,6 +166,17 @@ CHECK_SHAPES = [  # (layer widths, activation, order, N)
     ((3, 16, 2), 'tanh', 2, 37),
     ((2, 1), 'tanh', 2, 37),
     ((3, 32, 32, 1), 'tanh', 2, 512),
+    # the edges of the kernels' reach: d > 8 (2 and 3 chunks, the last shifted
+    # back), 20 layers, streams past shared memory (float32 from width
+    # 2,700 at d = 2, float64 from 1,247; the d = 12 net in float64 only), and a
+    # one-hidden-layer net whose outputs exceed the 1h kernel's grid
+    (WIDE_INPUTS, 'tanh', 2, 1000),
+    ((20, 64, 1), 'tanh', 2, 333),
+    ((10, 1), 'sin', 2, 37),
+    ((2,) + (16,) * 19 + (1,), 'tanh', 2, 100),
+    ((2, 2800, 2800, 1), 'tanh', 2, 300),
+    ((12, 1000, 1000, 2), 'sin', 2, 200),
+    ((3, 32, 70000), 'tanh', 1, 5),
 ]
 TABLE_SHAPES = [  # (layer widths, activation, order, N, dtype timed in phase 6)
     ((2, 512, 1), 'tanh', 2, 1024, F32),     # flagship train and validation batch
@@ -149,6 +195,14 @@ TABLE_SHAPES = [  # (layer widths, activation, order, N, dtype timed in phase 6)
     ((3, 32, 32, 1), 'tanh', 2, 1000, F32),  # GenericSolver 3-D Poisson on Generator3D 10^3, phase 5g
     ((1, 32, 32, 1), 'sin', 1, 32, F32),     # Lotka-Volterra batch, phase 5c
     ((1, 32, 32, 1), 'sin', 2, 32, F32),     # the same under the h1 loss
+    ((2, 32, 32, 1), 'tanh', 1, 1024, F32),  # the bundle on (t, lam), phase 5h
+]
+# nets at the edges of the kernels' reach, timed too: two and three direction
+# chunks, and streams in the global scratch (past shared memory from width 2,700)
+REACH_SHAPES = [
+    (WIDE_INPUTS, 'tanh', 2, 1000, F32),
+    ((20, 64, 1), 'tanh', 2, 1024, F32),
+    ((2, 2800, 2800, 1), 'tanh', 2, 1024, F32),
 ]
 SIREN_SHAPES = [((2, 32, 32, 1), 1024), ((2, 64, 1), 1024)]  # (layer widths, N), w0 = 30, order 2
 TOL = {F64: 1e-10, F32: 1e-4}
@@ -598,6 +652,131 @@ def run_generic_3d(F, taylor_mlp):
     return launches
 
 
+def check_wide_inputs(F, taylor_mlp):
+    """Phase 3: an FCNN of more inputs than one direction chunk
+    (``WIDE_INPUTS``, order 2) through ``GenericSolver._forward`` launches
+    ``taylor_mlp`` once, and its u_xx and u_x on every axis equal double
+    backward, float64 and float32. Returns nothing, or SystemExit."""
+    from neurodiffeq_tpu_torch import diff
+    from neurodiffeq_tpu_torch.conditions import NoCondition
+    from neurodiffeq_tpu_torch.generators import PredefinedGenerator
+    from neurodiffeq_tpu_torch.networks import FCNN
+    from neurodiffeq_tpu_torch.solvers import GenericSolver
+
+    d = WIDE_INPUTS[0]
+    for dtype in (F64, F32):
+        torch.manual_seed(0)
+        net = FCNN(d, 1, hidden_units=WIDE_INPUTS[1:-1], device='cuda', dtype=dtype)
+        pts = torch.rand(1000, d, generator=torch.Generator().manual_seed(500), dtype=F64).to('cuda', dtype)
+        gen = PredefinedGenerator(*pts.T, device='cuda', dtype=dtype)
+        solver = GenericSolver(diff_eqs=lambda u, *xs: [sum(diff(u, x, 2) for x in xs)], conditions=[NoCondition()],
+                               nets=[net], train_generator=gen, valid_generator=gen, device='cuda', dtype=dtype)
+        F.reset_taylor_fallback_count()
+        taylor_mlp.reset_launches()
+        with torch.no_grad():
+            (u,), xs = solver._forward([pts[:, i:i + 1] for i in range(d)])
+            got = torch.stack([diff(u, x, 2).value[:, 0] for x in xs] + [diff(u, x).value[:, 0] for x in xs])
+        torch.cuda.synchronize()
+        launched = dict(taylor_mlp.LAUNCHES)
+        leaf = pts.clone().requires_grad_()
+        (g,) = torch.autograd.grad(net(leaf).sum(), leaf, create_graph=True)
+        want = torch.stack([torch.autograd.grad(g[:, i].sum(), leaf, retain_graph=True)[0][:, i]
+                            for i in range(d)] + [g[:, i] for i in range(d)]).detach()
+        err = rel_err(got, want)
+        ok = (launched == {'taylor_mlp_1h': 0, 'taylor_mlp': 1}
+              and F.taylor_fallback_count() == 0 and err <= TOL[dtype])
+        phase('3 kernel', f"{str(dtype)[6:]} FCNN {'-'.join(map(str, WIDE_INPUTS))} tanh order 2 N=1000 through "
+                          f"GenericSolver._forward: launches {launched}, u_xx and u_x on the {d} axes against "
+                          f"double backward rel err {err:.2e} (limit {TOL[dtype]:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("chip_smoke: a net of more inputs than one chunk did not run in one launch")
+
+
+def bundle_solver():
+    """BASELINE config 5's bundle: du/dt + lam u = 0, u(0) = 1, over t in
+    [0, 1] and lam in [0.5, 1.5] through ``BundleSolver1D`` with every
+    default (cuda, float32, FCNN 2-32-32-1 tanh, 32 x 32 meshes)."""
+    from neurodiffeq_tpu_torch import diff
+    from neurodiffeq_tpu_torch.conditions import BundleIVP
+    from neurodiffeq_tpu_torch.solvers import BundleSolver1D
+
+    return BundleSolver1D(ode_system=lambda u, t, lam: [diff(u, t) + lam * u],
+                          conditions=[BundleIVP(t_0=0.0, u_0=1.0)], t_min=0.0, t_max=1.0,
+                          theta_min=0.5, theta_max=1.5, eq_param_index=(0,))
+
+
+def run_bundle(F, taylor_mlp):
+    """Phase 5h: the bundle, the inverse workflow through its solution and
+    the hypersolver against it. Returns what :func:`run_cavity` returns,
+    with no schedule."""
+    from neurodiffeq_tpu_torch.hypersolver import DiscreteSolution1D, Euler, Hypersolver
+    from neurodiffeq_tpu_torch.utils import set_seed
+
+    set_seed(0)
+    solver = bundle_solver()
+    fit_s, launches, fallbacks, rates = fit_path(F, taylor_mlp, solver, BUNDLE_EPOCHS, windowed=True)
+    hist = solver.metrics_history['train_loss']
+    early, late = float(np.mean(hist[:100])), float(np.mean(hist[-100:]))
+    sol = solver.get_solution()
+    ts = np.linspace(0, 1, 40)
+    errs = {lam: float(np.abs(sol(ts, lam * np.ones(40), to_numpy=True) - np.exp(-lam * ts)).max())
+            for lam in (0.6, 1.0, 1.4)}
+
+    taylor_mlp.reset_launches()
+    t_data = torch.linspace(0, 1, 25, device='cuda')
+    data = torch.exp(-1.23 * t_data)
+    lam = torch.tensor(0.5, device='cuda', requires_grad=True)
+    opt = torch.optim.Adam([lam], lr=5e-2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(INVERSE_STEPS):
+        opt.zero_grad(set_to_none=True)
+        mse = ((sol(t_data, torch.ones_like(t_data) * lam) - data) ** 2).mean()
+        mse.backward()
+        opt.step()
+    lam_found, mse = lam.item(), mse.item()
+    inverse_s = time.perf_counter() - t0
+
+    hs = Hypersolver(func=lambda u, t: [-u], u0=1.0, t0=0.0, tn=1.0, n_steps=HYPER_STEPS,
+                     sol=lambda grid: [sol(grid, torch.ones_like(grid))], numerical_solver=Euler())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hs.fit(HYPER_EPOCHS)
+    torch.cuda.synchronize()
+    hyper_s = time.perf_counter() - t0
+    grid = torch.as_tensor(ts, dtype=F32, device='cuda')
+    (us,) = hs.get_solution()(grid)
+    hyper_err = float(np.abs(us.cpu().numpy() - np.exp(-ts)).max())
+    (plain,) = DiscreteSolution1D(*Euler().solve(lambda u, t: [-u], 1.0, 0.0, 1.0, HYPER_STEPS))(grid)
+    plain_err = float(np.abs(plain.cpu().numpy() - np.exp(-ts)).max())
+    target = sol(grid, torch.ones_like(grid))  # what the corrector is trained toward
+    hyper_sol, plain_sol = (float((u - target).abs().max()) for u in (us, plain))
+    torch.cuda.synchronize()
+    plain_launches = sum(taylor_mlp.LAUNCHES.values())
+    checks = launch_checks(launches, fallbacks, 5, BUNDLE_EPOCHS)
+    checks.update({
+        'loss fell': late < early,
+        f'bundle error < {BUNDLE_LIMIT}': all(np.isfinite(e) and e < BUNDLE_LIMIT for e in errs.values()),
+        f'|lam - 1.23| < {INVERSE_LIMIT}': abs(lam_found - 1.23) < INVERSE_LIMIT,
+        f'hypersolver error < {HYPER_LIMIT}': bool(np.isfinite(hyper_err)) and hyper_err < HYPER_LIMIT,
+        f'hypersolver within {HYPER_SOL_LIMIT} of its target': bool(np.isfinite(hyper_sol)) and hyper_sol < HYPER_SOL_LIMIT,
+        f'hypersolver {HYPER_GAIN}x closer to its target than plain Euler': hyper_sol * HYPER_GAIN < plain_sol,
+        'inverse and hypersolver launch no kernel': plain_launches == 0,
+    })
+    report('5h bundle',
+           f"BundleSolver1D FCNN 2-32-32-1 on (t, lam), 32 x 32 meshes, fit({BUNDLE_EPOCHS}) float32 in "
+           f"{fit_s:.1f} s ({BUNDLE_EPOCHS / fit_s:.1f} epochs/s with 4 validation batches): launches {launches} "
+           f"({launches['taylor_mlp'] / BUNDLE_EPOCHS:.2f} taylor_mlp per epoch), {fallbacks} fallbacks, train loss "
+           f"mean {early:.3e} (first 100) -> {late:.3e} (last 100), max |u - exp(-lam t)| on 40 points "
+           + ', '.join(f"lam={k} {v:.3e}" for k, v in errs.items())
+           + f"; inverse: {INVERSE_STEPS} Adam steps on lam through the solution in {inverse_s:.1f} s, lam "
+           f"{lam_found:.5f} (true 1.23), mse {mse:.3e}; Hypersolver(Euler, {HYPER_STEPS} steps) fit({HYPER_EPOCHS}) "
+           f"in {hyper_s:.1f} s, max |u - exp(-t)| {hyper_err:.3e} (plain Euler {plain_err:.3e}), max |u - "
+           f"solution| {hyper_sol:.3e} (plain Euler {plain_sol:.3e}), "
+           f"{plain_launches} launches in both", checks, "bundle check failed")
+    return launches, solver, None, rates
+
+
 def check_mixed():
     """Phase 3b: u_xy of the cavity net by polarization against double
     backward, and three vector identities on random net fields, float64 and
@@ -865,7 +1044,7 @@ def check_kernels(fcnn_taylor, fcnn_taylor_reference):
     """Phase 3: {(dims, actv, order, n, dtype): max abs error} for every
     shape, or SystemExit at the first disagreement."""
     errors = {}
-    shapes = list(dict.fromkeys([s for s in CHECK_SHAPES] + [s[:4] for s in TABLE_SHAPES]))
+    shapes = list(dict.fromkeys([s for s in CHECK_SHAPES] + [s[:4] for s in TABLE_SHAPES + REACH_SHAPES]))
     with torch.no_grad():
         for dtype in (F64, F32):
             for i, (dims, actv, order, n) in enumerate(shapes):
@@ -890,11 +1069,15 @@ def check_kernels(fcnn_taylor, fcnn_taylor_reference):
     return errors
 
 
-def time_shapes(card, fcnn_taylor, fcnn_taylor_reference):
-    """Phase 6: {(dims, actv, order, n, dtype): (kernel us, twin us, bound ms, bound_by)}."""
+def time_shapes(card, taylor_mlp):
+    """Phase 6: {(dims, actv, order, n, dtype): (kernel us, twin us, bound ms, bound_by)}
+    over ``TABLE_SHAPES``, and ``REACH_SHAPES`` where the kernels take 128
+    layers (an older tree's took 16 layers and 8 inputs)."""
+    fcnn_taylor, fcnn_taylor_reference = taylor_mlp.fcnn_taylor, taylor_mlp.fcnn_taylor_reference
+    shapes = TABLE_SHAPES + (REACH_SHAPES if taylor_mlp._MAX_LAYERS >= 128 else [])
     out = {}
     with torch.no_grad():
-        for i, (dims, actv, order, n, dtype) in enumerate(TABLE_SHAPES):
+        for i, (dims, actv, order, n, dtype) in enumerate(shapes):
             pts, layers = inputs(dims, n, dtype, seed=50 + i)
             k_us, k_launches = device_us(lambda: fcnn_taylor(pts, layers, order, actv))
             t_us, t_launches = device_us(lambda: fcnn_taylor_reference(pts, layers, order, actv))
@@ -944,52 +1127,9 @@ def time_end_to_end(card, taylor_mlp):
                       f"{' '.join(f'{r:.2f}' for r in rates['twin'])} (median {med['twin']:.2f})")
 
 
-def main():
-    times_only = sys.argv[1:] == ['--times-only']
-    if sys.argv[1:] and not times_only:
-        raise SystemExit(f"usage: python3 chip_smoke.py [--times-only]; got {sys.argv[1:]}")
-    # ---- 1. device
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device; the port's smoke run needs the GPU")
-    import neurodiffeq_tpu_torch
-    if Path(neurodiffeq_tpu_torch.__file__).resolve().parent.parent != ROOT:
-        raise SystemExit(f"chip_smoke: imported neurodiffeq_tpu_torch from "
-                         f"{neurodiffeq_tpu_torch.__file__}, not from this checkout")
-    from neurodiffeq_tpu_torch import fields as F
-    from neurodiffeq_tpu_torch.ops import _build, taylor_mlp
-    from neurodiffeq_tpu_torch.ops.taylor_mlp import fcnn_taylor, fcnn_taylor_reference
-    from neurodiffeq_tpu_torch.utils import full_precision_matmuls, set_seed
-
-    full_precision_matmuls()
-    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    card = smi.splitlines()[0]
-    phase('1 device', f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
-                      f"torch {torch.__version__} cuda {torch.version.cuda}; nvidia-smi: {card}")
-
-    # ---- 2. build
-    t0 = time.perf_counter()
-    _build.load_library()
-    log = _build.BUILD_INFO['log']
-    regs = [int(r) for r in re.findall(r'Used (\d+) registers', log)]
-    spills = [int(b) for b in re.findall(r'(\d+) bytes spill stores', log)]
-    phase('2 build', f"{_build.BUILD_INFO['path']} in {time.perf_counter() - t0:.1f} s "
-                     f"(nvcc {_build.BUILD_INFO['seconds']:.1f} s); ptxas: {len(regs)} kernel instances, "
-                     f"registers per thread {min(regs, default=0)}-{max(regs, default=0)}, "
-                     f"{sum(b > 0 for b in spills)} with spill stores (at most {max(spills, default=0)} "
-                     f"bytes)")
-
-    if times_only:
-        time_shapes(card, fcnn_taylor, fcnn_taylor_reference)
-        time_end_to_end(card, taylor_mlp)
-        return
-
-    # ---- 3. kernels against the twin; SIREN against the plain engine
-    errors = check_kernels(fcnn_taylor, fcnn_taylor_reference)
-    check_siren()
-    check_mixed()
-
-    # ---- 4. gradient
+def check_gradient(fcnn_taylor_reference):
+    """Phase 4: the gradient through the kernel's autograd function against
+    autograd over the twin, flagship shape, float64, limit 1e-10."""
     from neurodiffeq_tpu_torch.ops.taylor_mlp import _TaylorMLPFn
     dims, n = (2,) + HIDDEN + (1,), GRID[0] * GRID[1]
     g = torch.Generator().manual_seed(7)
@@ -1011,7 +1151,11 @@ def main():
     if gerr > 1e-10:
         raise SystemExit("chip_smoke: gradient through the kernel disagrees with the twin")
 
-    # ---- 5a. the main path: flagship training
+
+def run_flagship(F, taylor_mlp):
+    """Phase 5a, the main path: flagship training. Returns its launch counts."""
+    from neurodiffeq_tpu_torch.utils import set_seed
+
     set_seed(0)
     solver = flagship_solver()
     F.reset_taylor_fallback_count()
@@ -1044,8 +1188,14 @@ def main():
                          + ', '.join(f"{k}: {'ok' if v else 'FAIL'}" for k, v in checks.items()))
     if not all(checks.values()):
         raise SystemExit("chip_smoke: flagship training check failed")
+    return launches_main
 
-    # ---- 5b. Solver2D with every default (device, net 2-32-32-1, generators)
+
+def run_default_solver2d(F, taylor_mlp):
+    """Phase 5b: Solver2D with every default (device, net 2-32-32-1,
+    generators). Returns its launch counts."""
+    from neurodiffeq_tpu_torch.utils import set_seed
+
     set_seed(0)
     solver = laplace_solver()
     F.reset_taylor_fallback_count()
@@ -1070,37 +1220,94 @@ def main():
                                  + ', '.join(f"{k}: {'ok' if v else 'FAIL'}" for k, v in checks.items()))
     if not all(checks.values()):
         raise SystemExit("chip_smoke: default Solver2D check failed")
+    return launches_default
 
-    # ---- 5c. the ODE path: Lotka-Volterra through Solver1D
-    launches_lv, launches_h1 = run_lv(F, taylor_mlp)
 
-    # ---- 5d. the spherical path: Poisson through SolverSpherical
-    sph = run_sph(F, taylor_mlp)
+def main():
+    args = sys.argv[1:]
+    chosen = set(args[1].split(',')) if len(args) == 2 and args[0] == '--phases' else set()
+    if args and (not chosen or not chosen <= set(PHASES)):
+        raise SystemExit(f"usage: python3 chip_smoke.py [--phases {','.join(PHASES)}]; got {args}")
+    chosen = chosen or set(PHASES)
+    # ---- 1. device
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; the port's smoke run needs the GPU")
+    import neurodiffeq_tpu_torch
+    if Path(neurodiffeq_tpu_torch.__file__).resolve().parent.parent != ROOT:
+        raise SystemExit(f"chip_smoke: imported neurodiffeq_tpu_torch from "
+                         f"{neurodiffeq_tpu_torch.__file__}, not from this checkout")
+    from neurodiffeq_tpu_torch import fields as F
+    from neurodiffeq_tpu_torch.ops import _build, taylor_mlp
+    from neurodiffeq_tpu_torch.ops.taylor_mlp import fcnn_taylor, fcnn_taylor_reference
+    from neurodiffeq_tpu_torch.utils import full_precision_matmuls
 
-    # ---- 5e-5g. the cavities through Solver2D, and GenericSolver in 3-D
-    cavities = {'primitive cavity': run_cavity(F, taylor_mlp), 'psi-omega cavity': run_psi(F, taylor_mlp)}
-    launches_3d = run_generic_3d(F, taylor_mlp)
+    full_precision_matmuls()
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    card = smi.splitlines()[0]
+    phase('1 device', f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+                      f"torch {torch.__version__} cuda {torch.version.cuda}; nvidia-smi: {card}")
+
+    # ---- 2. build
+    t0 = time.perf_counter()
+    _build.load_library()
+    log = _build.BUILD_INFO['log']
+    regs = [int(r) for r in re.findall(r'Used (\d+) registers', log)]
+    spills = [int(b) for b in re.findall(r'(\d+) bytes spill stores', log)]
+    phase('2 build', f"{_build.BUILD_INFO['path']} in {time.perf_counter() - t0:.1f} s "
+                     f"(nvcc {_build.BUILD_INFO['seconds']:.1f} s); ptxas: {len(regs)} kernel instances, "
+                     f"registers per thread {min(regs, default=0)}-{max(regs, default=0)}, "
+                     f"{sum(b > 0 for b in spills)} with spill stores (at most {max(spills, default=0)} "
+                     f"bytes)")
+
+    # ---- 3. kernels against the twin; SIREN against the plain engine; a wide input; mixed partials
+    if '3' in chosen:
+        errors = check_kernels(fcnn_taylor, fcnn_taylor_reference)
+        check_siren()
+        check_wide_inputs(F, taylor_mlp)
+        check_mixed()
+    # ---- 4. gradient
+    if '4' in chosen:
+        check_gradient(fcnn_taylor_reference)
+    # ---- 5. the paths: the flagship (the main path), Solver2D's defaults,
+    # Lotka-Volterra, spherical Poisson, the cavities, GenericSolver in 3-D,
+    # the bundle; the rates of 5d, 5e, 5f and 5h are their own fits' windows
+    paths, timed = {}, {}
+    if '5a' in chosen:
+        paths['5a'] = run_flagship(F, taylor_mlp)
+    if '5b' in chosen:
+        paths['5b'] = run_default_solver2d(F, taylor_mlp)
+    if '5c' in chosen:
+        paths['5c'], paths['5c h1'] = run_lv(F, taylor_mlp)
+    labels = {'5d': 'spherical Poisson (train + 4 validation batches of 512 points)',
+              '5e': f'primitive cavity (one train batch of {CAV_POINTS} points, no validation)',
+              '5f': f'psi-omega cavity (one train batch of {CAV_POINTS} points, no validation)',
+              '5h': 'solution bundle (train + 4 validation batches of 32 x 32 points)'}
+    runs = {'5d': run_sph, '5e': run_cavity, '5f': run_psi, '5g': run_generic_3d, '5h': run_bundle}
+    for name, run in runs.items():
+        if name in chosen:
+            out = run(F, taylor_mlp)
+            paths[name] = out if name == '5g' else out[0]
+            if name in labels:
+                timed[labels[name]] = out
 
     # ---- 6. timing
-    times = time_shapes(card, fcnn_taylor, fcnn_taylor_reference)
-    time_end_to_end(card, taylor_mlp)
-    time_epochs(card, 'Lotka-Volterra (train + 4 validation batches, 2 nets)', lv_solver())
-    for dims in ((2,) + CAV_HIDDEN + (3,), (2,) + CAV_HIDDEN + (2,)):
-        time_backward(card, dims, CAV_POINTS)
-    # the rates of these paths are their own fits' windows (5d, 5e, 5f); the
-    # profiler runs on after them
-    timed = {'spherical Poisson (train + 4 validation batches of 512 points)': sph}
-    timed.update({f'{k} (one train batch of {CAV_POINTS} points, no validation)': v for k, v in cavities.items()})
-    for label, (_, solver, step_schedule, rates) in timed.items():
-        time_epochs(card, label, solver, [step_schedule], rates)
+    if '6' in chosen:
+        times = time_shapes(card, taylor_mlp)
+        time_end_to_end(card, taylor_mlp)
+        time_epochs(card, 'Lotka-Volterra (train + 4 validation batches, 2 nets)', lv_solver())
+        for dims in ((2,) + CAV_HIDDEN + (3,), (2,) + CAV_HIDDEN + (2,)):
+            time_backward(card, dims, CAV_POINTS)
+        for label, (_, solver, step_schedule, rates) in timed.items():
+            time_epochs(card, label, solver, [step_schedule] if step_schedule else [], rates)
+    if chosen != set(PHASES):
+        phase('7 result', f"phases {sorted(chosen)} only: launches per path {paths}; no result line")
+        return
 
     # ---- 7. result: launches summed over the paths of phase 5
-    paths = {'5a': launches_main, '5b': launches_default, '5c': launches_lv, '5c h1': launches_h1,
-             '5d': sph[0], '5e': cavities['primitive cavity'][0], '5f': cavities['psi-omega cavity'][0],
-             '5g': launches_3d}
     phase('7 result', f"launches per path: {paths}")
     record = {'kernels': []}
-    # each kernel timed at the shape of the newest path it carries
+    # taylor_mlp_1h timed at the flagship's shape, taylor_mlp at the cavity's, its heaviest path
     for name, key in (('taylor_mlp_1h', ((2, 512, 1), 'tanh', 2, 1024, F32)),
                       ('taylor_mlp', ((2, 128, 128, 128, 128, 128, 3), 'tanh', 2, 16384, F32))):
         launches = sum(p[name] for p in paths.values())

@@ -15,9 +15,9 @@ from ._version_utils import deprecated_alias
 from .fields import abs as fabs, cat, exp, network_field, tanh
 from .utils import resolve
 
-__all__ = ['BaseCondition', 'EnsembleCondition', 'NoCondition', 'IVP', 'DirichletBVP',
-           'DirichletBVP2D', 'DirichletBVPSpherical', 'InfDirichletBVPSpherical',
-           'DirichletBVPSphericalBasis', 'InfDirichletBVPSphericalBasis']
+__all__ = ['BaseCondition', 'IrregularBoundaryCondition', 'EnsembleCondition', 'NoCondition', 'IVP',
+           'BundleIVP', 'DirichletBVP', 'BundleDirichletBVP', 'DirichletBVP2D', 'DirichletBVPSpherical',
+           'InfDirichletBVPSpherical', 'DirichletBVPSphericalBasis', 'InfDirichletBVPSphericalBasis']
 
 
 def _ann_field(net, coordinates, ith_unit=None):
@@ -59,6 +59,41 @@ class BaseCondition:
         warnings.warn(f"`{self.__class__.__name__}.set_impose_on` is deprecated and will be "
                       f"removed in the future", DeprecationWarning)
         self.ith_unit = ith_unit
+
+
+class _BundleConditionMixin:
+    """Mixin for bundle conditions whose parameters (t_0, u_0, ...) may be
+    sampled coordinates of the bundle.
+
+    :param bundle_param_lookup: maps a parameter name to its index into the
+        ``theta`` coordinates that follow ``t`` in ``parameterize``.
+    :param allowed_params: legal names for ``bundle_param_lookup`` keys.
+    """
+
+    def __init__(self, bundle_param_lookup=None, allowed_params=None):
+        self.bundle_param_lookup = bundle_param_lookup or {}
+        if isinstance(allowed_params, str):
+            allowed_params = set(allowed_params)
+        if allowed_params:
+            illegal_params = set(self.bundle_param_lookup) - set(allowed_params)
+            if illegal_params:
+                raise ValueError(
+                    f"The following parameter(s) are not allowed in `bundle_parameters_lookup`: "
+                    f"{illegal_params}.\nSupported parameter name(s) are: {allowed_params}.")
+
+    def _get_parameter(self, param_name, thetas):
+        if param_name in self.bundle_param_lookup:
+            return thetas[self.bundle_param_lookup[param_name]]
+        return getattr(self, param_name)
+
+
+class IrregularBoundaryCondition(BaseCondition):
+    """Base for conditions on irregular domains; adds an ``in_domain`` mask
+    hook for monitors."""
+
+    def in_domain(self, *coordinates):
+        """Boolean array: whether each (numpy) point lies within the domain."""
+        return np.ones_like(coordinates[0], dtype=bool)
 
 
 class EnsembleCondition(BaseCondition):
@@ -124,6 +159,39 @@ class IVP(BaseCondition):
                 + ((1 - exp(-t + self.t_0)) ** 2) * output_tensor)
 
 
+class BundleIVP(BaseCondition, _BundleConditionMixin):
+    r"""An IVP over a bundle of parameters: any of t_0, u_0 and u_0' may be
+    a sampled theta coordinate. With a sampled t_0 the factor
+    :math:`1 - e^{-(t - t_0)}` becomes :math:`t - t_0`, polynomial, so that
+    the constraint stays exact for every sampled t_0.
+
+    :param t_0: The initial time (unless sampled).
+    :param u_0: The initial value of u (unless sampled).
+    :param u_0_prime: The initial derivative of u, defaults to None.
+    :param bundle_param_lookup: maps 't_0', 'u_0' or 'u_0_prime' to the
+        index of its theta coordinate.
+    """
+
+    @deprecated_alias(x_0='u_0', x_0_prime='u_0_prime', bundle_conditions='bundle_param_lookup')
+    def __init__(self, t_0=None, u_0=None, u_0_prime=None, bundle_param_lookup=None):
+        BaseCondition.__init__(self)
+        _BundleConditionMixin.__init__(self, bundle_param_lookup=bundle_param_lookup,
+                                       allowed_params=['t_0', 'u_0', 'u_0_prime'])
+        self.t_0, self.u_0, self.u_0_prime = t_0, u_0, u_0_prime
+
+    def parameterize(self, output_tensor, t, *theta):
+        t_0 = self._get_parameter('t_0', theta)
+        u_0 = self._get_parameter('u_0', theta)
+        u_0_prime = self._get_parameter('u_0_prime', theta)
+        if 't_0' in self.bundle_param_lookup:
+            if u_0_prime is None:
+                return u_0 + (t - t_0) * output_tensor
+            return u_0 + (t - t_0) * u_0_prime + ((t - t_0) ** 2) * output_tensor
+        if u_0_prime is None:
+            return u_0 + (1 - exp(-t + t_0)) * output_tensor
+        return u_0 + (t - t_0) * u_0_prime + ((1 - exp(-t + t_0)) ** 2) * output_tensor
+
+
 class DirichletBVP(BaseCondition):
     r"""A double-ended Dirichlet boundary condition :math:`u(t_0)=u_0`,
     :math:`u(t_1)=u_1`, enforced as
@@ -139,6 +207,31 @@ class DirichletBVP(BaseCondition):
         t_tilde = (t - self.t_0) / (self.t_1 - self.t_0)
         return (self.u_0 * (1 - t_tilde) + self.u_1 * t_tilde
                 + (1 - exp((1 - t_tilde) * t_tilde)) * output_tensor)
+
+
+class BundleDirichletBVP(BaseCondition, _BundleConditionMixin):
+    r"""A double-ended Dirichlet BVP whose t_0, u_0, t_1 and u_1 may be
+    sampled theta coordinates:
+    :math:`u(t)=(1-\tilde t)u_0+\tilde t u_1+(1-e^{(1-\tilde t)\tilde t})\mathrm{ANN}(t)`.
+
+    :param bundle_param_lookup: maps 't_0', 'u_0', 't_1' or 'u_1' to the
+        index of its theta coordinate.
+    """
+
+    @deprecated_alias(bundle_conditions='bundle_param_lookup')
+    def __init__(self, t_0, u_0, t_1, u_1, bundle_param_lookup=None):
+        BaseCondition.__init__(self)
+        _BundleConditionMixin.__init__(self, bundle_param_lookup=bundle_param_lookup,
+                                       allowed_params=['t_0', 'u_0', 't_1', 'u_1'])
+        self.t_0, self.u_0, self.t_1, self.u_1 = t_0, u_0, t_1, u_1
+
+    def parameterize(self, output_tensor, t, *theta):
+        u_0 = self._get_parameter('u_0', theta)
+        u_1 = self._get_parameter('u_1', theta)
+        t_0 = self._get_parameter('t_0', theta)
+        t_1 = self._get_parameter('t_1', theta)
+        t_tilde = (t - t_0) / (t_1 - t_0)
+        return u_0 * (1 - t_tilde) + u_1 * t_tilde + (1 - exp((1 - t_tilde) * t_tilde)) * output_tensor
 
 
 class DirichletBVP2D(BaseCondition):

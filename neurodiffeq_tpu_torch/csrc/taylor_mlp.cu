@@ -51,6 +51,15 @@
 // output layer is one warp reduction per (point, output unit) over all S
 // streams at once.
 //
+// Reach: any input width, 1-kMaxLayers layers and any hidden width, as the
+// TPU kernel. A launch carries D = min(d, kMaxDims) directions; for d > kMaxDims
+// a grid axis (z for taylor_mlp_1h, y for taylor_mlp) runs ceil(d / kMaxDims)
+// chunks of kMaxDims directions, the last one shifted back to end at d, and
+// every chunk recomputes the value stream (only chunk 0 stores c0). Hidden
+// widths whose streams do not fit a block's shared memory keep them in a
+// global scratch instead (one region per resident block, which then loops
+// over point tiles); the weight tiles stay in shared memory.
+//
 // No integer division by a runtime width in an inner loop: divisors are
 // compile-time constants (D, S, kKTile).
 #include <cuda_runtime.h>
@@ -58,8 +67,9 @@
 
 namespace {
 
-constexpr int kMaxLayers = 16;
-constexpr int kMaxDims = 8;        // input dimension d = directions D
+constexpr int kMaxLayers = 128;    // MLPParams, passed by value, stays under 4 KB of kernel parameters
+constexpr int kMaxDims = 8;        // directions D of one launch's chunk
+constexpr int kMaxGridYZ = 65535;  // CUDA's bound on a grid's y and z extents
 constexpr int kMaxThreads = 256;   // threads of a block, both kernels
 constexpr int kMaxDevices = 64;
 constexpr int kSmemLimit = 232448; // dynamic shared memory a block may use on sm_90
@@ -157,41 +167,37 @@ __device__ __forceinline__ T warp_transpose_sum(T (&v)[32], int lane) {
   return v[0];
 }
 
+// ---------------------------------------------------------------- direction chunks
+// The first of the D directions of the block's chunk: chunks of D, the last
+// shifted back so that it ends at d. Only a D = kMaxDims instance runs more
+// than one chunk; the others keep their output pointers as given (shifting
+// them slows their stores) and every block stores c0.
+template <int D>
+__device__ __forceinline__ int chunk_dir0(int d, unsigned chunk) {
+  if constexpr (D == kMaxDims) return min(static_cast<int>(chunk) * D, d - D);
+  return 0;
+}
+
 // ---------------------------------------------------------------- one hidden layer
-// acc[t * S + s] is stream s of the tile's point t; TM * S <= 32 entries.
-template <typename T, int D, int ORDER, int ACT>
-__global__ void __launch_bounds__(kMaxThreads)
-taylor_mlp_1h_kernel(const T* __restrict__ x, int n, int h, int n_out, const T* __restrict__ W1,
-                     const T* __restrict__ b1, const T* __restrict__ W2, const T* __restrict__ b2,
-                     int tile, T* __restrict__ c0, T* __restrict__ c1, T* __restrict__ c2) {
+// acc[t * S + s] += stream s of the tile's point t over the units this
+// thread owns. NARROW: d == D, the tile's points are in xr. Otherwise (D ==
+// kMaxDims < d) z reads each point's row of x, and the tangents are the
+// chunk's columns dir0.. of W1.
+template <typename T, int D, int ORDER, int ACT, bool NARROW>
+__device__ __forceinline__ void accumulate_1h(T (&acc)[32], const T (&xr)[max_tile_1h(1 + ORDER * D)][D],
+                                              const T* x, int n, int n0, int d, int dir0, int h,
+                                              int tile, const T* W1, const T* b1, const T* W2v) {
   constexpr int S = 1 + ORDER * D;
   constexpr int TM = max_tile_1h(S);
-  __shared__ T xs[TM * D];
-  __shared__ T red[kMaxThreads / 32][32];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
-  const int n0 = blockIdx.x * tile, o = blockIdx.y;
-
-  for (int i = tid; i < tile * D; i += blockDim.x) {
-    xs[i] = n0 + i / D < n ? x[static_cast<size_t>(n0) * D + i] : T(0);
-  }
-  __syncthreads();
-  T xr[TM][D];  // the tile's points, in registers for the loop over units
-#pragma unroll
-  for (int t = 0; t < TM; ++t) {
-#pragma unroll
-    for (int k = 0; k < D; ++k) xr[t][k] = xs[t * D + k];
-  }
-
-  T acc[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = T(0);
-  for (int j = tid; j < h; j += blockDim.x) {
-    const T v = W2[static_cast<size_t>(o) * h + j];
+  const int stride = NARROW ? D : d;
+  for (int j = threadIdx.x; j < h; j += blockDim.x) {
+    const T v = W2v[j];
     const T bj = b1[j];
+    const T* wrow = W1 + static_cast<size_t>(j) * stride;
     T w[D], wv[D], wwv[D];
 #pragma unroll
     for (int k = 0; k < D; ++k) {
-      w[k] = W1[static_cast<size_t>(j) * D + k];
+      w[k] = wrow[(NARROW ? 0 : dir0) + k];
       wv[k] = w[k] * v;
       wwv[k] = (w[k] * w[k]) * v;
     }
@@ -199,8 +205,13 @@ taylor_mlp_1h_kernel(const T* __restrict__ x, int n, int h, int n_out, const T* 
     for (int t = 0; t < TM; ++t) {
       if (t < tile) {
         T z = bj;
+        if constexpr (NARROW) {
 #pragma unroll
-        for (int k = 0; k < D; ++k) z += xr[t][k] * w[k];
+          for (int k = 0; k < D; ++k) z += xr[t][k] * w[k];
+        } else {
+          const T* xp = x + static_cast<size_t>(min(n0 + t, n - 1)) * d;
+          for (int k = 0; k < d; ++k) z += xp[k] * wrow[k];
+        }
         T a, f1, f2;
         actv_chain<ACT>(z, a, f1, f2);
         acc[t * S] += a * v;
@@ -212,6 +223,50 @@ taylor_mlp_1h_kernel(const T* __restrict__ x, int n, int h, int n_out, const T* 
       }
     }
   }
+}
+
+// acc[t * S + s] is stream s of the tile's point t; TM * S <= 32 entries.
+// Grid: (point tiles, output units, direction chunks).
+template <typename T, int D, int ORDER, int ACT>
+__global__ void __launch_bounds__(kMaxThreads)
+taylor_mlp_1h_kernel(const T* __restrict__ x, int n, int d, int h, int n_out, const T* __restrict__ W1,
+                     const T* __restrict__ b1, const T* __restrict__ W2, const T* __restrict__ b2,
+                     int tile, T* __restrict__ c0, T* __restrict__ c1, T* __restrict__ c2) {
+  constexpr int S = 1 + ORDER * D;
+  constexpr int TM = max_tile_1h(S);
+  __shared__ T xs[TM * D];
+  __shared__ T red[kMaxThreads / 32][32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  const int n0 = blockIdx.x * tile, o = blockIdx.y;
+  const int dir0 = chunk_dir0<D>(d, blockIdx.z);
+  const bool store_c0 = D != kMaxDims || blockIdx.z == 0;
+  if constexpr (D == kMaxDims) {  // this chunk's tangents
+    c1 += static_cast<size_t>(dir0) * n * n_out;
+    if constexpr (ORDER == 2) c2 += static_cast<size_t>(dir0) * n * n_out;
+  }
+
+  T acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = T(0);
+  T xr[TM][D];  // the tile's points, in registers for the loop over units
+  bool narrow = true;
+  if constexpr (D == kMaxDims) narrow = d == D;
+  if (narrow) {
+    for (int i = tid; i < tile * D; i += blockDim.x) {
+      xs[i] = n0 + i / D < n ? x[static_cast<size_t>(n0) * D + i] : T(0);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int t = 0; t < TM; ++t) {
+#pragma unroll
+      for (int k = 0; k < D; ++k) xr[t][k] = xs[t * D + k];
+    }
+    accumulate_1h<T, D, ORDER, ACT, true>(acc, xr, x, n, n0, d, dir0, h, tile, W1, b1,
+                                          W2 + static_cast<size_t>(o) * h);
+  } else if constexpr (D == kMaxDims) {
+    accumulate_1h<T, D, ORDER, ACT, false>(acc, xr, x, n, n0, d, dir0, h, tile, W1, b1,
+                                           W2 + static_cast<size_t>(o) * h);
+  }
 
   red[warp][lane] = warp_transpose_sum(acc, lane);
   __syncthreads();
@@ -219,7 +274,9 @@ taylor_mlp_1h_kernel(const T* __restrict__ x, int n, int h, int n_out, const T* 
     T sum = red[0][tid];
     for (int w = 1; w < nwarps; ++w) sum += red[w][tid];
     const int t = tid / S, s = tid - t * S, pt = n0 + t;
-    if (pt < n) store_stream<T, D>(s, pt, n, n_out, o, s == 0 ? sum + b2[o] : sum, c0, c1, c2);
+    if (pt < n && (s != 0 || store_c0)) {
+      store_stream<T, D>(s, pt, n, n_out, o, s == 0 ? sum + b2[o] : sum, c0, c1, c2);
+    }
   }
 }
 
@@ -303,54 +360,41 @@ __device__ __forceinline__ void mac_w_tile(T (&acc)[TT][S][kUnitsPerLane], const
   }
 }
 
-// Streams live in shared memory as buf[(s * tile + t) * hstride + j]: s = 0
-// the value, s = 1..D the first-order tangents, s = D+1..2D the second-order
-// ones. Warp w owns points t = w * TT .. w * TT + TT - 1 of the tile.
+// The first layer's streams of point t for unit j: z is its pre-activation,
+// w the unit's weights along the chunk's directions.
 template <typename T, int D, int ORDER>
-__global__ void __launch_bounds__(kMaxThreads)
-taylor_mlp_kernel(const T* __restrict__ x, int n, int n_layers, MLPParams<T> p, int actv, int tile,
-                  int hstride, T* __restrict__ c0, T* __restrict__ c1, T* __restrict__ c2) {
+__device__ __forceinline__ void first_layer_streams(T* out, int tile, int hstride, int t, int j, T z,
+                                                    const T (&w)[D], int actv) {
+  T a, f1, f2;
+  actv_chain(z, actv, a, f1, f2);
+  out[static_cast<size_t>(t) * hstride + j] = a;
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    out[(static_cast<size_t>(1 + k) * tile + t) * hstride + j] = f1 * w[k];
+    if constexpr (ORDER == 2) out[(static_cast<size_t>(1 + D + k) * tile + t) * hstride + j] = f2 * (w[k] * w[k]);
+  }
+}
+
+// Streams live as buf[(s * tile + t) * hstride + j]: s = 0 the value,
+// s = 1..D the first-order tangents of the chunk's directions, s = D+1..2D
+// the second-order ones. Warp w owns points t = w * TT .. w * TT + TT - 1
+// of the tile at n0: every layer of those points, then their outputs.
+template <typename T, int D, int ORDER>
+__device__ __forceinline__ void run_tile(int n0, const T* __restrict__ x, int n, int d, int dir0,
+                                         int n_layers, const MLPParams<T>& p, int actv, int tile,
+                                         int hstride, T* const* buf, T* const* ws, bool store_c0,
+                                         T* __restrict__ c0, T* __restrict__ c1, T* __restrict__ c2) {
   constexpr int S = 1 + ORDER * D;
   constexpr int TT = points_per_warp(S);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  const int n0 = blockIdx.x * tile;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n_out = p.dims[n_layers];
-
-  if (n_layers == 1) {  // a single affine layer: constant tangents, zero curvature
-    const T* W = p.W[0];
-    for (int t = warp; t < tile; t += nwarps) {
-      const int pt = n0 + t;
-      if (pt >= n) break;
-      for (int o = lane; o < n_out; o += 32) {
-        const T* w = W + static_cast<size_t>(o) * D;
-        T z = p.b[0][o];
-#pragma unroll
-        for (int k = 0; k < D; ++k) z += x[static_cast<size_t>(pt) * D + k] * w[k];
-        c0[static_cast<size_t>(pt) * n_out + o] = z;
-#pragma unroll
-        for (int k = 0; k < D; ++k) {
-          const size_t off = (static_cast<size_t>(k) * n + pt) * n_out + o;
-          c1[off] = w[k];
-          if constexpr (ORDER == 2) c2[off] = T(0);
-        }
-      }
-    }
-    return;
-  }
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  const size_t buf_elems = static_cast<size_t>(S) * tile * hstride;
-  T* buf[2] = {smem, smem + buf_elems};
-  T* ws[2] = {smem + 2 * buf_elems, smem + 2 * buf_elems + kKTile * kWStride};
-
   // the first weight tile is in flight while the first layer runs
   WTile cur{1, 0, 0};
   const bool any_middle = n_layers > 2;
   if (any_middle) load_w_tile(ws[0], p, cur);
   cp_async_commit();
 
-  // ---- first layer: K = d dot per (point, unit); tangents are rows of W1
+  // ---- first layer: K = d dot per (point, unit); tangents are the chunk's columns of W1
   {
     const int h = p.dims[1];
     const T* W = p.W[0];
@@ -359,24 +403,32 @@ taylor_mlp_kernel(const T* __restrict__ x, int n, int n_layers, MLPParams<T> p, 
 #pragma unroll
     for (int i = 0; i < TT; ++i) {
       const int t = warp * TT + i, pt = n0 + t;
-      T xv[D];
+      bool narrow = true;
+      if constexpr (D == kMaxDims) narrow = d == D;
+      if (narrow) {  // the point in registers; the tangents are whole rows of W1
+        T xv[D];
 #pragma unroll
-      for (int k = 0; k < D; ++k) xv[k] = pt < n ? x[static_cast<size_t>(pt) * D + k] : T(0);
-      for (int j = lane; j < h; j += 32) {
-        T w[D];
-        T z = T(0);
+        for (int k = 0; k < D; ++k) xv[k] = pt < n ? x[static_cast<size_t>(pt) * D + k] : T(0);
+        for (int j = lane; j < h; j += 32) {
+          T w[D];
+          T z = T(0);
 #pragma unroll
-        for (int k = 0; k < D; ++k) {
-          w[k] = W[static_cast<size_t>(j) * D + k];
-          z += xv[k] * w[k];
+          for (int k = 0; k < D; ++k) {
+            w[k] = W[static_cast<size_t>(j) * D + k];
+            z += xv[k] * w[k];
+          }
+          first_layer_streams<T, D, ORDER>(out, tile, hstride, t, j, z + b[j], w, actv);
         }
-        T a, f1, f2;
-        actv_chain(z + b[j], actv, a, f1, f2);
-        out[static_cast<size_t>(t) * hstride + j] = a;
+      } else if constexpr (D == kMaxDims) {  // z over all d inputs; the chunk's columns of W1
+        const T* xp = x + static_cast<size_t>(min(pt, n - 1)) * d;
+        for (int j = lane; j < h; j += 32) {
+          const T* wrow = W + static_cast<size_t>(j) * d;
+          T z = T(0);
+          for (int k = 0; k < d; ++k) z += (pt < n ? xp[k] : T(0)) * wrow[k];
+          T w[D];
 #pragma unroll
-        for (int k = 0; k < D; ++k) {
-          out[(static_cast<size_t>(1 + k) * tile + t) * hstride + j] = f1 * w[k];
-          if constexpr (ORDER == 2) out[(static_cast<size_t>(1 + D + k) * tile + t) * hstride + j] = f2 * (w[k] * w[k]);
+          for (int k = 0; k < D; ++k) w[k] = wrow[dir0 + k];
+          first_layer_streams<T, D, ORDER>(out, tile, hstride, t, j, z + b[j], w, actv);
         }
       }
     }
@@ -470,7 +522,7 @@ taylor_mlp_kernel(const T* __restrict__ x, int n, int n_layers, MLPParams<T> p, 
 #pragma unroll
         for (int s = 0; s < S; ++s) {
           const T v = warp_sum(part[s]);
-          if (lane == s && pt < n) {
+          if (lane == s && pt < n && (s != 0 || store_c0)) {
             store_stream<T, D>(s, pt, n, n_out, o, s == 0 ? v + p.b[n_layers - 1][o] : v, c0, c1, c2);
           }
         }
@@ -479,35 +531,100 @@ taylor_mlp_kernel(const T* __restrict__ x, int n, int n_layers, MLPParams<T> p, 
   }
 }
 
+// The streams are in shared memory, or with GSTREAMS in the block's region
+// of the global scratch `gbuf` (a template flag, so that the shared
+// variant's loads and stores stay shared-memory instructions; with it each
+// block loops over every gridDim.x-th tile). Grid: (point tiles or resident
+// blocks, direction chunks).
+template <typename T, int D, int ORDER, bool GSTREAMS>
+__global__ void __launch_bounds__(kMaxThreads)
+taylor_mlp_kernel(const T* __restrict__ x, int n, int d, int n_layers, MLPParams<T> p, int actv,
+                  int tile, int hstride, T* gbuf, T* __restrict__ c0, T* __restrict__ c1,
+                  T* __restrict__ c2) {
+  constexpr int S = 1 + ORDER * D;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int n_out = p.dims[n_layers];
+  const int dir0 = chunk_dir0<D>(d, blockIdx.y);
+  const bool store_c0 = D != kMaxDims || blockIdx.y == 0;
+  if constexpr (D == kMaxDims) {  // this chunk's tangents
+    c1 += static_cast<size_t>(dir0) * n * n_out;
+    if constexpr (ORDER == 2) c2 += static_cast<size_t>(dir0) * n * n_out;
+  }
+
+  if (n_layers == 1) {  // a single affine layer: constant tangents, zero curvature
+    const T* W = p.W[0];
+    const int n0 = blockIdx.x * tile;
+    for (int t = warp; t < tile; t += nwarps) {
+      const int pt = n0 + t;
+      if (pt >= n) break;
+      for (int o = lane; o < n_out; o += 32) {
+        const T* w = W + static_cast<size_t>(o) * d;
+        T z = p.b[0][o];
+        for (int k = 0; k < d; ++k) z += x[static_cast<size_t>(pt) * d + k] * w[k];
+        if (store_c0) c0[static_cast<size_t>(pt) * n_out + o] = z;
+#pragma unroll
+        for (int k = 0; k < D; ++k) {
+          const size_t off = (static_cast<size_t>(k) * n + pt) * n_out + o;
+          c1[off] = w[dir0 + k];
+          if constexpr (ORDER == 2) c2[off] = T(0);
+        }
+      }
+    }
+    return;
+  }
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const size_t buf_elems = static_cast<size_t>(S) * tile * hstride;
+  if constexpr (GSTREAMS) {
+    T* region = gbuf + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) * 2 * buf_elems;
+    T* const buf[2] = {region, region + buf_elems};
+    T* const ws[2] = {smem, smem + kKTile * kWStride};
+    for (int n0 = blockIdx.x * tile; n0 < n; n0 += gridDim.x * tile) {
+      run_tile<T, D, ORDER>(n0, x, n, d, dir0, n_layers, p, actv, tile, hstride, buf, ws, store_c0, c0, c1, c2);
+      __syncthreads();  // the next tile's first layer overwrites the streams just read
+    }
+  } else {
+    T* const buf[2] = {smem, smem + buf_elems};
+    T* const ws[2] = {smem + 2 * buf_elems, smem + 2 * buf_elems + kKTile * kWStride};
+    run_tile<T, D, ORDER>(blockIdx.x * tile, x, n, d, dir0, n_layers, p, actv, tile, hstride, buf, ws,
+                          store_c0, c0, c1, c2);
+  }
+}
+
 // ---------------------------------------------------------------- host side
 constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
 
 bool bad_block(int threads) { return threads < 32 || threads > kMaxThreads || threads % 32 != 0; }
 
+// Direction chunks of a launch for d inputs (dispatch takes at most kMaxGridYZ).
+int chunks_of(int d) { return (d + kMaxDims - 1) / kMaxDims; }
+
 template <typename T, int D, int ORDER>
-int launch_1h(const T* x, int n, int h, int n_out, const T* W1, const T* b1, const T* W2,
+int launch_1h(const T* x, int n, int d, int h, int n_out, const T* W1, const T* b1, const T* W2,
               const T* b2, int actv, int tile, int threads, T* c0, T* c1, T* c2,
               cudaStream_t stream) {
-  if (tile < 1 || tile > max_tile_1h(1 + ORDER * D) || n_out < 1 || n_out > 65535 || h < 1) {
+  if (tile < 1 || tile > max_tile_1h(1 + ORDER * D) || n_out < 1 || n_out > kMaxGridYZ || h < 1) {
     return kInvalid;
   }
-  const dim3 grid((n + tile - 1) / tile, n_out);
+  const dim3 grid((n + tile - 1) / tile, n_out, chunks_of(d));
   if (actv == kActTanh) {
     taylor_mlp_1h_kernel<T, D, ORDER, kActTanh><<<grid, threads, 0, stream>>>(
-        x, n, h, n_out, W1, b1, W2, b2, tile, c0, c1, c2);
+        x, n, d, h, n_out, W1, b1, W2, b2, tile, c0, c1, c2);
   } else {
     taylor_mlp_1h_kernel<T, D, ORDER, kActSin><<<grid, threads, 0, stream>>>(
-        x, n, h, n_out, W1, b1, W2, b2, tile, c0, c1, c2);
+        x, n, d, h, n_out, W1, b1, W2, b2, tile, c0, c1, c2);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int D, int ORDER>
-int launch_general(const T* x, int n, int n_layers, const MLPParams<T>& p, int actv, int tile,
-                   int threads, int smem, int hstride, T* c0, T* c1, T* c2, cudaStream_t stream) {
+int launch_general(const T* x, int n, int d, int n_layers, const MLPParams<T>& p, int actv, int tile,
+                   int threads, int smem, int hstride, int blocks, T* gbuf, T* c0, T* c1, T* c2,
+                   cudaStream_t stream) {
   constexpr int S = 1 + ORDER * D;
   if (n_layers != 1 && tile != (threads / 32) * points_per_warp(S)) return kInvalid;
-  if (smem < 0 || smem > kSmemLimit) return kInvalid;
+  if (smem < 0 || smem > kSmemLimit || blocks < 1) return kInvalid;
   // raise the kernel's dynamic shared-memory ceiling once per device, to the limit
   static bool ceiling_set[kMaxDevices] = {};
   int dev = 0;
@@ -515,24 +632,31 @@ int launch_general(const T* x, int n, int n_layers, const MLPParams<T>& p, int a
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev < 0 || dev >= kMaxDevices) return kInvalid;
   if (!ceiling_set[dev]) {
-    err = cudaFuncSetAttribute(taylor_mlp_kernel<T, D, ORDER>,
+    err = cudaFuncSetAttribute(taylor_mlp_kernel<T, D, ORDER, false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
     if (err != cudaSuccess) return static_cast<int>(err);
     ceiling_set[dev] = true;
   }
-  taylor_mlp_kernel<T, D, ORDER><<<(n + tile - 1) / tile, threads, smem, stream>>>(
-      x, n, n_layers, p, actv, tile, hstride, c0, c1, c2);
+  const dim3 grid(blocks, chunks_of(d));
+  if (gbuf == nullptr) {
+    taylor_mlp_kernel<T, D, ORDER, false><<<grid, threads, smem, stream>>>(
+        x, n, d, n_layers, p, actv, tile, hstride, nullptr, c0, c1, c2);
+  } else {  // the scratch variant needs only the weight tiles' shared memory, under the default ceiling
+    taylor_mlp_kernel<T, D, ORDER, true><<<grid, threads, smem, stream>>>(
+        x, n, d, n_layers, p, actv, tile, hstride, gbuf, c0, c1, c2);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Calls F<D, ORDER>::run(args...) for the runtime d and order.
+// Calls F<D, ORDER>::run(args...) for D = min(d, kMaxDims) and the runtime order.
 template <template <int, int> class F, typename... A>
 int dispatch(int d, int order, A... args) {
   if (order != 1 && order != 2) return kInvalid;
+  if (d < 1 || chunks_of(d) > kMaxGridYZ) return kInvalid;
 #define NDTORCH_CASE(DD)                                                                \
   case DD:                                                                              \
     return order == 1 ? F<DD, 1>::run(args...) : F<DD, 2>::run(args...);
-  switch (d) {
+  switch (d < kMaxDims ? d : kMaxDims) {
     NDTORCH_CASE(1) NDTORCH_CASE(2) NDTORCH_CASE(3) NDTORCH_CASE(4)
     NDTORCH_CASE(5) NDTORCH_CASE(6) NDTORCH_CASE(7) NDTORCH_CASE(8)
     default:
@@ -545,11 +669,11 @@ template <typename T>
 struct OneHidden {
   template <int D, int ORDER>
   struct At {
-    static int run(const void* x, int n, int h, int n_out, const void* W1, const void* b1,
+    static int run(const void* x, int n, int d, int h, int n_out, const void* W1, const void* b1,
                    const void* W2, const void* b2, int actv, int tile, int threads, void* c0,
                    void* c1, void* c2, void* stream) {
       return launch_1h<T, D, ORDER>(
-          static_cast<const T*>(x), n, h, n_out, static_cast<const T*>(W1),
+          static_cast<const T*>(x), n, d, h, n_out, static_cast<const T*>(W1),
           static_cast<const T*>(b1), static_cast<const T*>(W2), static_cast<const T*>(b2), actv,
           tile, threads, static_cast<T*>(c0), static_cast<T*>(c1), static_cast<T*>(c2),
           static_cast<cudaStream_t>(stream));
@@ -561,13 +685,13 @@ template <typename T>
 struct General {
   template <int D, int ORDER>
   struct At {
-    static int run(const void* x, int n, int n_layers, const MLPParams<T>* p, int actv, int tile,
-                   int threads, int smem, int hstride, void* c0, void* c1, void* c2,
-                   void* stream) {
-      return launch_general<T, D, ORDER>(static_cast<const T*>(x), n, n_layers, *p, actv, tile,
-                                         threads, smem, hstride, static_cast<T*>(c0),
-                                         static_cast<T*>(c1), static_cast<T*>(c2),
-                                         static_cast<cudaStream_t>(stream));
+    static int run(const void* x, int n, int d, int n_layers, const MLPParams<T>* p, int actv,
+                   int tile, int threads, int smem, int hstride, int blocks, void* scratch,
+                   void* c0, void* c1, void* c2, void* stream) {
+      return launch_general<T, D, ORDER>(static_cast<const T*>(x), n, d, n_layers, *p, actv, tile,
+                                         threads, smem, hstride, blocks, static_cast<T*>(scratch),
+                                         static_cast<T*>(c0), static_cast<T*>(c1),
+                                         static_cast<T*>(c2), static_cast<cudaStream_t>(stream));
     }
   };
 };
@@ -577,15 +701,15 @@ int forward_1h(const void* x, int n, int d, int h, int n_out, const void* W1, co
                const void* W2, const void* b2, int order, int actv, int tile, int threads,
                void* c0, void* c1, void* c2, void* stream) {
   if (bad_block(threads) || n < 1) return kInvalid;
-  return dispatch<OneHidden<T>::template At>(d, order, x, n, h, n_out, W1, b1, W2, b2, actv, tile,
-                                             threads, c0, c1, c2, stream);
+  return dispatch<OneHidden<T>::template At>(d, order, x, n, d, h, n_out, W1, b1, W2, b2, actv,
+                                             tile, threads, c0, c1, c2, stream);
 }
 
 template <typename T>
 int forward_general(const void* x, int n, int d, int n_layers, const int* dims,
                     const void* const* W, const void* const* b, int order, int actv, int tile,
-                    int threads, int smem, int hstride, void* c0, void* c1, void* c2,
-                    void* stream) {
+                    int threads, int smem, int hstride, int blocks, void* scratch, void* c0,
+                    void* c1, void* c2, void* stream) {
   if (n_layers < 1 || n_layers > kMaxLayers || bad_block(threads) || tile < 1 || n < 1 ||
       dims[0] != d) {
     return kInvalid;
@@ -599,8 +723,8 @@ int forward_general(const void* x, int n, int d, int n_layers, const int* dims,
     p.dims[l] = dims[l];
     if (l > 0 && l < n_layers && dims[l] > hstride) return kInvalid;
   }
-  return dispatch<General<T>::template At>(d, order, x, n, n_layers, &p, actv, tile, threads, smem,
-                                           hstride, c0, c1, c2, stream);
+  return dispatch<General<T>::template At>(d, order, x, n, d, n_layers, &p, actv, tile, threads,
+                                           smem, hstride, blocks, scratch, c0, c1, c2, stream);
 }
 
 }  // namespace
@@ -611,36 +735,54 @@ extern "C" {
 // success) or cudaErrorInvalidValue for arguments the kernels do not take.
 // Pointers are device pointers except `dims`, `W` and `b` of the general
 // kernel, which are host arrays of n_layers + 1 ints and n_layers device
-// pointers. Weights are in nn.Linear's (n_out, n_in) row-major layout.
+// pointers. Weights are in nn.Linear's (n_out, n_in) row-major layout. The
+// general kernel runs `blocks` blocks per direction chunk; `scratch` is null
+// (streams in shared memory) or holds 2 * (1 + order * min(d, 8)) * tile *
+// hstride elements for each of them.
+//
+// The build compiles this file once per entry point, all at once, with
+// -DNDTORCH_ENTRY=1..4 (the order below), and links the four objects; with
+// no NDTORCH_ENTRY one compile holds them all.
+#ifndef NDTORCH_ENTRY
+#define NDTORCH_ENTRY 0
+#endif
 
+#if NDTORCH_ENTRY == 0 || NDTORCH_ENTRY == 1
 int taylor_mlp_1h_f32(const void* x, int n, int d, int h, int n_out, const void* W1,
                       const void* b1, const void* W2, const void* b2, int order, int actv,
                       int tile, int threads, void* c0, void* c1, void* c2, void* stream) {
   return forward_1h<float>(x, n, d, h, n_out, W1, b1, W2, b2, order, actv, tile, threads, c0, c1,
                            c2, stream);
 }
+#endif
 
+#if NDTORCH_ENTRY == 0 || NDTORCH_ENTRY == 2
 int taylor_mlp_1h_f64(const void* x, int n, int d, int h, int n_out, const void* W1,
                       const void* b1, const void* W2, const void* b2, int order, int actv,
                       int tile, int threads, void* c0, void* c1, void* c2, void* stream) {
   return forward_1h<double>(x, n, d, h, n_out, W1, b1, W2, b2, order, actv, tile, threads, c0, c1,
                             c2, stream);
 }
+#endif
 
+#if NDTORCH_ENTRY == 0 || NDTORCH_ENTRY == 3
 int taylor_mlp_f32(const void* x, int n, int d, int n_layers, const int* dims,
                    const void* const* W, const void* const* b, int order, int actv, int tile,
-                   int threads, int smem, int hstride, void* c0, void* c1, void* c2,
-                   void* stream) {
+                   int threads, int smem, int hstride, int blocks, void* scratch, void* c0,
+                   void* c1, void* c2, void* stream) {
   return forward_general<float>(x, n, d, n_layers, dims, W, b, order, actv, tile, threads, smem,
-                                hstride, c0, c1, c2, stream);
+                                hstride, blocks, scratch, c0, c1, c2, stream);
 }
+#endif
 
+#if NDTORCH_ENTRY == 0 || NDTORCH_ENTRY == 4
 int taylor_mlp_f64(const void* x, int n, int d, int n_layers, const int* dims,
                    const void* const* W, const void* const* b, int order, int actv, int tile,
-                   int threads, int smem, int hstride, void* c0, void* c1, void* c2,
-                   void* stream) {
+                   int threads, int smem, int hstride, int blocks, void* scratch, void* c0,
+                   void* c1, void* c2, void* stream) {
   return forward_general<double>(x, n, d, n_layers, dims, W, b, order, actv, tile, threads, smem,
-                                 hstride, c0, c1, c2, stream);
+                                 hstride, blocks, scratch, c0, c1, c2, stream);
 }
+#endif
 
 }  // extern "C"

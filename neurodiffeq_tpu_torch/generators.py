@@ -8,8 +8,15 @@ Deterministic methods reproduce the JAX package's compiled arithmetic bit
 for bit; random methods match it in distribution (the JAX threefry streams
 cannot be reproduced in torch).
 
-Generators combine with ``g1 + g2`` (:class:`ConcatGenerator`) and
-``g1 * g2`` (:class:`EnsembleGenerator`).
+Generators combine with ``g1 + g2`` (:class:`ConcatGenerator`),
+``g1 * g2`` (:class:`EnsembleGenerator`) and ``g1 ^ g2``
+(:class:`MeshGenerator`), and wrap into :class:`TransformGenerator`,
+:class:`FilterGenerator`, :class:`ResampleGenerator`,
+:class:`BatchGenerator` and :class:`SamplerGenerator`. A wrapper draws
+from the one ``torch.Generator`` it is given, its sub-generators in order.
+The port samples eagerly, so a batch may change size from one draw to the
+next (``FilterGenerator`` without ``fixed_size``, ``BatchGenerator``'s
+cache) and still train through ``fit``.
 """
 import math
 
@@ -19,7 +26,8 @@ import torch
 from .utils import get_generator, resolve
 
 __all__ = ['BaseGenerator', 'Generator1D', 'Generator2D', 'Generator3D', 'GeneratorSpherical', 'ConcatGenerator',
-           'StaticGenerator', 'PredefinedGenerator', 'EnsembleGenerator']
+           'StaticGenerator', 'PredefinedGenerator', 'TransformGenerator', 'EnsembleGenerator', 'MeshGenerator',
+           'FilterGenerator', 'ResampleGenerator', 'BatchGenerator', 'SamplerGenerator']
 
 _NO_HALTON = ("method 'halton' is not ported yet "
               "(ROADMAP.md §1 item 17, the high-dimensional toolkit: scrambled Halton)")
@@ -110,8 +118,8 @@ class BaseGenerator:
         return EnsembleGenerator(self, other)
 
     def __xor__(self, other):
-        raise NotImplementedError("MeshGenerator (g1 ^ g2) is not ported yet "
-                                  "(ROADMAP.md §1 item 18, the remaining combinators)")
+        self.check_generator(other)
+        return MeshGenerator(self, other)
 
     def _internal_vars(self):
         return dict(size=self.size)
@@ -475,4 +483,193 @@ class PredefinedGenerator(BaseGenerator):
     def _internal_vars(self):
         d = super()._internal_vars()
         d.update(dict(xs=self.xs))
+        return d
+
+
+class TransformGenerator(BaseGenerator):
+    """Applies transformations to the sample vectors.
+
+    :param generator: base generator.
+    :param transforms: list of per-column callables (None = identity).
+    :param transform: a single callable applied to all the columns at once,
+        ``transform(*columns)``.
+    """
+
+    def __init__(self, generator, transforms=None, transform=None):
+        super().__init__(generator.device, generator.dtype)
+        self.generator = generator
+        self.size = generator.size
+        if transforms is not None and transform is not None:
+            raise ValueError("transform and transforms cannot be both specified")
+        if transforms is not None:
+            self.trans = [(lambda x: x) if t is None else t for t in transforms]
+        elif transform is not None:
+            self.trans = transform
+        else:
+            self.trans = lambda *xs: xs
+
+    def sample(self, generator):
+        xs = _as_tuple(self.generator.sample(generator))
+        if callable(self.trans):
+            return _as_tuple(self.trans(*xs))
+        return tuple(t(x) for t, x in zip(self.trans, xs))
+
+    def _internal_vars(self):
+        d = super()._internal_vars()
+        d.update(dict(generator=self.generator, trans=self.trans))
+        return d
+
+
+class MeshGenerator(_Combinator):
+    r"""Returns a meshgrid of the samples of its sub-generators (``g1 ^ g2``),
+    flattened with ``indexing='ij'``: the last generator's points vary
+    fastest. Nested MeshGenerators flatten, so ``(g1 ^ g2) ^ g3`` equals
+    ``MeshGenerator(g1, g2, g3)``."""
+
+    def __init__(self, *generators):
+        flat = []
+        for g in generators:
+            flat.extend(g.generators if isinstance(g, MeshGenerator) else [g])
+        super().__init__(*flat)
+        self.size = int(np.prod([g.size for g in self.generators]))
+
+    def sample(self, generator):
+        axes = tuple(t for g in self.generators for t in _as_tuple(g.sample(generator)))
+        if len(axes) == 1:
+            return axes
+        return tuple(g.flatten() for g in torch.meshgrid(*axes, indexing='ij'))
+
+
+class FilterGenerator(BaseGenerator):
+    """Keeps the samples that pass a boolean filter.
+
+    - By default the batch keeps every point that passes, so its size
+      varies with the draw (``size`` follows it if ``update_size``).
+    - With ``fixed_size=True`` it always returns ``size`` points, drawn
+      uniformly with replacement from those that pass: the same conditional
+      distribution at a static shape. If none passes, it returns copies of
+      the first sample.
+
+    :param generator: base generator.
+    :param filter_fn: maps the list of sample columns to a boolean mask
+        (tensor or numpy).
+    :param size: points per batch with ``fixed_size``; defaults to the base
+        generator's size.
+    :param update_size: set ``size`` to each dynamic batch's size.
+    :param fixed_size: return exactly ``size`` points.
+    """
+
+    def __init__(self, generator, filter_fn, size=None, update_size=True, fixed_size=False):
+        super().__init__(generator.device, generator.dtype)
+        self.generator = generator
+        self.filter_fn = filter_fn
+        self.size = generator.size if size is None else size
+        self.fixed_size = bool(fixed_size)
+        self.update_size = False if fixed_size else update_size
+
+    def _mask(self, xs):
+        mask = self.filter_fn(list(xs))
+        return torch.as_tensor(mask if torch.is_tensor(mask) else np.asarray(mask), device=self.device).reshape(-1)
+
+    def sample(self, generator):
+        xs = _as_tuple(self.generator.sample(generator))
+        mask = self._mask(xs)
+        if not self.fixed_size:
+            xs = tuple(x[mask] for x in xs)
+            if self.update_size:
+                self.size = len(xs[0])
+            return xs
+        # the passing indices first, in order; a uniform pick among the first
+        # `count` of them, with no read of the count back to the host
+        passing = torch.argsort((~mask).to(torch.int8), stable=True)
+        count = mask.sum().clamp(min=1)
+        u = torch.rand(self.size, generator=generator, dtype=self.dtype, device=self.device)
+        picked = passing[torch.minimum((u * count).long(), count - 1)]
+        return tuple(x[picked] for x in xs)
+
+    def _internal_vars(self):
+        d = super()._internal_vars()
+        d.update(dict(generator=self.generator, filter_fn=self.filter_fn, fixed_size=self.fixed_size))
+        return d
+
+
+class ResampleGenerator(BaseGenerator):
+    """Shuffles and resamples the sub-generator's output, with or without
+    replacement.
+
+    :param generator: base generator.
+    :param size: points per batch; defaults to the base generator's size.
+    :param replacement: draw with replacement.
+    """
+
+    def __init__(self, generator, size=None, replacement=False):
+        super().__init__(generator.device, generator.dtype)
+        self.generator = generator
+        self.size = generator.size if size is None else size
+        self.replacement = replacement
+
+    def sample(self, generator):
+        n = self.generator.size
+        if self.replacement:
+            indices = torch.randint(0, n, (self.size,), generator=generator, device=self.device)
+        else:
+            indices = torch.randperm(n, generator=generator, device=self.device)[:self.size]
+        return tuple(x[indices] for x in _as_tuple(self.generator.sample(generator)))
+
+    def _internal_vars(self):
+        d = super()._internal_vars()
+        d.update(dict(generator=self.generator, replacement=self.replacement))
+        return d
+
+
+class BatchGenerator(BaseGenerator):
+    """Caches samples of the sub-generator and returns batches of
+    ``batch_size`` points from the cache, refilling it as needed; the first
+    fill draws from the global generator of the device. Stateful across
+    calls.
+
+    :param generator: base generator.
+    :param batch_size: points per batch.
+    """
+
+    def __init__(self, generator, batch_size):
+        super().__init__(generator.device, generator.dtype)
+        if generator.size <= 0:
+            raise ValueError(f"generator has size {generator.size} <= 0")
+        self.generator = generator
+        self.size = batch_size
+        self.cached_xs = list(_as_tuple(generator.sample(get_generator(generator.device))))
+
+    def sample(self, generator):
+        while len(self.cached_xs[0]) < self.size:
+            new = _as_tuple(self.generator.sample(generator))
+            self.cached_xs = [torch.cat([x, n]) for x, n in zip(self.cached_xs, new)]
+        batch = tuple(x[:self.size] for x in self.cached_xs)
+        self.cached_xs = [x[self.size:] for x in self.cached_xs]
+        return batch
+
+    def _internal_vars(self):
+        d = super()._internal_vars()
+        d.update(dict(generator=self.generator))
+        return d
+
+
+class SamplerGenerator(BaseGenerator):
+    """Wraps a generator so that every sample comes back as a list of
+    ``(N, 1)`` columns, as the solvers consume them."""
+
+    def __init__(self, generator):
+        super().__init__(generator.device, generator.dtype)
+        self.generator = generator
+        self.size = generator.size
+
+    def sample(self, generator):
+        return [u.reshape(-1, 1) for u in _as_tuple(self.generator.sample(generator))]
+
+    def get_examples(self):
+        return self.sample(get_generator(self.device))
+
+    def _internal_vars(self):
+        d = super()._internal_vars()
+        d.update(dict(generator=self.generator))
         return d

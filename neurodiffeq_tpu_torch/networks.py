@@ -161,7 +161,7 @@ def _mlp_taylor(series, ctx, layers, actvs):
     On raw coordinate inputs at order 1-2 with one activation kind (tanh or
     sin), the propagation is one fused Taylor-MLP call
     (:func:`~neurodiffeq_tpu_torch.ops.taylor_mlp.fcnn_taylor`, the CUDA
-    kernel for CUDA tensors); otherwise it goes layer by layer."""
+    kernel for CUDA tensors, at any width); otherwise it goes layer by layer."""
     from .ops.taylor import TSeries, affine_series
     kinds = {getattr(a, 'kernel_kind', None) for a in actvs}
     if series.meta == 'raw_coords' and 1 <= ctx.order <= 2 and len(kinds) <= 1 and None not in kinds:

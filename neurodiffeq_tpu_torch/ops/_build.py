@@ -4,8 +4,10 @@ The sources under ``neurodiffeq_tpu_torch/csrc/`` are compiled by ``nvcc``
 for ``sm_90a`` into one shared library with a plain C interface, placed in
 ``build/kernels/`` at the root of the checkout and named by a hash of the
 sources and flags, so an unchanged tree reuses it and a changed one
-rebuilds. Importing this module builds nothing; :func:`load_library` does,
-on the first call.
+rebuilds. Each source is compiled once per C entry point
+(``-DNDTORCH_ENTRY=1..4``, the order of ``_ARGTYPES``), all of them at
+once, and the objects are linked. Importing this module builds nothing;
+:func:`load_library` does, on the first call.
 """
 import ctypes
 import hashlib
@@ -20,7 +22,7 @@ _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG.parent / 'build' / 'kernels'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+              '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
 _LIB = None
 BUILD_INFO = {}  # 'path', 'seconds' (0.0 when reused), 'log' (nvcc's stderr)
@@ -30,8 +32,11 @@ _ARGTYPES = {  # C entry point -> argument types, as declared in csrc/taylor_mlp
     'taylor_mlp_1h': [_VP, _INT, _INT, _INT, _INT, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
                       _VP, _VP, _VP, _VP],
     'taylor_mlp': [_VP, _INT, _INT, _INT, ctypes.POINTER(_INT), ctypes.POINTER(_VP),
-                   ctypes.POINTER(_VP), _INT, _INT, _INT, _INT, _INT, _INT, _VP, _VP, _VP, _VP],
+                   ctypes.POINTER(_VP), _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VP, _VP, _VP, _VP,
+                   _VP],
 }
+# the C entry points, in the order of NDTORCH_ENTRY = 1, 2, ...
+ENTRY_POINTS = [name + suffix for name in _ARGTYPES for suffix in ('_f32', '_f64')]
 
 
 def _sources():
@@ -70,20 +75,24 @@ def build():
         BUILD_INFO.update(path=str(out), seconds=0.0, log='')
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == '.cu']
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, '-o', tmp, *cu]
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        units = [(src, entry, f'{tmp}/{src.stem}_{entry}.o') for src in _sources() if src.suffix == '.cu'
+                 for entry in range(1, len(ENTRY_POINTS) + 1)]
+        cmds = [[nvcc, *NVCC_FLAGS, f'-DNDTORCH_ENTRY={entry}', '-c', '-o', obj, str(src)]
+                for src, entry, obj in units]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for cmd in cmds]
+        logs = [p.communicate()[1] for p in procs]  # waits for every compile, failed or not
+        for cmd, p, log in zip(cmds, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{log}")
+        link = [nvcc, '-shared', '-o', f'{tmp}/lib.so', *[obj for _, _, obj in units]]
+        proc = subprocess.run(link, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    BUILD_INFO.update(path=str(out), seconds=time.perf_counter() - t0, log=proc.stderr)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(link)}\n{proc.stderr}")
+        os.replace(f'{tmp}/lib.so', out)
+    BUILD_INFO.update(path=str(out), seconds=time.perf_counter() - t0, log=''.join(logs))
     return out
 
 
@@ -92,10 +101,9 @@ def load_library():
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _ARGTYPES.items():
-            for suffix in ('_f32', '_f64'):
-                fn = getattr(lib, name + suffix)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+        for entry in ENTRY_POINTS:
+            fn = getattr(lib, entry)
+            fn.argtypes = _ARGTYPES[entry[:-4]]
+            fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB

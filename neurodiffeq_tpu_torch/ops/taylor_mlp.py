@@ -14,7 +14,8 @@ coordinate axes.
   a CUDA tensor launches one of the hand-written kernels of
   ``neurodiffeq_tpu_torch/csrc/taylor_mlp.cu`` or raises:
   ``taylor_mlp_1h`` for a net with one hidden layer, ``taylor_mlp`` for
-  every other depth (:func:`_plan` picks). Its gradient is
+  every other depth (:func:`_plan` picks). The kernels take any input
+  width, 1-128 layers and any hidden width, as the TPU kernel does. Its gradient is
   :class:`_TaylorMLPFn`, whose backward re-runs the twin under autograd, as
   ``_fused_bwd`` re-derives it by ``jax.vjp`` over the pure-JAX twin.
 
@@ -36,7 +37,8 @@ LAUNCHES = {'taylor_mlp_1h': 0, 'taylor_mlp': 0}
 _ACTVS = {'tanh': 0, 'sin': 1}
 _SMEM_LIMIT = 232448   # bytes of shared memory one block may use on sm_90
 # the CUDA source's constants
-_MAX_LAYERS, _MAX_DIMS, _MAX_THREADS = 16, 8, 256
+_MAX_LAYERS, _MAX_DIMS, _MAX_THREADS = 128, 8, 256   # _MAX_DIMS: directions of one chunk
+_MAX_GRID_YZ = 65535   # CUDA's bound on a grid's y and z extents: output units, direction chunks
 _K_TILE, _CHUNK = 16, 128   # kKTile, kChunk: one staged weight tile is kKTile x (kChunk + 1)
 
 
@@ -100,11 +102,13 @@ def _sm_count(device_index):
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-Plan = namedtuple('Plan', 'kernel tile threads smem hstride blocks')
+Plan = namedtuple('Plan', 'kernel tile threads smem hstride blocks scratch')
 
 
 def _streams(d, order):
-    return 1 + order * d
+    """Streams of one launch's direction chunk: the value and ``order``
+    coefficients for each of ``min(d, 8)`` directions."""
+    return 1 + order * min(d, _MAX_DIMS)
 
 
 def _max_tile_1h(s):
@@ -120,41 +124,48 @@ def _points_per_warp(s):
 
 def _plan(n, dims, order, esize, n_sm):
     """How to launch the kernel for ``n`` points through widths ``dims`` at
-    ``order``, with ``esize``-byte floats on a card of ``n_sm`` SMs.
+    ``order``, with ``esize``-byte floats on a card of ``n_sm`` SMs. Inputs
+    past 8 run as chunks of 8 directions on a grid axis of their own.
 
-    - One hidden layer: ``taylor_mlp_1h``. The tile is as small as puts two
-      blocks on every SM, up to ``_max_tile_1h``; the block has as many
-      warps (1-8, at most one per 32 hidden units) as give the card about
-      32 warps per SM, so that at large N each lane owns more units and the
-      warp sums weigh less. Its shared memory is static.
-    - Any other depth: ``taylor_mlp``. A warp owns ``_points_per_warp``
+    - One hidden layer and at most 65,535 outputs: ``taylor_mlp_1h``. The
+      tile is as small as puts two blocks on every SM, up to
+      ``_max_tile_1h``; the block has as many warps (1-8, at most one per 32
+      hidden units) as give the card about 32 warps per SM, so that at
+      large N each lane owns more units and the warp sums weigh less. Its
+      shared memory is static.
+    - Any other net: ``taylor_mlp``. A warp owns ``_points_per_warp``
       points; the block has as many warps (8, 4, 2 or 1) as fit the
       streams' two buffers and two staged weight tiles in shared memory and
       still give every other SM a block: more warps share each staged
       weight tile, and on the card that outweighs idle SMs down to about
-      half of them busy. Raises if one warp's points do not fit.
+      half of them busy. Where not even one warp's streams fit, they go to
+      a global scratch of ``scratch`` elements: 8 warps, about one block
+      per SM, each looping over point tiles.
     """
     d, n_layers, s = dims[0], len(dims) - 1, _streams(dims[0], order)
-    if n_layers == 2:
+    chunks = math.ceil(d / _MAX_DIMS)
+    if n_layers == 2 and dims[-1] <= _MAX_GRID_YZ:
         tile = max(1, min(_max_tile_1h(s), math.ceil(n / (2 * n_sm))))
         blocks = math.ceil(n / tile)
-        warps = max(1, min(_MAX_THREADS // 32, math.ceil(dims[1] / 32), 32 * n_sm // blocks))
-        return Plan('taylor_mlp_1h', tile, 32 * warps, 0, 0, blocks)
+        warps = max(1, min(_MAX_THREADS // 32, math.ceil(dims[1] / 32), 32 * n_sm // (blocks * chunks)))
+        return Plan('taylor_mlp_1h', tile, 32 * warps, 0, 0, blocks, 0)
     if n_layers == 1:
-        return Plan('taylor_mlp', 32, 128, 0, 0, math.ceil(n / 32))
-    hstride = max(dims[1:-1])
-    per_warp = _points_per_warp(s)
-    w_tiles = 2 * _K_TILE * (_CHUNK + 1) * esize
+        return Plan('taylor_mlp', 32, 128, 0, 0, math.ceil(n / 32), 0)
+    hstride, per_warp, w_tiles = max(dims[1:-1]), _points_per_warp(s), _weight_tiles(esize)
     fits = [w for w in (8, 4, 2, 1) if 2 * s * w * per_warp * hstride * esize + w_tiles <= _SMEM_LIMIT]
     if not fits:
-        raise ValueError(
-            f"fcnn_taylor kernel: {per_warp} point(s) of hidden widths {dims[1:-1]} at order "
-            f"{order} with d={d} need {2 * s * per_warp * hstride * esize + w_tiles} bytes of "
-            f"shared memory, more than the {_SMEM_LIMIT} a block may use")
-    warps = next((w for w in fits if math.ceil(n / (w * per_warp)) >= n_sm // 2), fits[-1])
+        tile = 8 * per_warp
+        blocks = min(math.ceil(n / tile), max(1, math.ceil(n_sm / chunks)))
+        return Plan('taylor_mlp', tile, 256, w_tiles, hstride, blocks, blocks * chunks * 2 * s * tile * hstride)
+    warps = next((w for w in fits if math.ceil(n / (w * per_warp)) * chunks >= n_sm // 2), fits[-1])
     tile = warps * per_warp
     return Plan('taylor_mlp', tile, 32 * warps, 2 * s * tile * hstride * esize + w_tiles, hstride,
-                math.ceil(n / tile))
+                math.ceil(n / tile), 0)
+
+
+def _weight_tiles(esize):
+    """Bytes of the general kernel's two staged weight tiles."""
+    return 2 * _K_TILE * (_CHUNK + 1) * esize
 
 
 _PLANS = {}  # (dtype, device index, dims, order, n) -> Plan
@@ -172,9 +183,9 @@ def _check(points, layers, order, actv):
     if actv not in _ACTVS:
         raise ValueError(f"unsupported activation {actv!r}; expected 'tanh' or 'sin'")
     d = points.shape[1]
-    if not 1 <= d <= _MAX_DIMS or not 1 <= len(layers) <= _MAX_LAYERS:
-        raise ValueError(f"kernel takes 1-{_MAX_DIMS} inputs and 1-{_MAX_LAYERS} layers, "
-                         f"got d={d} and {len(layers)} layers")
+    if not 1 <= len(layers) <= _MAX_LAYERS or not 1 <= math.ceil(d / _MAX_DIMS) <= _MAX_GRID_YZ:
+        raise ValueError(f"the kernels take 1-{_MAX_LAYERS} layers and 1-{_MAX_DIMS * _MAX_GRID_YZ} "
+                         f"inputs, got {len(layers)} layers and d={d}")
     dims = [d]
     for i, (W, b) in enumerate(layers):
         for name, t in (('W', W), ('b', b)):
@@ -204,7 +215,7 @@ def _launch(points, layers, order, actv):
     dtype, device = points.dtype, points.device
     n, d = points.shape
     n_out = dims[-1]
-    out = torch.empty((_streams(d, order), n, n_out), dtype=dtype, device=device)  # one allocation
+    out = torch.empty((1 + order * d, n, n_out), dtype=dtype, device=device)  # one allocation
     c0, c1, c2 = out[0], out[1:1 + d], (out[1 + d:] if order == 2 else None)
     if n == 0:
         return (c0, c1, c2)[:order + 1]
@@ -225,10 +236,13 @@ def _launch(points, layers, order, actv):
                 Wk[1].data_ptr(), bk[1].data_ptr(), order, _ACTVS[actv], plan.tile, plan.threads,
                 *outs[1:])
     else:
+        # streams that do not fit shared memory: a scratch, freed to the stream's pool after the launch
+        scratch = torch.empty(plan.scratch, dtype=dtype, device=device) if plan.scratch else None
         args = (outs[0], n, d, len(layers), (ctypes.c_int * len(dims))(*dims),
                 (ctypes.c_void_p * len(Wk))(*[w.data_ptr() for w in Wk]),
                 (ctypes.c_void_p * len(bk))(*[t.data_ptr() for t in bk]),
-                order, _ACTVS[actv], plan.tile, plan.threads, plan.smem, plan.hstride, *outs[1:])
+                order, _ACTVS[actv], plan.tile, plan.threads, plan.smem, plan.hstride, plan.blocks,
+                None if scratch is None else scratch.data_ptr(), *outs[1:])
     fn = getattr(lib, plan.kernel + suffix)
     # the current stream's raw handle, read as torch's inductor-generated code
     # reads it: ``torch.cuda.current_stream()`` builds a Stream object per call

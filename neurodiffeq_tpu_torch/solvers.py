@@ -1,5 +1,6 @@
 r"""Training engines (counterpart of ``neurodiffeq_tpu/solvers.py``):
-``Solver1D`` for ODE systems, ``Solver2D`` for 2-D PDEs,
+``Solver1D`` for ODE systems, ``BundleSolver1D`` for ODE solution bundles
+over equation and condition parameters, ``Solver2D`` for 2-D PDEs,
 ``SolverSpherical`` for PDEs in spherical coordinates and the
 dimension-agnostic ``GenericSolver``.
 
@@ -16,12 +17,15 @@ time and calls its callbacks after each.
 
 The JAX package's compiled-epoch machinery (flat parameter carry,
 seed-keyed compile cache, scanned fit chunks, speculative dispatch,
-``profile_dir``) has no counterpart here: PyTorch runs eagerly.
+``profile_dir``) has no counterpart here: PyTorch runs eagerly, so a
+generator whose batches change size (``FilterGenerator``,
+``BatchGenerator``) trains through the same ``fit``.
 """
 import inspect
 import sys
 import warnings
 from abc import ABC, abstractmethod
+from contextlib import nullcontext
 from copy import deepcopy
 
 import numpy as np
@@ -40,8 +44,9 @@ try:  # tqdm is optional at run time
 except ImportError:  # pragma: no cover
     tqdm = None
 
-__all__ = ['BaseSolver', 'GenericSolver', 'Solver1D', 'Solver2D', 'SolverSpherical', 'BaseSolution',
-           'GenericSolution', 'Solution1D', 'Solution2D', 'SolutionSpherical', 'SolutionSphericalHarmonics']
+__all__ = ['BaseSolver', 'GenericSolver', 'Solver1D', 'BundleSolver1D', 'Solver2D', 'SolverSpherical',
+           'BaseSolution', 'GenericSolution', 'Solution1D', 'BundleSolution1D', 'Solution2D', 'SolutionSpherical',
+           'SolutionSphericalHarmonics']
 
 
 def _requires_closure(optimizer):
@@ -84,13 +89,23 @@ class BaseSolver(ABC):
     :param dtype: dtype of nets and points (the port's default if None).
     :param generator: ``torch.Generator`` on ``device`` for sampling; defaults
         to the port's global generator for the device.
+    :param shuffle: **[DEPRECATED]** ignored; generators shuffle.
+    :param batch_size: **[DEPRECATED]** ignored; use ``n_batches_train`` and
+        ``n_batches_valid``.
     """
 
     @deprecated_alias(criterion='loss_fn')
     def __init__(self, diff_eqs, conditions, nets=None, train_generator=None, valid_generator=None,
                  analytic_solutions=None, optimizer=None, loss_fn=None, n_batches_train=1,
                  n_batches_valid=4, metrics=None, n_input_units=None, n_output_units=None,
-                 residual_weights=None, device=None, dtype=None, generator=None):
+                 residual_weights=None, device=None, dtype=None, generator=None,
+                 shuffle=None, batch_size=None):
+        if shuffle:
+            warnings.warn("param `shuffle` is deprecated and ignored; shuffling should be performed by generators",
+                          FutureWarning)
+        if batch_size is not None:
+            warnings.warn("param `batch_size` is deprecated and ignored; specify n_batches_train and "
+                          "n_batches_valid instead", FutureWarning)
         self.device, self.dtype = resolve(device, dtype)
         if self.device.type == 'cuda':
             full_precision_matmuls()
@@ -372,18 +387,22 @@ class BaseSolver(ABC):
                     flush()
 
     # ------------------------------------------------------------ inspection
-    def _nets_for(self, best, copy_nets=True):
-        """The nets, copied and loaded with the lowest-loss parameters if ``best``."""
+    def _nets_for(self, best):
+        """Frozen copies of the nets, loaded with the lowest-loss parameters
+        if ``best``. A solution always gets copies, so that later training
+        does not change it, as it cannot change the JAX package's immutable
+        parameters; their parameters take no gradient, so a backward through
+        a solution's inputs accumulates none on them."""
         if best and self.best_params is None:
             raise RuntimeError("The best parameters are not available; check if you disabled "
                                "validation and used best=True")
-        if not (best or copy_nets):
-            return self.nets
         nets = deepcopy(self.nets)  # one deepcopy keeps shared nets shared
         if best:
             unique = list({id(n): n for n in nets}.values())
             for net, state in zip(unique, self.best_params):
                 net.load_state_dict(state)
+        for net in nets:
+            net.requires_grad_(False)
         return nets
 
     @property
@@ -494,7 +513,9 @@ class BaseSolution(ABC):
     def __call__(self, *coords, to_numpy=False, no_reshape=False):
         r"""Evaluate the solution at given points.
 
-        :param coords: coordinate arrays (numpy or torch), equal shapes.
+        :param coords: coordinate arrays (numpy or torch), equal shapes. The
+            values are differentiable in any tensor that requires grad (an
+            equation parameter of a bundle, say); with none, no graph is kept.
         :param to_numpy: return ``numpy.ndarray`` instead of tensors.
         :param no_reshape: skip reshaping output back to the input shape.
         """
@@ -502,14 +523,14 @@ class BaseSolution(ABC):
                                   dtype=self.dtype, device=self.device) for c in coords]
         shape = coords[0].shape
         points = torch.cat([c.reshape(-1, 1) for c in coords], dim=1)
-        with torch.no_grad():
+        with nullcontext() if points.requires_grad else torch.no_grad():
             coord_fields = coords_from_points(points)
             us = [self._compute_u(net, cond, *coord_fields).value
                   for net, cond in zip(self.nets, self.conditions)]
         if not no_reshape:
             us = [u.reshape(shape) for u in us]
         if to_numpy:
-            us = [u.cpu().numpy() for u in us]
+            us = [u.detach().cpu().numpy() for u in us]
         return us if len(self.nets) > 1 else us[0]
 
 
@@ -527,12 +548,13 @@ class GenericSolver(BaseSolver):
     def get_solution(self, copy=True, best=True):
         r"""A callable solution evaluated as ``solution(*coords)``.
 
-        :param copy: copy the networks, so that later training does not
-            change the solution. Defaults to True.
+        :param copy: copy the conditions. Defaults to True. The networks are
+            always copied, so that later training does not change the
+            solution.
         :param best: use the lowest-loss parameters. Defaults to True.
         """
         conditions = deepcopy(self.conditions) if copy else self.conditions
-        return GenericSolution(self._nets_for(best, copy_nets=copy), conditions)
+        return GenericSolution(self._nets_for(best), conditions)
 
 
 class Solution1D(BaseSolution):
@@ -556,7 +578,7 @@ class Solver1D(BaseSolver):
     def __init__(self, ode_system, conditions, t_min=None, t_max=None, nets=None,
                  train_generator=None, valid_generator=None, analytic_solutions=None, optimizer=None,
                  loss_fn=None, n_batches_train=1, n_batches_valid=4, metrics=None, n_output_units=1,
-                 residual_weights=None, device=None, dtype=None, generator=None):
+                 residual_weights=None, device=None, dtype=None, generator=None, shuffle=None, batch_size=None):
         if train_generator is None or valid_generator is None:
             if t_min is None or t_max is None:
                 raise ValueError(
@@ -577,21 +599,109 @@ class Solver1D(BaseSolver):
             analytic_solutions=analytic_solutions, optimizer=optimizer, loss_fn=loss_fn,
             n_batches_train=n_batches_train, n_batches_valid=n_batches_valid, metrics=metrics,
             n_input_units=1, n_output_units=n_output_units, residual_weights=residual_weights,
-            device=device, dtype=dtype, generator=generator)
+            device=device, dtype=dtype, generator=generator, shuffle=shuffle, batch_size=batch_size)
 
     def get_solution(self, copy=True, best=True):
         r"""A callable solution evaluated as ``solution(ts)``.
 
-        :param copy: copy the networks, so that later training does not
-            change the solution. Defaults to True.
+        :param copy: copy the conditions. Defaults to True. The networks are
+            always copied, so that later training does not change the
+            solution.
         :param best: use the lowest-loss parameters. Defaults to True.
         """
         conditions = deepcopy(self.conditions) if copy else self.conditions
-        return Solution1D(self._nets_for(best, copy_nets=copy), conditions)
+        return Solution1D(self._nets_for(best), conditions)
 
     def _get_internal_variables(self):
         d = super()._get_internal_variables()
         d.update({'t_min': self.t_min, 't_max': self.t_max})
+        return d
+
+
+class BundleSolution1D(GenericSolution):
+    r"""A solution bundle evaluated as ``solution(ts, theta_1, ..., theta_n)``."""
+
+
+class BundleSolver1D(BaseSolver):
+    r"""Solves an ODE *bundle*: one network over the hypercube
+    ``(t, theta_1, ..., theta_n)``, whose thetas are equation parameters
+    and/or condition values (see :class:`~neurodiffeq_tpu_torch.conditions.BundleIVP`).
+
+    :param ode_system: maps funcs, the time coordinate and the equation
+        parameters named by ``eq_param_index`` (in that order) to residuals.
+    :param conditions: list of conditions, one per target function; each
+        is enforced on ``(t, theta_1, ..., theta_n)``.
+    :param t_min: lower bound of the time domain (ignored if both generators given).
+    :param t_max: upper bound of the time domain.
+    :param theta_min: per-theta lower bounds (a number for one theta).
+    :param theta_max: per-theta upper bounds (a number for one theta).
+    :param eq_param_index: indices of the thetas that the equation takes.
+
+    The default generators mesh a 32-point ``Generator1D`` per axis with
+    ``^``, ``'equally-spaced-noisy'`` for training and ``'equally-spaced'``
+    for validation: 32^(1+n) points per batch. The default networks take
+    ``1 + n`` inputs. The other parameters are :class:`BaseSolver`'s.
+    """
+
+    def __init__(self, ode_system, conditions, t_min, t_max, theta_min=None, theta_max=None, eq_param_index=(),
+                 nets=None, train_generator=None, valid_generator=None, analytic_solutions=None, optimizer=None,
+                 loss_fn=None, n_batches_train=1, n_batches_valid=4, metrics=None, n_output_units=1,
+                 residual_weights=None, device=None, dtype=None, generator=None, batch_size=None, shuffle=None):
+        if train_generator is None or valid_generator is None:
+            if t_min is None or t_max is None:
+                raise ValueError(
+                    f"Either generator is not provided, t_min and t_max should be both provided: \n"
+                    f"got t_min={t_min}, t_max={t_max}, "
+                    f"train_generator={train_generator}, valid_generator={valid_generator}")
+        theta_min, theta_max = (() if th is None else (th,) if isinstance(th, (float, int)) else tuple(th)
+                                for th in (theta_min, theta_max))
+        if len(theta_min) != len(theta_max):
+            raise ValueError(
+                f"length of theta_min and theta_max must be equal, got {len(theta_min)} != {len(theta_max)}")
+        self.r_min, self.r_max = (t_min,) + theta_min, (t_max,) + theta_max
+        device, dtype = resolve(device, dtype)
+
+        def mesh(method):
+            gen = None
+            for lo, hi in zip(self.r_min, self.r_max):
+                axis = Generator1D(32, t_min=lo, t_max=hi, method=method, device=device, dtype=dtype)
+                gen = axis if gen is None else gen ^ axis
+            return gen
+
+        if train_generator is None:
+            train_generator = mesh('equally-spaced-noisy')
+        if valid_generator is None:
+            valid_generator = mesh('equally-spaced')
+
+        # the thetas follow the functions and t among the equation wrapper's arguments
+        n_leading = len(conditions) + 1
+        self.eq_param_index = tuple(n_leading + i for i in eq_param_index)
+
+        def _diff_eqs_wrapper(*variables):
+            return ode_system(*variables[:n_leading], *(variables[i] for i in self.eq_param_index))
+
+        super().__init__(
+            diff_eqs=_diff_eqs_wrapper, conditions=conditions, nets=nets,
+            train_generator=train_generator, valid_generator=valid_generator,
+            analytic_solutions=analytic_solutions, optimizer=optimizer, loss_fn=loss_fn,
+            n_batches_train=n_batches_train, n_batches_valid=n_batches_valid, metrics=metrics,
+            n_input_units=len(self.r_min), n_output_units=n_output_units, residual_weights=residual_weights,
+            device=device, dtype=dtype, generator=generator, shuffle=shuffle, batch_size=batch_size)
+
+    def get_solution(self, copy=True, best=True):
+        r"""A callable solution evaluated as ``solution(ts, theta_1, ..., theta_n)``.
+
+        :param copy: copy the conditions. Defaults to True. The networks are
+            always copied, so that later training does not change the
+            solution.
+        :param best: use the lowest-loss parameters. Defaults to True.
+        """
+        conditions = deepcopy(self.conditions) if copy else self.conditions
+        return BundleSolution1D(self._nets_for(best), conditions)
+
+    def _get_internal_variables(self):
+        d = super()._get_internal_variables()
+        d.update({'r_min': self.r_min, 'r_max': self.r_max, 'eq_param_index': self.eq_param_index})
         return d
 
 
@@ -612,7 +722,7 @@ class Solver2D(BaseSolver):
     def __init__(self, pde_system, conditions, xy_min=None, xy_max=None, nets=None,
                  train_generator=None, valid_generator=None, analytic_solutions=None, optimizer=None,
                  loss_fn=None, n_batches_train=1, n_batches_valid=4, metrics=None, n_output_units=1,
-                 residual_weights=None, device=None, dtype=None, generator=None):
+                 residual_weights=None, device=None, dtype=None, generator=None, shuffle=None, batch_size=None):
         if train_generator is None or valid_generator is None:
             if xy_min is None or xy_max is None:
                 raise ValueError(
@@ -633,17 +743,18 @@ class Solver2D(BaseSolver):
             analytic_solutions=analytic_solutions, optimizer=optimizer, loss_fn=loss_fn,
             n_batches_train=n_batches_train, n_batches_valid=n_batches_valid, metrics=metrics,
             n_input_units=2, n_output_units=n_output_units, residual_weights=residual_weights,
-            device=device, dtype=dtype, generator=generator)
+            device=device, dtype=dtype, generator=generator, shuffle=shuffle, batch_size=batch_size)
 
     def get_solution(self, copy=True, best=True):
         r"""A callable solution evaluated as ``solution(xs, ys)``.
 
-        :param copy: copy the networks, so that later training does not
-            change the solution. Defaults to True.
+        :param copy: copy the conditions. Defaults to True. The networks are
+            always copied, so that later training does not change the
+            solution.
         :param best: use the lowest-loss parameters. Defaults to True.
         """
         conditions = deepcopy(self.conditions) if copy else self.conditions
-        return Solution2D(self._nets_for(best, copy_nets=copy), conditions)
+        return Solution2D(self._nets_for(best), conditions)
 
     def _get_internal_variables(self):
         d = super()._get_internal_variables()
@@ -701,7 +812,8 @@ class SolverSpherical(BaseSolver):
     def __init__(self, pde_system, conditions, r_min=None, r_max=None, nets=None,
                  train_generator=None, valid_generator=None, analytic_solutions=None, optimizer=None,
                  loss_fn=None, n_batches_train=1, n_batches_valid=4, metrics=None, enforcer=None,
-                 n_output_units=1, residual_weights=None, device=None, dtype=None, generator=None):
+                 n_output_units=1, residual_weights=None, device=None, dtype=None, generator=None,
+                 shuffle=None, batch_size=None):
         if train_generator is None or valid_generator is None:
             if r_min is None or r_max is None:
                 raise ValueError(
@@ -723,7 +835,7 @@ class SolverSpherical(BaseSolver):
             analytic_solutions=analytic_solutions, optimizer=optimizer, loss_fn=loss_fn,
             n_batches_train=n_batches_train, n_batches_valid=n_batches_valid, metrics=metrics,
             n_input_units=3, n_output_units=n_output_units, residual_weights=residual_weights,
-            device=device, dtype=dtype, generator=generator)
+            device=device, dtype=dtype, generator=generator, shuffle=shuffle, batch_size=batch_size)
 
     def _auto_enforce(self, net, cond, *coordinates):
         r"""Enforce the condition with as many coordinates as its
@@ -743,14 +855,15 @@ class SolverSpherical(BaseSolver):
     def get_solution(self, copy=True, best=True, harmonics_fn=None):
         r"""A callable solution evaluated as ``solution(rs, thetas, phis)``.
 
-        :param copy: copy the networks, so that later training does not
-            change the solution. Defaults to True.
+        :param copy: copy the conditions. Defaults to True. The networks are
+            always copied, so that later training does not change the
+            solution.
         :param best: use the lowest-loss parameters. Defaults to True.
         :param harmonics_fn: if given, the nets' outputs are radial
             coefficients expanded against this (theta, phi) basis.
         """
         conditions = deepcopy(self.conditions) if copy else self.conditions
-        nets = self._nets_for(best, copy_nets=copy)
+        nets = self._nets_for(best)
         if harmonics_fn:
             return SolutionSphericalHarmonics(nets, conditions, harmonics_fn=harmonics_fn)
         return SolutionSpherical(nets, conditions)

@@ -6,13 +6,15 @@ takes its place (:func:`get_generator`). The port never changes torch's own
 global default dtype: its default lives in this module and every
 constructor and sampler also takes an explicit ``dtype`` and ``device``.
 """
+import os
 import random
 
 import numpy as np
 import torch
 
 __all__ = ['set_tensor_type', 'set_seed', 'get_default_dtype', 'get_default_device',
-           'get_generator', 'resolve', 'full_precision_matmuls']
+           'get_generator', 'resolve', 'full_precision_matmuls', 'safe_mkdir', 'as_2d_column',
+           'split_columns', 'hstack', 'vstack']
 
 _DEFAULT_DTYPE = torch.float32
 # the card: a caller without one asks for the CPU. Kept as a str, so that
@@ -104,3 +106,33 @@ def full_precision_matmuls():
     it runs on a CUDA device."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def safe_mkdir(path):
+    """Create a directory, ignoring if it already exists."""
+    os.makedirs(path, exist_ok=True)
+
+
+def as_2d_column(x, dtype=None, device=None):
+    """Numpy or torch input as a 2-D tensor: (N,) and scalars become (N, 1)
+    columns; wider arrays keep their shape."""
+    device, dtype = resolve(device, dtype)
+    arr = torch.as_tensor(x if torch.is_tensor(x) else np.asarray(x), dtype=dtype, device=device)
+    return arr.reshape(-1, 1) if arr.ndim <= 1 else arr
+
+
+def split_columns(mat):
+    """The C columns, each of shape (N,), of an (N, C) matrix."""
+    if len(mat.shape) != 2:
+        raise ValueError(f'matrix must have 2 dimensions, but matrix shape = {mat.shape}')
+    return [mat[:, j] for j in range(mat.shape[1])]
+
+
+def hstack(tensors):
+    """Stack a list of (N,) tensors into an (N, C) matrix."""
+    return torch.stack(tensors, dim=1)
+
+
+def vstack(tensors):
+    """Stack a list of (N,) tensors into a (C, N) matrix."""
+    return torch.stack(tensors, dim=0)

@@ -181,6 +181,81 @@ def test_fit_api():
         shared.load_jax_params([{}, {}])
 
 
+def _future_warnings(build):
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        build()
+    return [str(w.message) for w in caught if issubclass(w.category, FutureWarning)]
+
+
+def test_deprecated_shuffle_and_batch_size_warn_and_are_ignored():
+    """The JAX constructors accept ``shuffle`` and ``batch_size``, warn and
+    ignore them; so do the port's: the same warnings, the same training."""
+    deprecated = dict(shuffle=True, batch_size=16)
+    caught = _future_warnings(lambda: _solvers(**deprecated))  # the JAX solver's first, then the port's
+    assert len(caught) == 4 and caught[2:] == caught[:2]
+    _, plain = _solvers(generators='equally-spaced')
+    _, old_style = _solvers(generators='equally-spaced', **deprecated)
+    old_style.load_jax_params([{'layers': [{'W': W, 'b': b} for W, b in _torch_params(net)]} for net in plain.nets])
+    plain.fit(3, tqdm_file=None)
+    old_style.fit(3, tqdm_file=None)
+    assert plain.metrics_history == old_style.metrics_history
+
+
+def test_every_solver_takes_the_deprecated_arguments():
+    from neurodiffeq_tpu_torch.conditions import BundleIVP, DirichletBVP2D, DirichletBVPSpherical
+    from neurodiffeq_tpu_torch.solvers import BundleSolver1D, GenericSolver, Solver2D, SolverSpherical
+    build = {
+        'Solver2D': lambda **kw: Solver2D(lambda u, x, y: [diff(u, x)], [DirichletBVP2D(
+            0, lambda y: 0 * y, 1, lambda y: 0 * y, 0, lambda x: 0 * x, 1, lambda x: 0 * x)],
+            xy_min=(0, 0), xy_max=(1, 1), **kw),
+        'SolverSpherical': lambda **kw: SolverSpherical(lambda u, r, th, ph: [diff(u, r)], [DirichletBVPSpherical(
+            0.1, lambda th, ph: 0 * th)], r_min=0.1, r_max=1.0, **kw),
+        'GenericSolver': lambda **kw: GenericSolver(lambda u, t: [diff(u, t)], [IVP(0, 1)], n_input_units=1,
+                                                    n_output_units=1, train_generator=G.Generator1D(8),
+                                                    valid_generator=G.Generator1D(8), **kw),
+        'BundleSolver1D': lambda **kw: BundleSolver1D(lambda u, t: [diff(u, t)], [BundleIVP(0, 1)], t_min=0.0,
+                                                      t_max=1.0, theta_min=0.0, theta_max=1.0, **kw),
+    }
+    for name, make in build.items():
+        assert len(_future_warnings(lambda: make(shuffle=True, batch_size=4))) == 2, name
+        assert _future_warnings(lambda: make(shuffle=False)) == [], name
+
+
+def test_solution_without_copy_is_a_snapshot():
+    """``get_solution(copy=False, best=False)`` keeps the parameters it was
+    given, as the JAX package's immutable ones are kept: later training
+    does not move it. ``copy`` governs the conditions only."""
+    _, solver = _solvers()
+    ts = np.linspace(0.1, 12, 30)
+    sol = solver.get_solution(copy=False, best=False)
+    before = sol(ts, to_numpy=True)
+    solver.fit(3, tqdm_file=None)
+    for a, b in zip(before, sol(ts, to_numpy=True), strict=True):
+        assert np.array_equal(a, b)
+    assert all(n is not m for n, m in zip(sol.nets, solver.nets))
+    assert sol.conditions[0] is solver.conditions[0]
+    assert solver.get_solution(copy=True, best=False).conditions[0] is not solver.conditions[0]
+    moved = solver.get_solution(copy=False, best=False)(ts, to_numpy=True)
+    assert not np.array_equal(moved[0], before[0])
+
+
+def test_solution_is_differentiable_in_its_inputs():
+    """A solution evaluated on a tensor that requires grad keeps the graph:
+    autograd's du/dt equals the Taylor engine's (the JAX solution is
+    differentiable in its inputs too); on plain inputs no graph is kept."""
+    _, solver = _solvers()
+    sol = solver.get_solution(best=False)
+    ts = torch.linspace(0.1, 12, 30, dtype=F64, requires_grad=True)
+    u, v = sol(ts)
+    (du,) = torch.autograd.grad(u.sum(), ts)
+    (t,) = F.coords_from_points(ts.detach().reshape(-1, 1))
+    with torch.no_grad():
+        want = diff(solver.conditions[0].enforce(solver.nets[0], t), t).value[:, 0]
+    assert _rel(du, want.numpy()) < 1e-10
+    assert sol(ts.detach())[0].grad_fn is None
+
+
 def test_set_generator_loss_and_optimizer():
     _, solver = _solvers()
     gen = G.PredefinedGenerator(np.linspace(0.1, 12, 16))
@@ -399,8 +474,9 @@ def test_generator_combinators():
     assert len(ens) == 2 and all(e.shape == (5,) for e in ens)
     with pytest.raises(ValueError):
         g1 * g2
-    with pytest.raises(NotImplementedError, match='item 18'):
-        g1 ^ g2
+    mesh = (g1 ^ g2).sample(None)  # a meshgrid, the last generator fastest
+    assert (g1 ^ g2).size == 15 and torch.equal(mesh[0], g1.sample(None)[0].repeat_interleave(3))
+    assert torch.equal(mesh[1], g2.sample(None)[0].repeat(5))
     static = G.StaticGenerator(G.Generator1D(6, method='uniform'))
     assert torch.equal(static.sample(torch.Generator().manual_seed(1))[0], static.get_examples())
     pre = G.PredefinedGenerator([1, 2, 3], np.array([[4], [5], [6]]))

@@ -206,28 +206,50 @@ KERNEL_SHAPES = [
     ((1, 32, 32, 1), 'sin', 2, 37),
     ((3, 16, 2), 'tanh', 2, 37),
     ((2, 1), 'tanh', 2, 37),
+    ((2, 32, 32, 1), 'tanh', 1, 1024),
+    # the edges of the kernels' reach: more than 8 inputs (direction chunks),
+    # 20 layers, streams past shared memory (a global scratch), and a
+    # one-hidden-layer net of more outputs than the 1h kernel's grid holds
+    ((9, 32, 32, 1), 'tanh', 2, 1000),
+    ((20, 64, 1), 'tanh', 2, 333),
+    ((10, 1), 'sin', 2, 37),
+    ((2,) + (16,) * 19 + (1,), 'tanh', 2, 100),
+    ((2, 2800, 2800, 1), 'tanh', 2, 300),
+    ((12, 1000, 1000, 2), 'sin', 2, 200),
+    ((3, 32, 70000), 'tanh', 1, 5),
 ]
 H100_SMS = 132
+
+
+def _kernel_of(dims):
+    return 'taylor_mlp_1h' if len(dims) == 3 and dims[-1] <= 65535 else 'taylor_mlp'
 
 
 @pytest.mark.parametrize('esize', [4, 8])
 @pytest.mark.parametrize('dims,actv,order,n', KERNEL_SHAPES)
 def test_plan_picks_the_kernel_and_covers_the_batch(dims, actv, order, n, esize):
-    """One hidden layer takes the 1h kernel and nothing else does; every
-    plan fits a block's shared memory, launches whole warps, and its blocks
-    cover N (ragged N included) with no block past the end."""
+    """One hidden layer (of at most 65,535 outputs) takes the 1h kernel and
+    nothing else does; every plan fits a block's shared memory and launches
+    whole warps. Streams in shared memory: the blocks cover N (ragged N
+    included) with no block past the end. Streams in the global scratch: at
+    most one block per SM and direction chunk, each looping over tiles."""
     plan = taylor_mlp._plan(n, dims, order, esize, H100_SMS)
-    s = 1 + order * dims[0]
-    assert plan.kernel == ('taylor_mlp_1h' if len(dims) == 3 else 'taylor_mlp')
+    s, chunks = 1 + order * min(dims[0], 8), -(-dims[0] // 8)
+    assert plan.kernel == _kernel_of(dims)
     assert 0 <= plan.smem <= 232448
     assert plan.threads % 32 == 0 and 32 <= plan.threads <= 256
-    assert plan.blocks * plan.tile >= n > (plan.blocks - 1) * plan.tile
+    if plan.scratch:
+        assert plan.blocks * chunks < H100_SMS + chunks and (plan.blocks - 1) * plan.tile < n
+        assert plan.scratch == plan.blocks * chunks * 2 * s * plan.tile * plan.hstride
+    else:
+        assert plan.blocks * plan.tile >= n > (plan.blocks - 1) * plan.tile
     if plan.kernel == 'taylor_mlp_1h':
         assert 1 <= plan.tile <= taylor_mlp._max_tile_1h(s) and plan.smem == 0
     elif len(dims) > 2:
         assert plan.tile == plan.threads // 32 * taylor_mlp._points_per_warp(s)
         assert plan.hstride == max(dims[1:-1])
-        assert plan.smem == esize * (2 * s * plan.tile * plan.hstride + 2 * 16 * 129)
+        streams = 0 if plan.scratch else 2 * s * plan.tile * plan.hstride
+        assert plan.smem == esize * (streams + 2 * 16 * 129)
 
 
 def test_plan_fills_the_card_at_the_flagship():
@@ -244,9 +266,13 @@ def test_plan_fills_the_card_at_the_flagship():
 
 
 def test_plan_raises_where_one_warp_cannot_fit():
-    with pytest.raises(ValueError, match='shared memory'):
-        taylor_mlp._plan(64, (8, 4096, 4096, 1), 2, 8, H100_SMS)
-    taylor_mlp._plan(64, (8, 4096, 1), 2, 8, H100_SMS)  # one hidden layer keeps no streams
+    """Where not even one warp's streams fit shared memory the plan no longer
+    raises: they go to a global scratch, 8 warps a block."""
+    plan = taylor_mlp._plan(64, (8, 4096, 4096, 1), 2, 8, H100_SMS)
+    assert (plan.kernel, plan.threads, plan.tile, plan.blocks) == ('taylor_mlp', 256, 8, 8)
+    assert plan.scratch == 8 * 2 * 17 * 8 * 4096 and plan.smem == 8 * 2 * 16 * 129
+    one = taylor_mlp._plan(64, (8, 4096, 1), 2, 8, H100_SMS)  # one hidden layer keeps no streams
+    assert one.kernel == 'taylor_mlp_1h' and one.scratch == 0
 
 
 def _bad_inputs(case):
@@ -269,11 +295,10 @@ def _bad_inputs(case):
         order = 3
     elif case == 'activation':
         actv = 'relu'
-    elif case == 'too many inputs':
-        pts = torch.rand(5, 9, dtype=torch.float64)
-        layers[0] = (torch.rand(9, 8, dtype=torch.float64), layers[0][1])
+    elif case == 'too many inputs':  # more direction chunks than a grid axis holds
+        pts = torch.zeros(1, 8 * 65535 + 1, dtype=torch.float64)
     elif case == 'too many layers':
-        layers = layers[:1] + [(torch.rand(8, 8, dtype=torch.float64), layers[0][1])] * 16 + layers[1:]
+        layers = layers[:1] + [(torch.rand(8, 8, dtype=torch.float64), layers[0][1])] * 127 + layers[1:]
     return pts, layers, order, actv
 
 
@@ -333,7 +358,7 @@ def test_cuda_kernel_matches_reference(dims, actv, order, n, dtype, rtol):
     """Kernel against twin on the card. float32 tolerance: the kernel sums
     in another order than cuBLAS."""
     p, ls = _cuda_inputs(dims, n, dtype)
-    name = 'taylor_mlp_1h' if len(dims) == 3 else 'taylor_mlp'
+    name = _kernel_of(dims)
     launches = dict(taylor_mlp.LAUNCHES)
     got = fcnn_taylor(p, ls, order, actv)
     torch.cuda.synchronize()
@@ -357,3 +382,60 @@ def test_cuda_kernel_is_deterministic(dims, actv, order, n, dtype):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+# (layer widths, order, dtype, where the streams live): the limits of
+# csrc/taylor_mlp.cu (a direction chunk of kMaxDims = 8, the shared memory of
+# a block and the grid's y extent for taylor_mlp_1h's output units)
+TAKES = [
+    ((8, 16, 16, 1), 2, torch.float32, 'shared'), ((9, 16, 16, 1), 2, torch.float32, 'shared'),
+    ((8, 16, 1), 2, torch.float64, '1h'), ((9, 16, 1), 1, torch.float64, '1h'),
+    ((2,) + (8,) * 15 + (1,), 2, torch.float32, 'shared'), ((2,) + (8,) * 16 + (1,), 2, torch.float32, 'shared'),
+    ((2, 2699, 2699, 1), 2, torch.float32, 'shared'), ((2, 2700, 2700, 1), 2, torch.float32, 'global'),
+    ((2, 1246, 1246, 1), 2, torch.float64, 'shared'), ((2, 1247, 1247, 1), 2, torch.float64, 'global'),
+    ((8, 4096, 4096, 1), 2, torch.float64, 'global'), ((8, 4096, 1), 2, torch.float64, '1h'),
+    ((2, 32, 65535), 2, torch.float32, '1h'), ((2, 32, 65536), 2, torch.float32, 'shared'),
+    ((2, 1), 2, torch.float32, 'affine'), ((17, 600, 600, 1), 2, torch.float64, 'shared'),
+    ((17, 800, 800, 1), 2, torch.float64, 'global'), ((100, 64, 64, 1), 1, torch.float32, 'shared'),
+]
+
+
+@pytest.mark.parametrize('dims,order,dtype,where', TAKES)
+def test_kernel_takes_at_its_limits(dims, order, dtype, where):
+    """Every shape at the old limits has a plan (the kernels take any input
+    width and hidden width): a direction chunk's streams count at most 8
+    directions, and where one warp's streams overflow a block's shared
+    memory they go to the global scratch; the checks pass them."""
+    esize = torch.finfo(dtype).bits // 8
+    plan = taylor_mlp._plan(1000, dims, order, esize, H100_SMS)
+    got = ('1h' if plan.kernel == 'taylor_mlp_1h' else 'affine' if len(dims) == 2
+           else 'global' if plan.scratch else 'shared')
+    assert got == where
+    pts = torch.zeros(3, dims[0], dtype=dtype)
+    layers = [(torch.zeros(a, b, dtype=dtype), torch.zeros(b, dtype=dtype)) for a, b in zip(dims[:-1], dims[1:])]
+    assert taylor_mlp._check(pts, layers, order, 'tanh') == tuple(dims)
+
+
+@pytest.mark.parametrize('dims', [(9, 16, 16, 1), (8, 16, 16, 1), (3, 16, 1), (2,) + (4,) * 17 + (1,)])
+def test_wide_or_deep_nets_route_by_the_predicate(monkeypatch, dims):
+    """An FCNN of more inputs or layers than the kernels took before goes to
+    the fused entry like any other (on the card: one launch); the series
+    agrees with torch's double backward on the module."""
+    from neurodiffeq_tpu_torch import fields as F
+    from neurodiffeq_tpu_torch.networks import FCNN
+
+    calls = []
+    fused_entry = taylor_mlp.fcnn_taylor
+    monkeypatch.setattr(taylor_mlp, 'fcnn_taylor', lambda *a, **k: calls.append(a[0].shape) or fused_entry(*a, **k))
+    torch.manual_seed(0)
+    net = FCNN(dims[0], dims[-1], hidden_units=dims[1:-1], device='cpu', dtype=torch.float64)
+    pts = torch.rand(20, dims[0], generator=torch.Generator().manual_seed(1), dtype=torch.float64)
+    cs = F.coords_from_points(pts)
+    u = F.network_field(net, cs)
+    got = [F.diff(u, c, 2).value[:, 0] for c in cs] + [F.diff(u, cs[-1]).value[:, 0]]
+    assert calls == [(20, dims[0])]
+    leaf = pts.clone().requires_grad_()
+    (g,) = torch.autograd.grad(net(leaf).sum(), leaf, create_graph=True)
+    want = [torch.autograd.grad(g[:, i].sum(), leaf, retain_graph=True)[0][:, i] for i in range(dims[0])]
+    for a, b in zip(got, want + [g[:, -1]], strict=True):
+        _assert_close(a, b.detach(), rtol=1e-12)
