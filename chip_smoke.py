@@ -29,12 +29,17 @@ line each or more:
    the spherical div-grad identities on FCNN 3-16-16-1 fields at 1,000
    points, |lhs - rhs| < 1e-4 (``tests/test_operators.py``), float64 and
    float32;
+   c. orders 3 and 4, pure and mixed, and ``pin`` at k = 0 and 1, of an
+   FCNN 2-32-32-1 tanh field and a SIREN field on the card (float64 and
+   float32) against the port on the CPU in float64 (the same limits), and
+   every ``IBVP1D`` and ``DoubleEndedBVP1D`` variant exact at its anchors
+   with an untrained net (values, slopes and the initial line, 1e-5);
 4. gradient through the kernel's autograd function against autograd over
    the twin, flagship shape, float64, limit 1e-10;
 5. the paths, each with the launch counts reset just before and read just
    after:
    a. the main path, flagship training (Solver2D, FCNN 2-512-1 tanh,
-      32 x 32 grid), float32, ``fit(2000)``: ``taylor_mlp_1h`` must carry
+      32 x 32 grid), float32, ``fit(1000)``: ``taylor_mlp_1h`` must carry
       it, no Taylor fallback may occur, the loss must fall, and
       ``get_solution()`` must be within 1e-2 of the analytic solution on a
       101 x 101 grid; ``get_residuals`` must be finite;
@@ -86,18 +91,36 @@ line each or more:
       come within 2e-2 of exp(-t), and within 1e-3 of the solution it was
       trained on and 10 times closer to it than plain Euler on the same
       grid; neither launches a kernel (plain forwards);
+   i. heat with Dirichlet ends (``examples/heat_equation.py``: ``IBVP1D``
+      through ``Solver2D``, the default FCNN 2-32-32-1, 32 x 32),
+      ``fit(1000)``: exactly 5 ``taylor_mlp`` launches per epoch, no
+      fallback, max error < 5e-2 on 200 random points; then ``fit(100)``
+      under ``h1`` (Taylor order 3, layer by layer): no launch, no
+      fallback, the loss must fall;
+   j. heat with insulated ends, ``fit(300)``: the pinned anchors compose,
+      exactly 2 fallbacks per residual and no launch, max error <
+      ``NEUMANN_LIMIT``, u_x = 0 at both ends to 1e-5 through ``diff`` of
+      the solution's field;
+   k. Burgers (``examples/burgers.py`` 'adaptive': FCNN 2-(20x8)-1,
+      ``ResidualAdaptiveGenerator`` over 8 x 2,048 uniform candidates),
+      ``fit(2000)``: exactly 6 ``taylor_mlp`` launches per epoch (scoring,
+      train, 4 validation), exact on the initial line and the walls before
+      and after, the train loss 10x below its first epoch, mean error
+      against the Cole-Hopf solution on 201 x 101 < ``BURGERS_MEAN_LIMIT``;
 6. timing: device time per call of kernel and twin at every shape of
    ``TABLE_SHAPES`` and ``REACH_SHAPES`` (``torch.profiler``; the latter
    only where the tree's kernels take them) beside the kernel's bound, the
    wrapper's host enqueue time per call, and train-only epochs/s with the
    kernel and with the twin swapped in, interleaved; the backward of the
    kernel's autograd function at both cavity widths; the Lotka-Volterra,
-   spherical, both cavity and the bundle epochs' rates in 300-epoch windows
-   (all but the first from the windows of their own fits in 5d, 5e, 5f and
-   5h), device time split by kernel kind, and device-busy shares;
+   spherical, both cavity, the bundle, heat and Burgers epochs' rates in
+   300-epoch windows (all but the first from the windows of their own fits
+   in 5d-5f and 5h-5k), device time split by kernel kind, and device-busy
+   shares. Past ``TIMING_CUTOFF_S`` seconds (a slow host) it times only the
+   two shapes of the result line;
 7. the result (full run only).
 
-``python3 chip_smoke.py --phases 5h,6`` runs phases 1 and 2 and the listed
+``python3 chip_smoke.py --phases 3c,5i,5j,5k`` runs phases 1 and 2 and the listed
 ones of ``PHASES`` (phase 6 times the paths among them) and prints no
 result line: for development, and, as ``--phases 6``, to time an older tree
 of the port (copy the script there). With no arguments every phase runs;
@@ -122,11 +145,15 @@ import torch
 ROOT = Path(__file__).resolve().parent
 KERNEL_SOURCE = 'neurodiffeq_tpu_torch/csrc/taylor_mlp.cu'
 REPLACES = 'neurodiffeq_tpu/ops/pallas_mlp.py:115'
-GRID, HIDDEN, EPOCHS, DEFAULT_NET_EPOCHS = (32, 32), (512,), 2000, 300
+# 5a's 2,000 epochs cut to 1,000 when the heat and Burgers phases came, to keep the
+# script within its limit on a slow host (the port's CPU float32 run of the phase:
+# max error 4.746e-3 at 1,000 epochs, under the 1e-2 limit)
+GRID, HIDDEN, EPOCHS, DEFAULT_NET_EPOCHS = (32, 32), (512,), 1000, 300
 LV_EPOCHS, LV_H1_EPOCHS, LV_PERIOD = 3000, 200, 500
 # 5000 epochs keep phase 5d near 1.5 minutes on the card; the limit is about
 # twice the 1.747e-2 that the port's CPU float32 run of this phase gave at
 # the same epoch count, and under the JAX package's own 0.08 at 2500 epochs
+# (cut to 2,500 epochs, the card read 4.1e-2: the cut was undone)
 SPH_EPOCHS, SPH_LIMIT = 5000, 0.035
 SPH_R0, SPH_R1 = 0.1, 3.0
 # the cavities (benchmarks/configs.py:179-213 and :261-289): FCNN 2-(128x5)-3
@@ -153,8 +180,31 @@ HYPER_EPOCHS, HYPER_STEPS, HYPER_LIMIT = 1000, 50, 2e-2
 # float32 runs of this phase gave 8.8e-5 and 2.2e-4 (seeds 0, 1), plain Euler
 # 8.6e-3 and 1.1e-2; a corrector that does nothing or the wrong thing fails both
 HYPER_SOL_LIMIT, HYPER_GAIN = 1e-3, 10
+# examples/heat_equation.py: u_t = K u_xx on [0, L] x [0, T], Generator2D 32 x 32, Solver2D's
+# default FCNN 2-32-32-1 tanh. Both variants' 3,000 epochs are cut to keep the script within
+# its limit on a slow host (a host can run the same phases 2x slower than another). 5i runs
+# the Dirichlet variant for 1,000 epochs with tests/test_ibvp_training.py's limit (that test
+# trains 1,500 epochs on 16 x 16), then 100 epochs under the h1 loss (Taylor order 3); 5j runs
+# the Neumann variant (pin anchors, the compose path) for 300 epochs, its limit about twice
+# the port's CPU float32 run of this phase at that cut (1.208e-2; 5i's run gave 4.837e-3)
+HEAT_K, HEAT_L, HEAT_T = 0.3, 2.0, 1.5
+HEAT_EPOCHS, HEAT_LIMIT, HEAT_H1_EPOCHS = 1000, 5e-2, 100
+NEUMANN_EPOCHS, NEUMANN_LIMIT = 300, 2.5e-2
+# examples/burgers.py 'adaptive': FCNN 2-(20x8)-1 tanh, Generator1D(2048) * Generator1D(2048)
+# uniform, ResidualAdaptiveGenerator(oversample=8, 'power', alpha=1, c=1), validation on
+# 32 x 32; its 10,000 Adam epochs cut to 2,000 and its L-BFGS polish left out; the limit on
+# the mean error against Cole-Hopf is about twice the port's CPU float32 run of this phase
+# (0.0509; max 0.494), and the train loss must fall 10x from the first epoch (the mean of
+# the last 100 epochs was 10.5x below it there)
+BURGERS_NU, BURGERS_HIDDEN, BURGERS_POINTS, BURGERS_OVERSAMPLE = 0.01 / np.pi, (20,) * 8, 2048, 8
+BURGERS_EPOCHS, BURGERS_MEAN_LIMIT, BURGERS_DROP = 2000, 0.1, 10
+# phase 3c's 1-D conditions: IBVP1D on [0, 2] with u(x, 0) = cos x + x / 2, the end values
+# and slopes compatible with it at t = 0; DoubleEndedBVP1D on [0, 1]
+ANCHOR_DATA = {'x_min_val': lambda t: 1 + 0.3 * t, 'x_max_val': lambda t: math.cos(2.0) + 1 + 0.3 * t,
+               'x_min_prime': lambda t: 0.5 - 0.4 * t, 'x_max_prime': lambda t: 0.5 - math.sin(2.0) + 0.2 * t}
+DE_ANCHOR_DATA = {'x_min_val': 0.5, 'x_min_prime': -0.7, 'x_max_val': 1.5, 'x_max_prime': 0.3}
 WIDE_INPUTS = (9, 32, 32, 1)  # more inputs than one direction chunk: two chunks in one launch
-PHASES = ('3', '4', '5a', '5b', '5c', '5d', '5e', '5f', '5g', '5h', '6')
+PHASES = ('3', '3c', '4', '5a', '5b', '5c', '5d', '5e', '5f', '5g', '5h', '5i', '5j', '5k', '6')
 WINDOW = 300  # epochs per timing window of phase 6
 IDENTITY_EPS = 1e-4  # tests/test_operators.py, BASELINE.md:17
 F32, F64 = torch.float32, torch.float64
@@ -196,7 +246,13 @@ TABLE_SHAPES = [  # (layer widths, activation, order, N, dtype timed in phase 6)
     ((1, 32, 32, 1), 'sin', 1, 32, F32),     # Lotka-Volterra batch, phase 5c
     ((1, 32, 32, 1), 'sin', 2, 32, F32),     # the same under the h1 loss
     ((2, 32, 32, 1), 'tanh', 1, 1024, F32),  # the bundle on (t, lam), phase 5h
+    ((2,) + (20,) * 8 + (1,), 'tanh', 2, 16384, F32),  # Burgers, scoring 8 x 2,048 candidates, phase 5k
+    ((2,) + (20,) * 8 + (1,), 'tanh', 2, 2048, F32),   # Burgers train batch
+    ((2,) + (20,) * 8 + (1,), 'tanh', 2, 1024, F32),   # Burgers validation batch
 ]
+# the result line times taylor_mlp_1h at the flagship's shape and taylor_mlp at
+# the primitive cavity's, its heaviest path
+RECORD_SHAPES = [TABLE_SHAPES[0], TABLE_SHAPES[11]]
 # nets at the edges of the kernels' reach, timed too: two and three direction
 # chunks, and streams in the global scratch (past shared memory from width 2,700)
 REACH_SHAPES = [
@@ -211,8 +267,14 @@ PEAK_FLOPS = {F32: 67e12, F64: 34e12}
 PEAK_BYTES = 3.35e12
 
 
+START = time.perf_counter()
+# Phase 6 is timing for PERF.md; past this many seconds (a slow host) it times
+# only the two kernels' record shapes, so that the run stays within its limit
+TIMING_CUTOFF_S = 800
+
+
 def phase(name, msg):
-    print(f"[{name}] {msg}", flush=True)
+    print(f"[{name}] (+{time.perf_counter() - START:.0f} s) {msg}", flush=True)
 
 
 def shape_name(dims, actv, order, n, dtype=None):
@@ -777,6 +839,275 @@ def run_bundle(F, taylor_mlp):
     return launches, solver, None, rates
 
 
+def heat_solver(variant, **kwargs):
+    """``examples/heat_equation.py``'s ``build(variant)`` on the port's defaults
+    (cuda, float32): IBVP1D with u(x, 0) = sin(pi x / L) and zero values
+    ('dirichlet') or u(x, 0) = cos(pi x / L) and zero slopes ('neumann') at
+    both ends, through ``Solver2D`` with its default net."""
+    from neurodiffeq_tpu_torch import fields as F, diff
+    from neurodiffeq_tpu_torch.conditions import IBVP1D
+    from neurodiffeq_tpu_torch.generators import Generator2D
+    from neurodiffeq_tpu_torch.solvers import Solver2D
+
+    ends = ('x_min_val', 'x_max_val') if variant == 'dirichlet' else ('x_min_prime', 'x_max_prime')
+    initial = F.sin if variant == 'dirichlet' else F.cos
+    cond = IBVP1D(x_min=0.0, x_max=HEAT_L, t_min=0.0, t_min_val=lambda x: initial(np.pi / HEAT_L * x),
+                  **{k: (lambda t: 0 * t) for k in ends})
+    box = (HEAT_L, HEAT_T)
+    return Solver2D(pde_system=lambda u, x, t: [diff(u, t) - HEAT_K * diff(u, x, 2)], conditions=[cond],
+                    xy_min=(0, 0), xy_max=box,
+                    train_generator=Generator2D((32, 32), (0, 0), box, method='equally-spaced-noisy'),
+                    valid_generator=Generator2D((32, 32), (0, 0), box, method='equally-spaced'), **kwargs)
+
+
+def heat_exact(variant, x, t):
+    mode = np.sin if variant == 'dirichlet' else np.cos
+    return mode(np.pi * x / HEAT_L) * np.exp(-HEAT_K * (np.pi / HEAT_L) ** 2 * t)
+
+
+def heat_error(variant, solver):
+    """max |u - exact| on 200 random points, as examples/heat_equation.py measures it."""
+    rng = np.random.RandomState(0)
+    xs, ts = rng.rand(200) * HEAT_L, rng.rand(200) * HEAT_T
+    u = solver.get_solution()(xs, ts, to_numpy=True)
+    return float(np.abs(u - heat_exact(variant, xs, ts)).max()) if np.isfinite(u).all() else float('inf')
+
+
+def run_heat(F, taylor_mlp):
+    """Phase 5i: the heat equation with Dirichlet ends, the kernel path (u keeps
+    its Taylor rule), then under the h1 loss (order 3, layer by layer).
+    Returns what :func:`run_cavity` returns, and the h1 fit's launch counts."""
+    from neurodiffeq_tpu_torch.utils import set_seed
+
+    set_seed(1)
+    solver = heat_solver('dirichlet')
+    fit_s, launches, fallbacks, rates = fit_path(F, taylor_mlp, solver, HEAT_EPOCHS, windowed=True)
+    hist = solver.metrics_history['train_loss']
+    early, late = float(np.mean(hist[:100])), float(np.mean(hist[-100:]))
+    err = heat_error('dirichlet', solver)
+    checks = launch_checks(launches, fallbacks, 5, HEAT_EPOCHS)
+    checks.update({'loss fell': late < early, f'max error < {HEAT_LIMIT}': err < HEAT_LIMIT})
+    report('5i heat', f"IBVP1D Dirichlet through Solver2D, FCNN 2-32-32-1, 32 x 32, fit({HEAT_EPOCHS}) float32 in "
+                      f"{fit_s:.1f} s ({HEAT_EPOCHS / fit_s:.1f} epochs/s with 4 validation batches): launches "
+                      f"{launches} ({launches['taylor_mlp'] / HEAT_EPOCHS:.2f} taylor_mlp per epoch), {fallbacks} "
+                      f"fallbacks, train loss mean {early:.3e} (first 100) -> {late:.3e} (last 100), max |u - "
+                      f"sin(pi x/L) exp(-K (pi/L)^2 t)| on 200 points {err:.3e}", checks, "heat check failed")
+
+    set_seed(1)
+    h1 = heat_solver('dirichlet', loss_fn='h1')
+    h1_s, launches_h1, fallbacks, _ = fit_path(F, taylor_mlp, h1, HEAT_H1_EPOCHS)
+    hist = h1.metrics_history['train_loss']
+    early, late = float(np.mean(hist[:20])), float(np.mean(hist[-20:]))
+    # every series of the h1 loss is taken at order 3, which no kernel serves (the
+    # JAX package's kernel stops at order 2 too): the CPU rehearsal counted no call
+    checks = {'no kernel launch (order 3)': sum(launches_h1.values()) == 0, 'no Taylor fallback': fallbacks == 0,
+              'loss fell': bool(np.isfinite(hist).all()) and late < early}
+    report('5i heat', f"h1 loss (order 3), fit({HEAT_H1_EPOCHS}) in {h1_s:.1f} s ({HEAT_H1_EPOCHS / h1_s:.2f} "
+                      f"epochs/s): launches {launches_h1}, {fallbacks} fallbacks, train loss mean {early:.3e} "
+                      f"(first 20) -> {late:.3e} (last 20)", checks, "heat h1 check failed")
+    return launches, solver, None, rates, launches_h1
+
+
+def run_heat_neumann(F, taylor_mlp):
+    """Phase 5j: the heat equation with insulated ends, the compose path (the
+    pinned anchors have no Taylor rule, as in the JAX package). Returns what
+    :func:`run_cavity` returns."""
+    from neurodiffeq_tpu_torch import diff
+    from neurodiffeq_tpu_torch.utils import set_seed
+
+    set_seed(1)
+    solver = heat_solver('neumann')
+    fit_s, launches, fallbacks, rates = fit_path(F, taylor_mlp, solver, NEUMANN_EPOCHS, windowed=True)
+    hist = solver.metrics_history['train_loss']
+    early, late = float(np.mean(hist[:100])), float(np.mean(hist[-100:]))
+    err = heat_error('neumann', solver)
+    per_residual = fallbacks / (NEUMANN_EPOCHS * 5)  # 1 train and 4 validation batches per epoch
+    ts = np.linspace(0, HEAT_T, 64)
+    slopes = []
+    for end in (0.0, HEAT_L):
+        cols = [torch.as_tensor(a, dtype=solver.dtype, device=solver.device).reshape(-1, 1)
+                for a in (np.full_like(ts, end), ts)]
+        with torch.no_grad():
+            (u,), (x, _) = solver._forward(cols)
+            slopes.append(diff(u, x).value.abs().max().item())
+    checks = {'no kernel launch': sum(launches.values()) == 0,
+              '2 fallbacks per residual, as in JAX': per_residual == 2,
+              'loss fell': late < early,
+              f'max error < {NEUMANN_LIMIT}': err < NEUMANN_LIMIT,
+              'u_x = 0 at both ends to 1e-5': max(slopes) < 1e-5}
+    report('5j heat Neumann', f"IBVP1D Neumann through Solver2D, FCNN 2-32-32-1, 32 x 32, fit({NEUMANN_EPOCHS}) "
+                              f"float32 in {fit_s:.1f} s ({NEUMANN_EPOCHS / fit_s:.1f} epochs/s with 4 validation "
+                              f"batches): launches {launches}, {fallbacks} fallbacks ({per_residual:.2f} per "
+                              f"residual), train loss mean {early:.3e} (first 100) -> {late:.3e} (last 100), max "
+                              f"|u - cos(pi x/L) exp(-K (pi/L)^2 t)| on 200 points {err:.3e}, max |u_x| at x = 0 "
+                              f"and x = L {slopes[0]:.1e}, {slopes[1]:.1e}", checks, "heat Neumann check failed")
+    return launches, solver, None, rates
+
+
+def burgers_exact(x, t, n_quad=64):
+    """The Cole-Hopf solution of viscous Burgers by Gauss-Hermite quadrature
+    (a numpy copy of examples/burgers.py's evaluator)."""
+    x, t = np.broadcast_arrays(np.asarray(x, dtype=np.float64), np.asarray(t, dtype=np.float64))
+    eta, w = np.polynomial.hermite.hermgauss(n_quad)
+    out = np.empty(x.shape)
+    for i, (xi, ti) in enumerate(zip(x.ravel(), t.ravel())):
+        if ti < 1e-12:
+            out.ravel()[i] = -np.sin(np.pi * xi)
+            continue
+        y = xi - np.sqrt(4.0 * BURGERS_NU * ti) * eta
+        expo = -np.cos(np.pi * y) / (2.0 * np.pi * BURGERS_NU)
+        f = np.exp(expo - expo.max())
+        out.ravel()[i] = -np.sum(w * f * np.sin(np.pi * y)) / np.sum(w * f)
+    return out
+
+
+def burgers_solver():
+    """``examples/burgers.py``'s ``build('adaptive')`` on the port's defaults (cuda, float32)."""
+    from neurodiffeq_tpu_torch import fields as F, diff
+    from neurodiffeq_tpu_torch.conditions import IBVP1D
+    from neurodiffeq_tpu_torch.generators import Generator1D, Generator2D, ResidualAdaptiveGenerator
+    from neurodiffeq_tpu_torch.networks import FCNN
+    from neurodiffeq_tpu_torch.solvers import Solver2D
+
+    cond = IBVP1D(x_min=-1.0, x_max=1.0, t_min=0.0, t_min_val=lambda x: -F.sin(np.pi * x),
+                  x_min_val=lambda t: 0 * t, x_max_val=lambda t: 0 * t)
+    base = (Generator1D(BURGERS_POINTS, -1.0, 1.0, method='uniform')
+            * Generator1D(BURGERS_POINTS, 0.0, 1.0, method='uniform'))
+    return Solver2D(
+        pde_system=lambda u, x, t: [diff(u, t) + u * diff(u, x) - BURGERS_NU * diff(u, x, order=2)],
+        conditions=[cond], xy_min=(-1.0, 0.0), xy_max=(1.0, 1.0),
+        nets=[FCNN(n_input_units=2, hidden_units=BURGERS_HIDDEN)],
+        train_generator=ResidualAdaptiveGenerator(base, oversample=BURGERS_OVERSAMPLE, strategy='power',
+                                                  alpha=1.0, c=1.0),
+        valid_generator=Generator2D((32, 32), xy_min=(-1.0, 0.0), xy_max=(1.0, 1.0), method='equally-spaced'))
+
+
+def burgers_constraint_error(solver):
+    """max |u - u(x, 0)| on the initial line and max |u| on the walls."""
+    sol = solver.get_solution(best=False)
+    xs, ts = np.linspace(-1.0, 1.0, 17), np.linspace(0.0, 1.0, 9)
+    errs = [np.abs(sol(xs, np.zeros_like(xs), to_numpy=True) + np.sin(np.pi * xs)).max()]
+    errs += [np.abs(sol(np.full_like(ts, wall), ts, to_numpy=True)).max() for wall in (-1.0, 1.0)]
+    return float(max(errs))
+
+
+def run_burgers(F, taylor_mlp):
+    """Phase 5k: Burgers with residual-adaptive sampling. Returns what
+    :func:`run_cavity` returns."""
+    from neurodiffeq_tpu_torch.utils import set_seed
+
+    set_seed(0)
+    solver = burgers_solver()
+    untrained = burgers_constraint_error(solver)
+    fit_s, launches, fallbacks, rates = fit_path(F, taylor_mlp, solver, BURGERS_EPOCHS, windowed=True)
+    hist = solver.metrics_history['train_loss']
+    first, late = float(hist[0]), float(np.mean(hist[-100:]))
+    trained = burgers_constraint_error(solver)
+    X, Tm = np.meshgrid(np.linspace(-1.0, 1.0, 201), np.linspace(0.0, 1.0, 101), indexing='ij')
+    u = solver.get_solution()(X.ravel(), Tm.ravel(), to_numpy=True).reshape(X.shape)
+    err = np.abs(u - burgers_exact(X, Tm))
+    max_err, mean_err = float(err.max()), float(err.mean())
+    # per epoch: the scoring pass over 8 x 2,048 candidates, 1 train and 4 validation batches
+    checks = launch_checks(launches, fallbacks, 6, BURGERS_EPOCHS)
+    checks.update({
+        'initial line and walls exact to 1e-6, untrained and trained': max(untrained, trained) < 1e-6,
+        f'train loss fell {BURGERS_DROP}x': late * BURGERS_DROP <= first,
+        f'mean error < {BURGERS_MEAN_LIMIT}': bool(np.isfinite(mean_err)) and mean_err < BURGERS_MEAN_LIMIT,
+    })
+    report('5k Burgers', f"IBVP1D through Solver2D, FCNN 2-(20x8)-1, ResidualAdaptiveGenerator(8 x 2048, power), "
+                         f"fit({BURGERS_EPOCHS}) float32 in {fit_s:.1f} s ({BURGERS_EPOCHS / fit_s:.1f} epochs/s with "
+                         f"4 validation batches): launches {launches} ({launches['taylor_mlp'] / BURGERS_EPOCHS:.2f} "
+                         f"taylor_mlp per epoch), {fallbacks} fallbacks, train loss {first:.3e} (first epoch) -> mean "
+                         f"{late:.3e} (last 100), constraint error untrained {untrained:.1e} trained {trained:.1e}, "
+                         f"against Cole-Hopf on 201 x 101: max {max_err:.4f} mean {mean_err:.5f}", checks,
+           "Burgers check failed")
+    return launches, solver, None, rates
+
+
+def check_high_order():
+    """Phase 3c: orders 3 and 4 on the card, pure and mixed, of an FCNN
+    2-32-32-1 tanh field and a SIREN field against the port on the CPU in
+    float64; pin at k = 0 and 1 the same way; and every IBVP1D and
+    DoubleEndedBVP1D variant exact at its anchors with an untrained net.
+    Returns nothing, or SystemExit."""
+    from neurodiffeq_tpu_torch import fields as F
+    from neurodiffeq_tpu_torch.conditions import DoubleEndedBVP1D, IBVP1D
+    from neurodiffeq_tpu_torch.networks import FCNN, SIREN
+
+    def partials(net, pts):
+        x, y = F.coords_from_points(pts)
+        u = F.network_field(net, (x, y))
+        fields = {'u_xxx': F.diff(u, x, 3), 'u_yyyy': F.diff(u, y, 4), 'u_xxy': F.diff(F.diff(u, x, 2), y),
+                  'u_xxyy': F.diff(F.diff(u, x, 2), y, 2), 'pin x=0.5': F.pin(u, 0, 0.5),
+                  'pin_x x=0.5': F.pin(u, 0, 0.5, derivative_order=1),
+                  'd/dy pin_x x=0.5': F.diff(F.pin(u, 0, 0.5, derivative_order=1), y)}
+        return {k: f.value for k, f in fields.items()}
+
+    pts = torch.rand(1024, 2, generator=torch.Generator().manual_seed(600), dtype=F64)
+    for name, make in (('FCNN 2-32-32-1 tanh', lambda: FCNN(2, 1, hidden_units=(32, 32))),
+                       ('SIREN 2-32-32-1 w0=30', lambda: SIREN(2, 1, hidden_units=(32, 32)))):
+        torch.manual_seed(0)
+        cpu = make().to('cpu', F64)
+        with torch.no_grad():
+            want = partials(cpu, pts)
+        for dtype in (F64, F32):
+            card = make().to('cuda', dtype)
+            card.load_state_dict(cpu.state_dict())
+            with torch.no_grad():
+                got = partials(card, pts.to('cuda', dtype))
+            errs = {k: rel_err(got[k].cpu(), want[k]) for k in want}
+            ok = all(e <= TOL[dtype] for e in errs.values())
+            phase('3c high order', f"{str(dtype)[6:]} {name} N=1024 against the port on the CPU in float64: rel err "
+                                   + ', '.join(f"{k} {v:.2e}" for k, v in errs.items())
+                                   + f" (limit {TOL[dtype]:.0e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit("chip_smoke: an order 3-4 partial or a pin disagrees on the card")
+
+    # the anchors of every 1-D condition variant, untrained, float32 on the card
+    g = torch.Generator().manual_seed(601)
+    worst = {}
+    for variant in ('dd', 'dn', 'nd', 'nn'):
+        keys = ['x_min_val' if variant[0] == 'd' else 'x_min_prime', 'x_max_val' if variant[1] == 'd' else 'x_max_prime']
+        ibvp = IBVP1D(x_min=0.0, x_max=2.0, t_min=0.0, t_min_val=lambda x: F.cos(x) + 0.5 * x,
+                      **{k: ANCHOR_DATA[k] for k in keys})
+        errs = []
+        torch.manual_seed(1)
+        net = FCNN(2, 1, hidden_units=(16, 16))
+        for end, kind in ((0.0, variant[0]), (2.0, variant[1])):
+            ts = torch.rand(64, 1, generator=g).to('cuda')
+            x, t = F.coords_from_points(torch.cat([torch.full_like(ts, end), ts], dim=1))
+            with torch.no_grad():
+                u = ibvp.enforce(net, x, t)
+                side = 'x_min' if end == 0.0 else 'x_max'
+                got = u if kind == 'd' else F.diff(u, x)
+                errs.append((got.value - ANCHOR_DATA[f"{side}_{'val' if kind == 'd' else 'prime'}"](t).value)
+                            .abs().max().item())
+        xs = torch.rand(64, 1, generator=g).to('cuda') * 2
+        x, t = F.coords_from_points(torch.cat([xs, torch.zeros_like(xs)], dim=1))
+        with torch.no_grad():
+            errs.append((ibvp.enforce(net, x, t).value - (F.cos(x) + 0.5 * x).value).abs().max().item())
+        worst[f'IBVP1D {variant}'] = max(errs)
+
+        de = DoubleEndedBVP1D(x_min=0.0, x_max=1.0, **{k: DE_ANCHOR_DATA[k] for k in keys})
+        torch.manual_seed(2)
+        net = FCNN(1, 1, hidden_units=(16, 16))
+        errs = []
+        for end, kind in ((0.0, variant[0]), (1.0, variant[1])):
+            (x,) = F.coords_from_points(torch.full((4, 1), end, device='cuda'))
+            with torch.no_grad():
+                u = de.enforce(net, x)
+                got = (u if kind == 'd' else F.diff(u, x)).value
+            side = 'x_min' if end == 0.0 else 'x_max'
+            errs.append((got - DE_ANCHOR_DATA[f"{side}_{'val' if kind == 'd' else 'prime'}"]).abs().max().item())
+        worst[f'DoubleEndedBVP1D {variant}'] = max(errs)
+    ok = all(v < 1e-5 for v in worst.values())
+    phase('3c high order', "float32 anchors with an untrained net (values, slopes, initial line), max error "
+                           + ', '.join(f"{k} {v:.1e}" for k, v in worst.items()) + f" (limit 1e-5) "
+                           f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("chip_smoke: a 1-D condition is not exact at its anchors on the card")
+
+
 def check_mixed():
     """Phase 3b: u_xy of the cavity net by polarization against double
     backward, and three vector identities on random net fields, float64 and
@@ -1069,12 +1400,13 @@ def check_kernels(fcnn_taylor, fcnn_taylor_reference):
     return errors
 
 
-def time_shapes(card, taylor_mlp):
+def time_shapes(card, taylor_mlp, shapes=None):
     """Phase 6: {(dims, actv, order, n, dtype): (kernel us, twin us, bound ms, bound_by)}
-    over ``TABLE_SHAPES``, and ``REACH_SHAPES`` where the kernels take 128
-    layers (an older tree's took 16 layers and 8 inputs)."""
+    over ``shapes``: by default ``TABLE_SHAPES``, and ``REACH_SHAPES`` where
+    the kernels take 128 layers (an older tree's took 16 layers and 8 inputs)."""
     fcnn_taylor, fcnn_taylor_reference = taylor_mlp.fcnn_taylor, taylor_mlp.fcnn_taylor_reference
-    shapes = TABLE_SHAPES + (REACH_SHAPES if taylor_mlp._MAX_LAYERS >= 128 else [])
+    if shapes is None:
+        shapes = TABLE_SHAPES + (REACH_SHAPES if taylor_mlp._MAX_LAYERS >= 128 else [])
     out = {}
     with torch.no_grad():
         for i, (dims, actv, order, n, dtype) in enumerate(shapes):
@@ -1266,12 +1598,15 @@ def main():
         check_siren()
         check_wide_inputs(F, taylor_mlp)
         check_mixed()
+    if '3c' in chosen:
+        check_high_order()
     # ---- 4. gradient
     if '4' in chosen:
         check_gradient(fcnn_taylor_reference)
     # ---- 5. the paths: the flagship (the main path), Solver2D's defaults,
     # Lotka-Volterra, spherical Poisson, the cavities, GenericSolver in 3-D,
-    # the bundle; the rates of 5d, 5e, 5f and 5h are their own fits' windows
+    # the bundle, heat (Dirichlet, Neumann) and Burgers; the rates of 5d-5f
+    # and 5h-5k are their own fits' windows
     paths, timed = {}, {}
     if '5a' in chosen:
         paths['5a'] = run_flagship(F, taylor_mlp)
@@ -1282,17 +1617,26 @@ def main():
     labels = {'5d': 'spherical Poisson (train + 4 validation batches of 512 points)',
               '5e': f'primitive cavity (one train batch of {CAV_POINTS} points, no validation)',
               '5f': f'psi-omega cavity (one train batch of {CAV_POINTS} points, no validation)',
-              '5h': 'solution bundle (train + 4 validation batches of 32 x 32 points)'}
-    runs = {'5d': run_sph, '5e': run_cavity, '5f': run_psi, '5g': run_generic_3d, '5h': run_bundle}
+              '5h': 'solution bundle (train + 4 validation batches of 32 x 32 points)',
+              '5i': 'heat, Dirichlet (train + 4 validation batches of 32 x 32 points)',
+              '5j': 'heat, Neumann, compose path (train + 4 validation batches of 32 x 32 points)',
+              '5k': 'Burgers, adaptive (scoring 8 x 2048, train 2048, 4 validation batches of 32 x 32)'}
+    runs = {'5d': run_sph, '5e': run_cavity, '5f': run_psi, '5g': run_generic_3d, '5h': run_bundle,
+            '5i': run_heat, '5j': run_heat_neumann, '5k': run_burgers}
     for name, run in runs.items():
         if name in chosen:
             out = run(F, taylor_mlp)
+            if name == '5i':
+                out, paths['5i h1'] = out[:4], out[4]
             paths[name] = out if name == '5g' else out[0]
             if name in labels:
                 timed[labels[name]] = out
 
     # ---- 6. timing
-    if '6' in chosen:
+    if '6' in chosen and time.perf_counter() - START > TIMING_CUTOFF_S:
+        phase('6 timing', f"past {TIMING_CUTOFF_S} s: only the record shapes are timed")
+        times = time_shapes(card, taylor_mlp, RECORD_SHAPES)
+    elif '6' in chosen:
         times = time_shapes(card, taylor_mlp)
         time_end_to_end(card, taylor_mlp)
         time_epochs(card, 'Lotka-Volterra (train + 4 validation batches, 2 nets)', lv_solver())
@@ -1307,9 +1651,7 @@ def main():
     # ---- 7. result: launches summed over the paths of phase 5
     phase('7 result', f"launches per path: {paths}")
     record = {'kernels': []}
-    # taylor_mlp_1h timed at the flagship's shape, taylor_mlp at the cavity's, its heaviest path
-    for name, key in (('taylor_mlp_1h', ((2, 512, 1), 'tanh', 2, 1024, F32)),
-                      ('taylor_mlp', ((2, 128, 128, 128, 128, 128, 3), 'tanh', 2, 16384, F32))):
+    for name, key in zip(('taylor_mlp_1h', 'taylor_mlp'), RECORD_SHAPES):
         launches = sum(p[name] for p in paths.values())
         k_us, t_us, b_ms, b_by = times[key]
         record['kernels'].append({

@@ -1,21 +1,27 @@
 r"""neurodiffeq_tpu_torch: the PyTorch / CUDA port of ``neurodiffeq_tpu``.
 
 A second package beside the JAX one, with the same module names. It covers
-the 2-D Laplace, ODE, solution-bundle, spherical and cavity training paths
-so far: the ``Field``/``diff`` layer and its batched Taylor engine (orders
-<= 2, mixed partials by polarization), the networks (``FCNN``, ``Resnet``,
-``FourierFCNN``, ``SIREN``, ``MonomialNN`` and their activations), the
-generators (``Generator1D``/``2D``/``3D``/``Spherical``, the ``+``/``*``/``^``
-combinators and the Transform, Filter, Resample, Batch and Sampler
-wrappers), the 1-D, bundle, ``DirichletBVP2D`` and spherical conditions,
-the cartesian, spherical and cylindrical operators, the function bases,
-the loss registry, the callbacks, ``Solver1D``/``BundleSolver1D``/
-``Solver2D``/``SolverSpherical``/``GenericSolver`` with
+the 2-D Laplace, ODE, solution-bundle, spherical, cavity and time-dependent
+1-D (heat, Burgers) training paths so far: the ``Field``/``diff`` layer,
+with its batched Taylor engine at any order (mixed partials by
+polarization) and the per-sample compose fallback (repeated
+``torch.autograd.grad``) for fields without a Taylor rule, ``pin`` and
+``eval_mode``; the networks (``FCNN``, ``Resnet``, ``FourierFCNN``,
+``SIREN``, ``MonomialNN`` and their activations), the generators
+(``Generator1D``/``2D``/``3D``/``Spherical``, the ``+``/``*``/``^``
+combinators, the Transform, Filter, Resample, Batch and Sampler wrappers
+and residual-adaptive sampling), the 1-D, bundle, ``DirichletBVP2D``,
+``IBVP1D``, ``DoubleEndedBVP1D`` and spherical conditions, the cartesian,
+spherical and cylindrical operators, the function bases, the loss registry,
+the callbacks, ``Solver1D``/``BundleSolver1D``/``Solver2D``/
+``SolverSpherical``/``GenericSolver`` with
 ``fit(max_epochs, callbacks, tqdm_file)``, and the hypersolver. The fused
 Taylor-mode FCNN runs as a hand-written CUDA kernel for Hopper
 (``csrc/taylor_mlp.cu``) on CUDA tensors and as its plain PyTorch twin on
 CPU tensors. The package imports ``torch`` and never ``jax``.
 """
+import sys as _sys
+
 from . import utils
 from . import fields
 from . import networks
@@ -28,9 +34,14 @@ from . import solvers
 from . import callbacks
 from . import hypersolver
 
-from .fields import diff
+from .fields import diff, safe_diff, unsafe_diff
+
+# the reference names the module of its diff primitive `neurodiffeq.neurodiffeq`;
+# here, as in the JAX package, that module is `fields`
+_sys.modules[__name__ + '.neurodiffeq'] = fields
+neurodiffeq = fields
 
 __version__ = '0.1.0'
 
-__all__ = ['diff', 'utils', 'fields', 'networks', 'generators', 'conditions', 'operators',
+__all__ = ['diff', 'safe_diff', 'unsafe_diff', 'neurodiffeq', 'utils', 'fields', 'networks', 'generators', 'conditions', 'operators',
            'function_basis', 'losses', 'solvers', 'callbacks', 'hypersolver']

@@ -12,11 +12,12 @@ import numpy as np
 import torch
 
 from ._version_utils import deprecated_alias
-from .fields import abs as fabs, cat, exp, network_field, tanh
+from .fields import Field, abs as fabs, cat, exp, network_field, pin, tanh
 from .utils import resolve
 
 __all__ = ['BaseCondition', 'IrregularBoundaryCondition', 'EnsembleCondition', 'NoCondition', 'IVP',
-           'BundleIVP', 'DirichletBVP', 'BundleDirichletBVP', 'DirichletBVP2D', 'DirichletBVPSpherical',
+           'BundleIVP', 'DirichletBVP', 'BundleDirichletBVP', 'DirichletBVP2D', 'IBVP1D', 'DoubleEndedBVP1D',
+           'DirichletBVPSpherical',
            'InfDirichletBVPSpherical', 'DirichletBVPSphericalBasis', 'InfDirichletBVPSphericalBasis']
 
 
@@ -27,6 +28,19 @@ def _ann_field(net, coordinates, ith_unit=None):
         if c.index is None:
             raise TypeError("enforce expects raw coordinate Fields")
     return network_field(net, coordinates, ith_unit=ith_unit)
+
+
+def _const_field(value, like_field):
+    """A Field of constant value on ``like_field``'s points (differentiable:
+    every derivative is zero)."""
+    def fn(p):
+        return torch.as_tensor(value, dtype=p.dtype, device=p.device)
+
+    def trule(ctx):
+        from .ops.taylor import constant_series
+        return constant_series(value, ctx, ctx.points.shape[0])
+
+    return Field(like_field.coords, 1, fn, trule=trule)
 
 
 class BaseCondition:
@@ -264,6 +278,156 @@ class DirichletBVP2D(BaseCondition):
                + (1 - y_tilde) * (self.g0(x) - ((1 - x_tilde) * self.g0(x0) + x_tilde * self.g0(x1)))
                + y_tilde * (self.g1(x) - ((1 - x_tilde) * self.g1(x0) + x_tilde * self.g1(x1))))
         return Axy + x_tilde * (1 - x_tilde) * y_tilde * (1 - y_tilde) * output_tensor
+
+
+def _check_two_ends(x_min_val, x_min_prime, x_max_val, x_max_prime):
+    """Exactly two conditions, at most one per end (the reference's test,
+    truthiness included)."""
+    n_conditions = sum(c is not None for c in [x_min_val, x_min_prime, x_max_val, x_max_prime])
+    if n_conditions != 2 or (x_min_val and x_min_prime) or (x_max_val and x_max_prime):
+        raise NotImplementedError('Sorry, this boundary condition is not implemented.')
+
+
+def _anchors(u, x, at):
+    """The raw output and its x-derivative pinned at each end in ``at``:
+    ``pin(u, x.index, c, k)`` is constant in x, like the reference's
+    independent anchor tensors."""
+    return [f for c in at for f in (pin(u, x.index, c), pin(u, x.index, c, derivative_order=1))]
+
+
+class IBVP1D(BaseCondition):
+    r"""An initial and boundary condition on :math:`x \in [x_0, x_1]`, time
+    starting at :math:`t_0`: :math:`u(x, t_0) = u_0(x)`, and a Dirichlet or
+    a Neumann condition at each of :math:`x_0` and :math:`x_1`.
+
+    Exactly two of ``x_min_val``, ``x_min_prime``, ``x_max_val`` and
+    ``x_max_prime`` must be given (callables of t), at most one per end;
+    ``t_min_val`` is a callable of x. A Neumann end evaluates the network
+    and its x-derivative at the anchor with :func:`~neurodiffeq_tpu_torch.fields.pin`,
+    which has no Taylor rule: those variants compose (two fallbacks per
+    heat residual, as in the JAX package).
+    """
+
+    def __init__(self, x_min, x_max, t_min, t_min_val,
+                 x_min_val=None, x_min_prime=None,
+                 x_max_val=None, x_max_prime=None):
+        super().__init__()
+        _check_two_ends(x_min_val, x_min_prime, x_max_val, x_max_prime)
+        self.x_min, self.x_min_val, self.x_min_prime = x_min, x_min_val, x_min_prime
+        self.x_max, self.x_max_val, self.x_max_prime = x_max, x_max_val, x_max_prime
+        self.t_min, self.t_min_val = t_min, t_min_val
+
+    def enforce(self, net, x, t):
+        uxt = _ann_field(net, (x, t), ith_unit=self.ith_unit)
+        if self.x_min_val and self.x_max_val:
+            return self.parameterize(uxt, x, t)
+        if self.x_min_val and self.x_max_prime:
+            return self.parameterize(uxt, x, t, *_anchors(uxt, x, [self.x_max]))
+        if self.x_min_prime and self.x_max_val:
+            return self.parameterize(uxt, x, t, *_anchors(uxt, x, [self.x_min]))
+        if self.x_min_prime and self.x_max_prime:
+            return self.parameterize(uxt, x, t, *_anchors(uxt, x, [self.x_min, self.x_max]))
+        raise NotImplementedError('Sorry, this boundary condition is not implemented.')
+
+    def parameterize(self, u, x, t, *additional_tensors):
+        t0 = _const_field(self.t_min, t)
+        x_tilde = (x - self.x_min) / (self.x_max - self.x_min)
+        t_tilde = t - self.t_min
+        if self.x_min_val and self.x_max_val:
+            return self._parameterize_dd(u, x, t, x_tilde, t_tilde, t0)
+        if self.x_min_val and self.x_max_prime:
+            return self._parameterize_dn(u, x, t, x_tilde, t_tilde, t0, *additional_tensors)
+        if self.x_min_prime and self.x_max_val:
+            return self._parameterize_nd(u, x, t, x_tilde, t_tilde, t0, *additional_tensors)
+        if self.x_min_prime and self.x_max_prime:
+            return self._parameterize_nn(u, x, t, x_tilde, t_tilde, t0, *additional_tensors)
+        raise NotImplementedError('Sorry, this boundary condition is not implemented.')
+
+    def _parameterize_dd(self, uxt, x, t, x_tilde, t_tilde, t0):
+        Axt = (self.t_min_val(x)
+               + x_tilde * (self.x_max_val(t) - self.x_max_val(t0))
+               + (1 - x_tilde) * (self.x_min_val(t) - self.x_min_val(t0)))
+        return Axt + x_tilde * (1 - x_tilde) * (1 - exp(-t_tilde)) * uxt
+
+    def _parameterize_dn(self, uxt, x, t, x_tilde, t_tilde, t0, ux1t, dux1t):
+        Axt = ((self.x_min_val(t) - self.x_min_val(t0)) + self.t_min_val(x)
+               + x_tilde * (self.x_max - self.x_min) * (self.x_max_prime(t) - self.x_max_prime(t0)))
+        return Axt + x_tilde * (1 - exp(-t_tilde)) * (uxt - (self.x_max - self.x_min) * dux1t - ux1t)
+
+    def _parameterize_nd(self, uxt, x, t, x_tilde, t_tilde, t0, ux0t, dux0t):
+        Axt = ((self.x_max_val(t) - self.x_max_val(t0)) + self.t_min_val(x)
+               + (x_tilde - 1) * (self.x_max - self.x_min) * (self.x_min_prime(t) - self.x_min_prime(t0)))
+        return Axt + (1 - x_tilde) * (1 - exp(-t_tilde)) * (uxt + (self.x_max - self.x_min) * dux0t - ux0t)
+
+    def _parameterize_nn(self, uxt, x, t, x_tilde, t_tilde, t0, ux0t, dux0t, ux1t, dux1t):
+        Axt = (self.t_min_val(x)
+               - 0.5 * (1 - x_tilde) ** 2 * (self.x_max - self.x_min) * (
+                   self.x_min_prime(t) - self.x_min_prime(t0))
+               + 0.5 * x_tilde ** 2 * (self.x_max - self.x_min) * (
+                   self.x_max_prime(t) - self.x_max_prime(t0)))
+        return Axt + (1 - exp(-t_tilde)) * (
+            uxt
+            - x_tilde * (self.x_max - self.x_min) * dux0t
+            + 0.5 * x_tilde ** 2 * (self.x_max - self.x_min) * (dux0t - dux1t)
+        )
+
+
+class DoubleEndedBVP1D(BaseCondition):
+    r"""Boundary conditions on a space-only range :math:`x \in [x_0, x_1]`:
+    a Dirichlet or a Neumann condition at each end, given as numbers.
+    Neumann ends pin anchors as :class:`IBVP1D` does, and compose.
+    """
+
+    def __init__(self, x_min, x_max,
+                 x_min_val=None, x_min_prime=None,
+                 x_max_val=None, x_max_prime=None):
+        super().__init__()
+        _check_two_ends(x_min_val, x_min_prime, x_max_val, x_max_prime)
+        self.x_min, self.x_min_val, self.x_min_prime = x_min, x_min_val, x_min_prime
+        self.x_max, self.x_max_val, self.x_max_prime = x_max, x_max_val, x_max_prime
+
+    def enforce(self, net, x):
+        ux = _ann_field(net, (x,), ith_unit=self.ith_unit)
+        if self.x_min_val is not None and self.x_max_val is not None:
+            return self.parameterize(ux, x)
+        if self.x_min_val is not None and self.x_max_prime is not None:
+            return self.parameterize(ux, x, *_anchors(ux, x, [self.x_max]))
+        if self.x_min_prime is not None and self.x_max_val is not None:
+            return self.parameterize(ux, x, *_anchors(ux, x, [self.x_min]))
+        if self.x_min_prime is not None and self.x_max_prime is not None:
+            return self.parameterize(ux, x, *_anchors(ux, x, [self.x_min, self.x_max]))
+        raise NotImplementedError('Sorry, this boundary condition is not implemented.')
+
+    def parameterize(self, u, x, *additional_tensors):
+        x_tilde = (x - self.x_min) / (self.x_max - self.x_min)
+        if self.x_min_val is not None and self.x_max_val is not None:
+            return self._parameterize_dd(u, x, x_tilde)
+        if self.x_min_val is not None and self.x_max_prime is not None:
+            return self._parameterize_dn(u, x, x_tilde, *additional_tensors)
+        if self.x_min_prime is not None and self.x_max_val is not None:
+            return self._parameterize_nd(u, x, x_tilde, *additional_tensors)
+        if self.x_min_prime is not None and self.x_max_prime is not None:
+            return self._parameterize_nn(u, x, x_tilde, *additional_tensors)
+        raise NotImplementedError('Sorry, this boundary condition is not implemented.')
+
+    def _parameterize_dd(self, ux, x, x_tilde):
+        Ax = self.x_min_val * (1 - x_tilde) + self.x_max_val * x_tilde
+        return Ax + x_tilde * (1 - x_tilde) * ux
+
+    def _parameterize_dn(self, ux, x, x_tilde, ux1, dux1):
+        Ax = (1 - x_tilde) * self.x_min_val + 0.5 * x_tilde ** 2 * self.x_max_prime * (self.x_max - self.x_min)
+        return Ax + x_tilde * (ux - ux1 + self.x_min_val - dux1 * (self.x_max - self.x_min))
+
+    def _parameterize_nd(self, ux, x, x_tilde, ux0, dux0):
+        Ax = x_tilde * self.x_max_val - 0.5 * (1 - x_tilde) ** 2 * self.x_min_prime * (self.x_max - self.x_min)
+        return Ax + (1 - x_tilde) * (ux - ux0 + self.x_max_val + dux0 * (self.x_max - self.x_min))
+
+    def _parameterize_nn(self, ux, x, x_tilde, ux0, dux0, ux1, dux1):
+        Ax = (-0.5 * (1 - x_tilde) ** 2 * (self.x_max - self.x_min) * self.x_min_prime
+              + 0.5 * x_tilde ** 2 * (self.x_max - self.x_min) * self.x_max_prime)
+        return (Ax
+                + 0.5 * x_tilde ** 2 * (ux - ux1 - 0.5 * dux1 * (self.x_max - self.x_min))
+                + 0.5 * (1 - x_tilde) ** 2 * (ux - ux0 + 0.5 * dux0 * (self.x_max - self.x_min)))
 
 
 class DirichletBVPSpherical(BaseCondition):

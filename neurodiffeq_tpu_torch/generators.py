@@ -12,7 +12,8 @@ Generators combine with ``g1 + g2`` (:class:`ConcatGenerator`),
 ``g1 * g2`` (:class:`EnsembleGenerator`) and ``g1 ^ g2``
 (:class:`MeshGenerator`), and wrap into :class:`TransformGenerator`,
 :class:`FilterGenerator`, :class:`ResampleGenerator`,
-:class:`BatchGenerator` and :class:`SamplerGenerator`. A wrapper draws
+:class:`BatchGenerator`, :class:`ResidualAdaptiveGenerator` and
+:class:`SamplerGenerator`. A wrapper draws
 from the one ``torch.Generator`` it is given, its sub-generators in order.
 The port samples eagerly, so a batch may change size from one draw to the
 next (``FilterGenerator`` without ``fixed_size``, ``BatchGenerator``'s
@@ -27,7 +28,8 @@ from .utils import get_generator, resolve
 
 __all__ = ['BaseGenerator', 'Generator1D', 'Generator2D', 'Generator3D', 'GeneratorSpherical', 'ConcatGenerator',
            'StaticGenerator', 'PredefinedGenerator', 'TransformGenerator', 'EnsembleGenerator', 'MeshGenerator',
-           'FilterGenerator', 'ResampleGenerator', 'BatchGenerator', 'SamplerGenerator']
+           'FilterGenerator', 'ResampleGenerator', 'BatchGenerator', 'ResidualAdaptiveGenerator',
+           'SamplerGenerator', 'contains_buried_adaptive']
 
 _NO_HALTON = ("method 'halton' is not ported yet "
               "(ROADMAP.md §1 item 17, the high-dimensional toolkit: scrambled Halton)")
@@ -86,6 +88,39 @@ def _compute_log_negative(t_min, t_max, whence):
 
 def _as_tuple(out):
     return tuple(out) if isinstance(out, (tuple, list)) else (out,)
+
+
+def _sub_generators(gen):
+    """The generators ``gen`` wraps or combines."""
+    sub = getattr(gen, 'generator', None)
+    return ([sub] if isinstance(sub, BaseGenerator) else []) + [
+        g for g in getattr(gen, 'generators', ()) or () if isinstance(g, BaseGenerator)]
+
+
+def _has_fixed_size(gen):
+    """Whether every batch of ``gen`` has the same size: not so for a
+    ``FilterGenerator`` without ``fixed_size`` or a ``BatchGenerator``, or
+    anything built on one (the generators the JAX package cannot jit)."""
+    if isinstance(gen, BatchGenerator) or (isinstance(gen, FilterGenerator) and not gen.fixed_size):
+        return False
+    return all(_has_fixed_size(g) for g in _sub_generators(gen))
+
+
+def contains_buried_adaptive(gen):
+    """True if a :class:`ResidualAdaptiveGenerator` sits inside a
+    combinator or wrapper, where its selection cannot run: the solvers
+    honor only the outermost train generator's ``adaptive`` flag."""
+    stack, seen, top = [gen], set(), True
+    while stack:
+        g = stack.pop()
+        if id(g) in seen:
+            continue
+        seen.add(id(g))
+        if getattr(g, 'adaptive', False) and not top:
+            return True
+        top = False
+        stack.extend(_sub_generators(g))
+    return False
 
 
 class BaseGenerator:
@@ -654,6 +689,84 @@ class BatchGenerator(BaseGenerator):
         return d
 
 
+class ResidualAdaptiveGenerator(BaseGenerator):
+    """Residual-based adaptive collocation sampling.
+
+    Every training step draws ``oversample`` batches from the wrapped
+    generator, scores each candidate point by the magnitude of the current
+    equation residual, and keeps ``generator.size`` of them:
+
+    - ``strategy='power'`` (default): indices drawn with replacement with
+      probability proportional to ``score**alpha / mean(score**alpha) + c``,
+      the RAD scheme of Wu et al. (2023) (``alpha=1, c=1`` defaults);
+    - ``strategy='topk'``: the worst-residual points, greedily.
+
+    Solvers see the ``adaptive`` flag and pass a residual scorer
+    (``BaseSolver._residual_scores``); used standalone or for validation it
+    samples like the base generator. The base generator's batches must all
+    have one size. The draws cannot follow the JAX package's random streams:
+    the same candidates and scores give the same 'power' probabilities and
+    'topk' indices.
+    """
+
+    adaptive = True
+
+    def __init__(self, generator, oversample=4, strategy='power', alpha=1.0, c=1.0):
+        self.check_generator(generator)
+        super().__init__(generator.device, generator.dtype)
+        if not _has_fixed_size(generator):
+            raise ValueError('ResidualAdaptiveGenerator requires a base generator whose batches have a fixed '
+                             'size (not a FilterGenerator without fixed_size, nor a BatchGenerator)')
+        if strategy not in ('power', 'topk'):
+            raise ValueError(f"unknown strategy {strategy!r}; expected 'power' or 'topk'")
+        if int(oversample) < 1:
+            raise ValueError(f'oversample must be >= 1, got {oversample}')
+        if c < 0:
+            raise ValueError(f'c must be >= 0, got {c}')
+        self.generator = generator
+        self.size = generator.size
+        self.oversample = int(oversample)
+        self.strategy = strategy
+        self.alpha = alpha
+        self.c = c
+
+    def sample(self, generator):
+        return self.generator.sample(generator)
+
+    def probabilities(self, scores):
+        """The 'power' selection probabilities of candidates with ``scores``."""
+        w = scores ** self.alpha
+        tiny = torch.finfo(w.dtype).tiny
+        # the floor keeps a probability positive when c == 0 and every residual vanishes
+        p = torch.clamp_min(w / (w.mean() + tiny) + self.c, tiny)
+        return p / p.sum()
+
+    @torch.no_grad()
+    def sample_scored(self, generator, scorer):
+        """Draw ``oversample * size`` candidates and keep ``size`` by score.
+
+        :param generator: the ``torch.Generator`` to draw with.
+        :param scorer: maps the tuple of candidate coordinate tensors to
+            per-point scores ``(M,)``; it runs under ``no_grad``, so no
+            gradient flows through the selection.
+        """
+        draws = [_as_tuple(self.generator.sample(generator)) for _ in range(self.oversample)]
+        cand = tuple(torch.cat([d[i] for d in draws]) for i in range(len(draws[0])))
+        scores = scorer(cand).reshape(-1)
+        if self.strategy == 'topk':
+            idx = torch.topk(scores, self.size).indices
+        else:
+            idx = torch.multinomial(self.probabilities(scores), self.size, replacement=True, generator=generator)
+        out = tuple(c[idx] for c in cand)
+        return out if len(out) > 1 else out[0]
+
+    def _internal_vars(self):
+        d = super()._internal_vars()
+        d.update(dict(generator=self.generator, oversample=self.oversample, strategy=self.strategy,
+                      alpha=self.alpha, c=self.c))
+        return d
+
+
 class SamplerGenerator(BaseGenerator):
     """Wraps a generator so that every sample comes back as a list of
     ``(N, 1)`` columns, as the solvers consume them."""
@@ -663,8 +776,18 @@ class SamplerGenerator(BaseGenerator):
         self.generator = generator
         self.size = generator.size
 
+    @property
+    def adaptive(self):
+        return getattr(self.generator, 'adaptive', False)
+
     def sample(self, generator):
         return [u.reshape(-1, 1) for u in _as_tuple(self.generator.sample(generator))]
+
+    def sample_scored(self, generator, scorer):
+        """The adaptive ``sample``: the column-wise ``scorer`` of the solvers
+        adapted to the wrapped generator's coordinate tuples."""
+        samples = self.generator.sample_scored(generator, lambda cand: scorer([u.reshape(-1, 1) for u in cand]))
+        return [u.reshape(-1, 1) for u in _as_tuple(samples)]
 
     def get_examples(self):
         return self.sample(get_generator(self.device))

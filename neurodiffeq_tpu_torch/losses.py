@@ -6,8 +6,7 @@ is an ``(N, n_eq)`` :class:`~neurodiffeq_tpu_torch.fields.Field` and
 itself (:func:`~neurodiffeq_tpu_torch.operators.grad`), which is why
 residuals stay Fields all the way to the loss. Over several coordinates
 those gradients hold mixed partials, so H1 of a first-order residual takes
-total order 2; H1 of a second-order residual needs order 3, which raises
-(``ROADMAP.md`` §1 item 16).
+total order 2, and H1 of a second-order residual order 3.
 
 Losses that are linear in the residual columns declare
 ``residual_power = 1``; solvers then scale equation k by ``w_k`` instead of

@@ -13,6 +13,7 @@ JAX package's parameter pytree (numpy arrays) into the module, so that both
 packages compute the same function.
 """
 import math
+import operator
 import warnings
 
 import numpy as np
@@ -80,10 +81,17 @@ def _scalars(module, names, trainable, values):
             setattr(module, name, float(v))
 
 
-def _closed_form(series, ctx, c0, f1, f2):
-    """Series of an activation from its value and closed-form f', f''."""
-    from .ops.taylor import TSeries, _chain_unary
-    return _chain_unary(series, ctx.order, c0, f1, f2) if ctx.order else TSeries(c0, [])
+def _closed_form(actv, series, ctx, c0, f1, f2):
+    """Series of an activation from its value and closed-form f', f''. As in
+    the JAX package, these activations have no rule past order 2: a deeper
+    context raises (``eval_mode('compose')`` differentiates their plain
+    forward instead)."""
+    from .ops.taylor import _chain_unary
+    if ctx.order > 2:
+        raise NotImplementedError(
+            f"{type(actv).__name__} has Taylor rules for orders 1-2 only, and this context needs order "
+            f"{ctx.order}; evaluate under fields.eval_mode('compose'), as the JAX package must too")
+    return _chain_unary(series, ctx.order, c0, [f1, f2][:ctx.order])
 
 
 class Swish(nn.Module):
@@ -103,7 +111,7 @@ class Swish(nn.Module):
         b, x = self.beta, series.c0
         s = torch.sigmoid(b * x)
         sp = s * (1 - s)
-        return _closed_form(series, ctx, x * s, s + b * x * sp,
+        return _closed_form(self, series, ctx, x * s, s + b * x * sp,
                             2 * b * sp + b * b * x * sp * (1 - 2 * s))
 
     @torch.no_grad()
@@ -131,7 +139,7 @@ class APTx(nn.Module):
         a, b, g, x = self.alpha, self.beta, self.gamma, series.c0
         t = torch.tanh(b * x)
         tp = 1 - t * t
-        return _closed_form(series, ctx, g * x * (a + t), g * (a + t) + g * x * b * tp,
+        return _closed_form(self, series, ctx, g * x * (a + t), g * (a + t) + g * x * b * tp,
                             2 * g * b * tp - 2 * g * x * b * b * t * tp)
 
     @torch.no_grad()
@@ -161,7 +169,9 @@ def _mlp_taylor(series, ctx, layers, actvs):
     On raw coordinate inputs at order 1-2 with one activation kind (tanh or
     sin), the propagation is one fused Taylor-MLP call
     (:func:`~neurodiffeq_tpu_torch.ops.taylor_mlp.fcnn_taylor`, the CUDA
-    kernel for CUDA tensors, at any width); otherwise it goes layer by layer."""
+    kernel for CUDA tensors, at any width); otherwise it goes layer by
+    layer, as every order above 2 does (the JAX package's kernel stops at
+    order 2 too)."""
     from .ops.taylor import TSeries, affine_series
     kinds = {getattr(a, 'kernel_kind', None) for a in actvs}
     if series.meta == 'raw_coords' and 1 <= ctx.order <= 2 and len(kinds) <= 1 and None not in kinds:
@@ -425,8 +435,8 @@ class MonomialNN(nn.Module):
         return torch.cat([x ** d for d in self.degrees], dim=-1)
 
     def taylor_apply(self, series, ctx):
-        from .ops.taylor import concat_series, elementwise_series
-        return concat_series([elementwise_series(lambda x, _d=d: x ** _d, [series], ctx.order)
+        from .ops.taylor import concat_series, lifted_series
+        return concat_series([lifted_series(operator.pow, [('series', series), ('const', d)], ctx)
                               for d in self.degrees], ctx.order)
 
     def load_jax_params(self, params):

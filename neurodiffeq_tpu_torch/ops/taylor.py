@@ -1,4 +1,4 @@
-r"""Batched Taylor-mode series propagation for Fields, orders <= 2.
+r"""Batched Taylor-mode series propagation for Fields, at any order.
 
 Counterpart of ``neurodiffeq_tpu/ops/taylor.py``. A :class:`TSeries` holds,
 for one batch of N collocation points:
@@ -14,35 +14,35 @@ batch-shaped tangents appear only where a nonlinearity mixes in
 batch-dependent values.
 
 Rules: coordinates and constants have closed-form series; affine layers map
-coefficients exactly; elementwise ops use closed-form chain rules (first
-and second partials computed once on ``(N, m)`` data and broadcast over
-directions; ``atan2`` has its binary rule), and a path ``torch.func.jvp``
-for ops without one.
+coefficients exactly; products and quotients follow Leibniz; a unary op
+supplies its derivatives f', f'', ... at the value (closed forms, with
+polynomial recurrences past order 2) and Faa di Bruno's formula assembles
+the series from them (:func:`_chain_unary`), so ``x ** 2`` keeps its closed
+form at every order; ``atan2``, ``maximum`` and ``minimum`` have binary
+rules, and a path ``torch.func.jvp`` serves ops without one. The JAX package
+hands orders above 2 to ``jax.experimental.jet``; torch has none, and these
+rules take its place.
 
 The main context's directions are the coordinate axes. A genuinely mixed
 partial such as u_xy is recovered by polarization: an auxiliary context
 probes synthetic directions over the partial's axes (for u_xy the one
 direction (x + y) / sqrt 2) and :func:`partial_entry` solves the directional
 derivatives for the mixed entry, subtracting the pure ones
-(:func:`_extraction_plan`). Mixed partials of total order 2 work, so the
-div-grad and curl identities and the H1 losses of first-order residuals
-over several coordinates stay batched. Orders above 2 raise, naming
-``ROADMAP.md`` §1 item 16.
+(:func:`_extraction_plan`), at any total order.
 The expression DAG is memoized per :class:`TContext`, so the network forward
 pass is computed once for u, u_x, u_xx, u_y and u_yy.
 """
 import math
+import numbers
 import operator
 
 import numpy as np
 import torch
+from numpy.polynomial import polynomial as npoly
 
 __all__ = ['TSeries', 'TContext', 'teval', 'elementwise_series', 'constant_series',
            'coordinate_series', 'affine_series', 'lifted_series', 'concat_series',
            'slice_series', 'sum_series', 'add_series', 'derivative_series', 'partial_entry']
-
-_HIGH_ORDER = ("Taylor orders above 2 are not ported yet "
-               "(ROADMAP.md §1 item 16, 'Taylor orders >= 3 without jet')")
 
 class TSeries:
     __slots__ = ('c0', 'derivs', 'meta')
@@ -71,8 +71,6 @@ class TContext:
     its :meth:`at_order` views share."""
 
     def __init__(self, points, order):
-        if order > 2:
-            raise NotImplementedError(_HIGH_ORDER)
         self.points = points
         self.order = order
         d = points.shape[1]
@@ -100,8 +98,6 @@ class TContext:
         directions and cache."""
         if order == self.order:
             return self
-        if order > 2:
-            raise NotImplementedError(_HIGH_ORDER)
         view = object.__new__(TContext)
         view.__dict__.update(self.__dict__)
         view.order = order
@@ -274,8 +270,8 @@ def partial_entry(field, alpha, ctx):
     (and on the card by the fused kernel), where the JAX package would run
     the net again in a single-direction context when the main series is
     shallower. A mixed partial is solved from an auxiliary polarization
-    context (:func:`_extraction_plan`). Total orders above 2 raise.
-    Everything memoizes on the base context.
+    context (:func:`_extraction_plan`). Everything memoizes on the base
+    context.
     """
     base = ctx.base
     while getattr(field, '_dinfo', None) is not None:
@@ -288,8 +284,6 @@ def partial_entry(field, alpha, ctx):
     if hit is not None:
         return hit[1]
     n_total = sum(o for _, o in alpha)
-    if n_total > 2:
-        raise NotImplementedError(_HIGH_ORDER)
     if len(alpha) == 1:
         axis, order = alpha[0]
         out = teval(field, base, order=order).derivs[order - 1][axis]
@@ -412,30 +406,113 @@ def elementwise_series(op, operands, order):
 
     :param op: elementwise function of ``len(operands)`` tensors.
     :param operands: list of TSeries with broadcast-compatible shapes.
-    :param order: series order K (0, 1 or 2).
+    :param order: series order K.
     """
     c0_out = op(*[s.c0 for s in operands])
     if order == 0:
         return TSeries(c0_out, [])
-    if order > 2:
-        raise NotImplementedError(_HIGH_ORDER)
-    return _elementwise_manual(op, operands, order, c0_out)
+    return _elementwise_rules(op, operands, order, c0_out)
 
 
-def _chain_unary(a, order, c0_out, f1, f2):
-    """Assemble the unary chain rule from precomputed f'(x), f''(x)."""
+def _leibniz(a, b, K, start=0):
+    r"""Derivatives ``start``..K of a product from the derivative lists ``a``
+    and ``b`` (value first): :math:`(ab)^{(k)} = \sum_j \binom{k}{j} a^{(j)} b^{(k-j)}`."""
+    out = []
+    for k in range(start, K + 1):
+        acc = None
+        for j in range(k + 1):
+            term = a[j] * b[k - j]
+            if 0 < j < k:
+                term = math.comb(k, j) * term
+            acc = term if acc is None else acc + term
+        out.append(acc)
+    return out
+
+
+def _quotient(a, b, K, q0):
+    r"""Derivatives 0..K of ``a / b`` (value ``q0``) from the derivative lists:
+    :math:`q^{(k)} = (a^{(k)} - \sum_{j \ge 1} \binom{k}{j} b^{(j)} q^{(k-j)}) / b`."""
+    inv = 1 / b[0]
+    q = [q0]
+    for k in range(1, K + 1):
+        acc = a[k]
+        for j in range(1, k + 1):
+            term = b[j] * q[k - j]
+            acc = acc - (term if j == k else math.comb(k, j) * term)
+        q.append(acc * inv)
+    return q
+
+
+def _chain_unary(a, order, c0_out, fs):
+    r"""The series of f(a) from the derivatives ``fs[j-1]`` = :math:`f^{(j)}(a_0)`
+    (None where one vanishes), by Faa di Bruno's formula
+    :math:`(f \circ a)^{(k)} = \sum_j f^{(j)}(a_0) B_{k,j}(a', a'', \dots)`,
+    with the partial Bell polynomials built by their recurrence
+    :math:`B_{k,j} = \sum_i \binom{k-1}{i-1} a^{(i)} B_{k-i,j-1}`."""
     if order == 0:
         return TSeries(c0_out, [])
-    a1 = a.derivs[0]
-    derivs = [f1 * a1]
-    if order == 2:
-        a2 = a.derivs[1]
-        derivs.append(f1 * a2 if f2 is None else f1 * a2 + f2 * a1 * a1)
+    bell = {}
+
+    def B(k, j):
+        if j == 1:
+            return a.derivs[k - 1]
+        hit = bell.get((k, j))
+        if hit is None:
+            for i in range(1, k - j + 2):
+                term = a.derivs[i - 1] * B(k - i, j - 1)
+                c = math.comb(k - 1, i - 1)
+                term = term if c == 1 else c * term
+                hit = term if hit is None else hit + term
+            bell[(k, j)] = hit
+        return hit
+
+    derivs = []
+    for k in range(1, order + 1):
+        acc = None
+        for j in range(1, k + 1):
+            if fs[j - 1] is not None:
+                term = fs[j - 1] * B(k, j)
+                acc = term if acc is None else acc + term
+        derivs.append(torch.zeros_like(a.derivs[k - 1]) if acc is None else acc)
     return TSeries(c0_out, derivs)
 
 
-# closed-form (f', f'') for unary ops, reusing the forward value v where
-# possible: one transcendental per op instead of a generic nested jvp
+# derivatives f', f'', ... of the unary ops at the value, ``(x, v, K) -> K``
+# entries, reusing the forward value v where possible: closed forms through
+# order 2 (one transcendental per op), recurrences past it
+
+# f^(j) of tanh, sigmoid and tan as polynomials in the value t: P_0 = t and
+# P_{j+1} = P_j'(t) Q(t), with Q = t' (1 - t^2, t - t^2, 1 + t^2)
+_POLY_Q = {'tanh': [1., 0., -1.], 'sigmoid': [0., 1., -1.], 'tan': [1., 0., 1.]}
+_POLYS = {}
+
+
+def _value_poly(kind, j):
+    key = (kind, j)
+    if key not in _POLYS:
+        _POLYS[key] = (np.array([0., 1.]) if j == 0
+                       else npoly.polymul(npoly.polyder(_value_poly(kind, j - 1)), _POLY_Q[kind]))
+    return _POLYS[key]
+
+
+def _horner(coeffs, x):
+    """The polynomial with coefficients ``coeffs`` (lowest first) at ``x``."""
+    acc = torch.full_like(x, float(coeffs[-1]))
+    for c in reversed(coeffs[:-1]):
+        acc = acc * x + float(c)
+    return acc
+
+
+def _poly_rule(kind, low):
+    """A rule whose derivatives are polynomials in the value (``_value_poly``),
+    with the closed forms ``low(x, v)`` for orders 1 and 2."""
+    def rule(x, v, K):
+        fs = list(low(x, v))[:K]
+        return fs + [_horner(_value_poly(kind, j), v) for j in range(len(fs) + 1, K + 1)]
+
+    return rule
+
+
 def _d_tanh(x, v):
     f1 = 1 - v * v
     return f1, -2 * v * f1
@@ -446,24 +523,70 @@ def _d_sigmoid(x, v):
     return f1, f1 * (1 - 2 * v)
 
 
-def _d_sqrt(x, v):
-    f1 = 0.5 / v
-    return f1, -0.5 * f1 / x
-
-
-def _d_log(x, v):
-    inv = 1 / x
-    return inv, -inv * inv
-
-
-def _d_erf(x, v):
-    f1 = (2 / math.sqrt(math.pi)) * torch.exp(-x * x)
-    return f1, -2 * x * f1
-
-
 def _d_tan(x, v):
     f1 = 1 + v * v
     return f1, 2 * v * f1
+
+
+def _cyclic(K, cycle):
+    """f^(j) = cycle[(j - 1) % len(cycle)] for j = 1..K (sin, cos, sinh, cosh)."""
+    return [cycle[j % len(cycle)] for j in range(K)]
+
+
+def _d_sin(x, v, K):
+    c = torch.cos(x)
+    return _cyclic(K, [c, -v] if K <= 2 else [c, -v, -c, v])
+
+
+def _d_cos(x, v, K):
+    s = torch.sin(x)
+    return _cyclic(K, [-s, -v] if K <= 2 else [-s, -v, s, v])
+
+
+def _d_log(x, v, K):
+    inv = 1 / x
+    fs = [inv, -inv * inv][:K]
+    for j in range(3, K + 1):  # f^(j) = (-1)^(j-1) (j-1)! / x^j
+        fs.append(-(j - 1) * fs[-1] * inv)
+    return fs
+
+
+def _d_sqrt(x, v, K):
+    f1 = 0.5 / v
+    fs = [f1, -0.5 * f1 / x][:K]
+    for j in range(3, K + 1):  # f^(j) = (1/2 - j + 1) f^(j-1) / x
+        fs.append((0.5 - (j - 1)) * fs[-1] / x)
+    return fs
+
+
+def _d_erf(x, v, K):
+    f1 = (2 / math.sqrt(math.pi)) * torch.exp(-x * x)
+    fs = [f1, -2 * x * f1][:K]
+    h_prev, h = 2 * x, 4 * x * x - 2  # Hermite H_1, H_2: f^(j) = (-1)^(j-1) H_{j-1}(x) f'
+    for j in range(3, K + 1):
+        fs.append((h if j % 2 else -h) * f1)
+        h_prev, h = h, 2 * x * h - 2 * (j - 1) * h_prev
+    return fs
+
+
+def _rational_rule(base, step, power, sign=1):
+    """f^(j) = sign * R_j(x) * f'^(power(j)) for the inverse trig functions,
+    with R_1 = 1 and ``R_{j+1} = step(R_j, j)`` (numpy polynomials in x)."""
+    polys = {1: np.array([1.])}
+
+    def R(j):
+        if j not in polys:
+            polys[j] = step(R(j - 1), j - 1)
+        return polys[j]
+
+    def rule(x, v, K):
+        f1, f2 = base(x, v)
+        fs = [f1, f2][:K]
+        for j in range(3, K + 1):
+            fs.append(sign * _horner(R(j), x) * (f1 / sign) ** power(j))
+        return fs
+
+    return rule
 
 
 def _d_atan(x, v):
@@ -481,100 +604,129 @@ def _d_acos(x, v):
     return f1, x * f1 * f1 * f1
 
 
+# atan: f^(j) = Q_j(x) / (1 + x^2)^j with Q_{j+1} = Q_j' (1 + x^2) - 2 j x Q_j;
+# asin: f^(j) = R_j(x) / (1 - x^2)^(j - 1/2) with R_{j+1} = R_j' (1 - x^2) + (2j - 1) x R_j
+_atan_step = lambda q, j: npoly.polysub(npoly.polymul(npoly.polyder(q), [1., 0., 1.]),  # noqa: E731
+                                        npoly.polymul(q, [0., 2. * j]))
+_asin_step = lambda r, j: npoly.polyadd(npoly.polymul(npoly.polyder(r), [1., 0., -1.]),  # noqa: E731
+                                        npoly.polymul(r, [0., 2. * j - 1.]))
+
 _UNARY_RULES = {
-    torch.tanh: _d_tanh,
-    torch.exp: lambda x, v: (v, v),
-    torch.sin: lambda x, v: (torch.cos(x), -v),
-    torch.cos: lambda x, v: (-torch.sin(x), -v),
-    torch.sinh: lambda x, v: (torch.cosh(x), v),
-    torch.cosh: lambda x, v: (torch.sinh(x), v),
+    torch.tanh: _poly_rule('tanh', _d_tanh),
+    torch.sigmoid: _poly_rule('sigmoid', _d_sigmoid),
+    torch.tan: _poly_rule('tan', _d_tan),
+    torch.exp: lambda x, v, K: [v] * K,
+    torch.sin: _d_sin,
+    torch.cos: _d_cos,
+    torch.sinh: lambda x, v, K: _cyclic(K, [torch.cosh(x), v]),
+    torch.cosh: lambda x, v, K: _cyclic(K, [torch.sinh(x), v]),
     torch.log: _d_log,
     torch.sqrt: _d_sqrt,
-    torch.sigmoid: _d_sigmoid,
-    torch.neg: lambda x, v: (-torch.ones_like(x), None),
-    torch.abs: lambda x, v: (torch.sign(x), None),
+    torch.neg: lambda x, v, K: [-torch.ones_like(x)] + [None] * (K - 1),
+    torch.abs: lambda x, v, K: [torch.sign(x)] + [None] * (K - 1),
     torch.erf: _d_erf,
-    torch.tan: _d_tan,
-    torch.atan: _d_atan,
-    torch.asin: _d_asin,
-    torch.acos: _d_acos,
+    torch.atan: _rational_rule(_d_atan, _atan_step, lambda j: j),
+    torch.asin: _rational_rule(_d_asin, _asin_step, lambda j: 2 * j - 1),
+    torch.acos: _rational_rule(_d_acos, _asin_step, lambda j: 2 * j - 1, sign=-1),
 }
+
+
+def _pair(a, b):
+    """The two arguments as tensors: a Python number takes the other's dtype and device."""
+    if isinstance(a, numbers.Number):
+        a = torch.as_tensor(a, dtype=b.dtype, device=b.device)
+    elif isinstance(b, numbers.Number):
+        b = torch.as_tensor(b, dtype=a.dtype, device=a.device)
+    return a, b
+
+
+def maximum(a, b):
+    """``torch.maximum`` that also takes a Python number for either argument."""
+    return torch.maximum(*_pair(a, b))
+
+
+def minimum(a, b):
+    """``torch.minimum`` that also takes a Python number for either argument."""
+    return torch.minimum(*_pair(a, b))
+
 
 # every op a Field may be lifted through with a Taylor rule
 RULE_OPS = frozenset(_UNARY_RULES) | {
-    operator.add, operator.sub, operator.mul, operator.truediv, operator.pow, torch.atan2}
+    operator.add, operator.sub, operator.mul, operator.truediv, operator.pow, torch.atan2, maximum, minimum}
 
 
-def _elementwise_manual(op, operands, order, c0_out):
-    """Chain rules for order <= 2: exact algebra for + - * /, closed forms
-    for the unary ops, and a path jvp for anything else."""
+def _elementwise_rules(op, operands, order, c0_out):
+    """Leibniz for ``*`` and ``/``, Faa di Bruno for the unary ops, binary
+    rules for ``atan2``, ``maximum`` and ``minimum``, and a path jvp for
+    anything else."""
+    K = order
     if len(operands) == 2:
         a, b = operands
         if op is operator.add or op is operator.sub:
             return TSeries(c0_out, [op(x, y) for x, y in zip(a.derivs, b.derivs)])
         if op is operator.mul:
-            a0, b0 = a.c0, b.c0
-            x1, y1 = a.derivs[0], b.derivs[0]
-            derivs = [x1 * b0 + a0 * y1]
-            if order == 2:
-                x2, y2 = a.derivs[1], b.derivs[1]
-                derivs.append(x2 * b0 + a0 * y2 + 2 * x1 * y1)
-            return TSeries(c0_out, derivs)
+            return TSeries(c0_out, _leibniz([a.c0] + a.derivs, [b.c0] + b.derivs, K, start=1))
         if op is operator.truediv:
-            inv_b, q = 1 / b.c0, c0_out
-            # q' = (a' - q b') / b ;  q'' = (a'' - q b'' - 2 q' b') / b
-            q1 = (a.derivs[0] - q * b.derivs[0]) * inv_b
-            derivs = [q1]
-            if order == 2:
-                derivs.append((a.derivs[1] - q * b.derivs[1] - 2 * q1 * b.derivs[0]) * inv_b)
-            return TSeries(c0_out, derivs)
-        if op is torch.atan2:  # atan2(y, x): d = (x dy - y dx) / (x^2 + y^2)
-            y0, x0 = a.c0, b.c0
-            inv = 1 / (x0 * x0 + y0 * y0)
-            fy, fx = x0 * inv, -y0 * inv
-            y1, x1 = a.derivs[0], b.derivs[0]
-            derivs = [fy * y1 + fx * x1]
-            if order == 2:
-                # f_yy = -f_xx = -2xy / rho^2, f_xy = (y^2 - x^2) / rho^2
-                fxx, fxy = 2 * x0 * y0 * inv * inv, (y0 * y0 - x0 * x0) * inv * inv
-                derivs.append(fy * a.derivs[1] + fx * b.derivs[1]
-                              + fxx * (x1 * x1 - y1 * y1) + 2 * fxy * x1 * y1)
-            return TSeries(c0_out, derivs)
+            return TSeries(c0_out, _quotient([a.c0] + a.derivs, [b.c0] + b.derivs, K, c0_out)[1:])
+        if op is torch.atan2:
+            # z = atan2(y, x): z' = (x y' - y x') / (x^2 + y^2), and z^(k) = (z')^(k-1)
+            y, x = [a.c0] + a.derivs, [b.c0] + b.derivs
+            num = [p - q for p, q in zip(_leibniz(x, y[1:], K - 1), _leibniz(y, x[1:], K - 1))]
+            rho = [p + q for p, q in zip(_leibniz(x, x, K - 1), _leibniz(y, y, K - 1))]
+            return TSeries(c0_out, _quotient(num, rho, K - 1, num[0] / rho[0]))
+        if op is maximum or op is minimum:
+            # the derivatives of the larger (smaller) operand, averaged at ties
+            # (the weights of torch's and JAX's derivative rules)
+            wins = a.c0 > b.c0 if op is maximum else a.c0 < b.c0
+            w = wins.to(c0_out.dtype) + 0.5 * (a.c0 == b.c0).to(c0_out.dtype)
+            return TSeries(c0_out, [w * x + (1 - w) * y for x, y in zip(a.derivs, b.derivs)])
 
     if len(operands) == 1:
         rule = _UNARY_RULES.get(op)
         if rule is not None:
-            f1, f2 = rule(operands[0].c0, c0_out)
-            return _chain_unary(operands[0], order, c0_out, f1, f2)
+            return _chain_unary(operands[0], K, c0_out, rule(operands[0].c0, c0_out, K))
 
-    # generic rule: nest jvp through a scalar path parameter s with
-    # args a(s) = a0 + a1 s + a2 s^2/2. The second s-derivative at 0 is the
-    # second directional derivative including all cross terms.
-    from torch.func import jvp
+    # generic rule: nest jvp through a scalar path parameter s with args
+    # a(s) = sum_k a_k s^k / k!. The k-th s-derivative at 0 is the k-th
+    # directional derivative, all cross terms included.
     zero = torch.zeros((), dtype=c0_out.dtype, device=c0_out.device)
     one = torch.ones_like(zero)
     n_dirs = operands[0].derivs[0].shape[0]
-    d1_parts, d2_parts = [], []
+    parts = [[] for _ in range(K)]
     for d in range(n_dirs):
         def path(s, _d=d):
             args = []
             for sr in operands:
-                a = sr.c0 + s * sr.derivs[0][_d]
-                if order == 2:
-                    a = a + (0.5 * s * s) * sr.derivs[1][_d]
+                a = sr.c0
+                for k, dk in enumerate(sr.derivs[:K], 1):
+                    a = a + (s ** k / math.factorial(k)) * dk[_d]
                 args.append(a)
             return op(*args)
 
-        if order == 1:
-            d1_parts.append(jvp(path, (zero,), (one,))[1])
-        else:
-            d1, d2 = jvp(lambda s, _p=path: jvp(_p, (s,), (one,))[1], (zero,), (one,))
-            d1_parts.append(d1)
-            d2_parts.append(d2)
-    derivs = [torch.stack(d1_parts)]
-    if order == 2:
-        derivs.append(torch.stack(d2_parts))
-    return TSeries(c0_out, derivs)
+        g = path
+        for k in range(K):
+            g = _derivative_of(g, one)
+            parts[k].append(g(zero))
+    return TSeries(c0_out, [torch.stack(p) for p in parts])
+
+
+def _derivative_of(g, one):
+    from torch.func import jvp
+    return lambda s: jvp(g, (s,), (one,))[1]
+
+
+def _power_derivs(x, p, K):
+    r"""f^(j) of :math:`x^p` for a constant p: :math:`p (p-1) \cdots (p-j+1) x^{p-j}`,
+    in closed form at every order; None once the falling factorial of a
+    whole p vanishes, so ``x ** 2`` has no term in :math:`x^{-1}` (which
+    would make its derivatives NaN at x = 0)."""
+    fs, coef = [], 1.0
+    for j in range(1, K + 1):
+        coef = coef * (p - (j - 1))
+        if isinstance(coef, numbers.Number) and coef == 0:
+            return fs + [None] * (K - j + 1)
+        fs.append(coef * x ** (p - j))
+    return fs
 
 
 def lifted_series(op, arg_descs, ctx):
@@ -605,24 +757,28 @@ def lifted_series(op, arg_descs, ctx):
         if op is operator.mul:
             return TSeries(s.c0 * c, [d * c for d in s.derivs])
         if op is operator.truediv:
-            if const_first:  # c / x: the unary 1/x, scaled
+            if const_first:  # c / x: f^(j) = c (-1)^j j! / x^(j+1)
                 c0 = c / s.c0
                 inv = 1 / s.c0
-                f1 = -c0 * inv
-                return _chain_unary(s, order, c0, f1, -2 * f1 * inv)
+                fs = [-c0 * inv]
+                for j in range(2, order + 1):
+                    fs.append(-j * fs[-1] * inv)
+                return _chain_unary(s, order, c0, fs)
             inv = 1 / c
             return TSeries(s.c0 * inv, [d * inv for d in s.derivs])
         if op is operator.pow:
             if not const_first:  # x ** p, p constant
-                p = c
-                f1 = p * s.c0 ** (p - 1)
-                trivial = isinstance(p, (int, float)) and float(p) in (0.0, 1.0)
-                f2 = None if trivial else (p * (p - 1)) * s.c0 ** (p - 2)
-                return _chain_unary(s, order, s.c0 ** p, f1, f2)
-            # c ** x, c constant
+                return _chain_unary(s, order, s.c0 ** c, _power_derivs(s.c0, c, order))
+            # c ** x, c constant: f^(j) = c^x ln(c)^j
             c0 = c ** s.c0
             ln_c = math.log(c) if isinstance(c, (int, float)) else torch.log(c)
-            return _chain_unary(s, order, c0, c0 * ln_c, c0 * ln_c * ln_c)
+            fs = [c0 * ln_c]
+            for _ in range(1, order):
+                fs.append(fs[-1] * ln_c)
+            return _chain_unary(s, order, c0, fs)
+        if op is maximum or op is minimum:  # the series where it wins (ties included), else 0
+            c0 = op(s.c0, c)
+            return _chain_unary(s, order, c0, [(c0 == s.c0).to(c0.dtype)] + [None] * (order - 1))
 
     operands = [payload if kind == 'series' else constant_series(payload, ctx, ctx.points.shape[0])
                 for kind, payload in arg_descs]

@@ -33,8 +33,9 @@ import torch
 
 from ._version_utils import deprecated_alias
 from .conditions import BaseCondition
+from . import fields
 from .fields import Field, cat as field_cat, coords_from_points
-from .generators import Generator1D, Generator2D, GeneratorSpherical
+from .generators import Generator1D, Generator2D, GeneratorSpherical, _as_tuple, contains_buried_adaptive
 from .losses import _losses
 from .networks import FCNN, Tanh
 from .utils import full_precision_matmuls, get_generator, resolve
@@ -47,6 +48,16 @@ except ImportError:  # pragma: no cover
 __all__ = ['BaseSolver', 'GenericSolver', 'Solver1D', 'BundleSolver1D', 'Solver2D', 'SolverSpherical',
            'BaseSolution', 'GenericSolution', 'Solution1D', 'BundleSolution1D', 'Solution2D', 'SolutionSpherical',
            'SolutionSphericalHarmonics']
+
+
+def _warn_if_buried(generator):
+    if contains_buried_adaptive(generator):
+        warnings.warn(
+            "A ResidualAdaptiveGenerator is nested inside a combinator "
+            "(e.g. Concat/Ensemble/Mesh/Transform); only the OUTERMOST "
+            "train generator's adaptive selection is honored, so this "
+            "solver will train WITHOUT adaptive sampling. Wrap the whole "
+            "combined generator instead: ResidualAdaptiveGenerator(g1 + g2).")
 
 
 def _requires_closure(optimizer):
@@ -92,6 +103,13 @@ class BaseSolver(ABC):
     :param shuffle: **[DEPRECATED]** ignored; generators shuffle.
     :param batch_size: **[DEPRECATED]** ignored; use ``n_batches_train`` and
         ``n_batches_valid``.
+    :param eval_mode: None, or 'taylor' or 'compose': the Field evaluation
+        strategy (:func:`~neurodiffeq_tpu_torch.fields.eval_mode`) under
+        which the loss and the adaptive-sampling scores are computed.
+
+    A :class:`~neurodiffeq_tpu_torch.generators.ResidualAdaptiveGenerator`
+    as the train generator draws its candidates each batch and keeps them by
+    the current residual (:meth:`_residual_scores`).
     """
 
     @deprecated_alias(criterion='loss_fn')
@@ -99,7 +117,7 @@ class BaseSolver(ABC):
                  analytic_solutions=None, optimizer=None, loss_fn=None, n_batches_train=1,
                  n_batches_valid=4, metrics=None, n_input_units=None, n_output_units=None,
                  residual_weights=None, device=None, dtype=None, generator=None,
-                 shuffle=None, batch_size=None):
+                 shuffle=None, batch_size=None, eval_mode=None):
         if shuffle:
             warnings.warn("param `shuffle` is deprecated and ignored; shuffling should be performed by generators",
                           FutureWarning)
@@ -109,6 +127,7 @@ class BaseSolver(ABC):
         self.device, self.dtype = resolve(device, dtype)
         if self.device.type == 'cuda':
             full_precision_matmuls()
+        self.eval_mode = None if eval_mode is None else fields._check_mode(eval_mode)
         self.diff_eqs = diff_eqs
         self.conditions = conditions
         self.n_funcs = len(conditions)
@@ -134,6 +153,7 @@ class BaseSolver(ABC):
             raise ValueError("train_generator must be specified")
         if valid_generator is None:
             raise ValueError("valid_generator must be specified")
+        _warn_if_buried(train_generator)
         self.generator = {'train': train_generator, 'valid': valid_generator}
         if n_batches_train < 1 or n_batches_valid < 0:
             raise ValueError(f"need n_batches_train >= 1 and n_batches_valid >= 0, "
@@ -206,6 +226,8 @@ class BaseSolver(ABC):
         """Swap the collocation generator of ``phase`` (``'train'`` or ``'valid'``)."""
         if phase not in self.generator:
             raise ValueError(f"phase must be one of {list(self.generator)}, got {phase!r}")
+        if phase == 'train':
+            _warn_if_buried(generator)
         self.generator[phase] = generator
 
     @property
@@ -247,8 +269,15 @@ class BaseSolver(ABC):
         power = getattr(self.loss_fn, 'residual_power', 2)
         return [r * (w ** (1.0 / power)) for r, w in zip(residuals, rw)]
 
+    def _eval_scope(self):
+        return fields.eval_mode(self.eval_mode) if self.eval_mode is not None else nullcontext()
+
     def _loss_and_metrics(self, cols):
         """Enforce, residuals, loss + additional loss, metrics."""
+        with self._eval_scope():
+            return self._loss_and_metrics_inner(cols)
+
+    def _loss_and_metrics_inner(self, cols):
         funcs, coord_fields = self._forward(cols)
         residual = self._residuals(funcs, coord_fields, weighted=True)
         loss = self.loss_fn(residual, funcs, coord_fields)
@@ -262,8 +291,24 @@ class BaseSolver(ABC):
         scalar. Under ``residual_weights``, ``residual`` is the weighted one."""
         return 0.0
 
+    @torch.no_grad()
+    def _residual_scores(self, cols):
+        """Per-point residual magnitude, the L2 norm over the (weighted)
+        equations: the epsilon(x) score of Wu et al. (2023), so that the
+        adaptive generator's default ``alpha=1`` is their RAD k = 1. No
+        gradient flows through it."""
+        with self._eval_scope():
+            funcs, coord_fields = self._forward(cols)
+            r = self._residuals(funcs, coord_fields, weighted=True).value
+        return torch.sqrt((r * r).sum(dim=1))
+
     def _generate_batch(self, phase):
-        return [c.reshape(-1, 1) for c in self.generator[phase].sample(self.rng)]
+        gen = self.generator[phase]
+        if phase == 'train' and getattr(gen, 'adaptive', False):
+            samples = gen.sample_scored(self.rng, lambda cand: self._residual_scores([c.reshape(-1, 1) for c in cand]))
+        else:
+            samples = gen.sample(self.rng)
+        return [c.reshape(-1, 1) for c in _as_tuple(samples)]
 
     # ---------------------------------------------------------------- epochs
     def _closure_step(self, cols):
@@ -578,7 +623,8 @@ class Solver1D(BaseSolver):
     def __init__(self, ode_system, conditions, t_min=None, t_max=None, nets=None,
                  train_generator=None, valid_generator=None, analytic_solutions=None, optimizer=None,
                  loss_fn=None, n_batches_train=1, n_batches_valid=4, metrics=None, n_output_units=1,
-                 residual_weights=None, device=None, dtype=None, generator=None, shuffle=None, batch_size=None):
+                 residual_weights=None, device=None, dtype=None, generator=None, shuffle=None, batch_size=None,
+                 eval_mode=None):
         if train_generator is None or valid_generator is None:
             if t_min is None or t_max is None:
                 raise ValueError(
@@ -599,7 +645,8 @@ class Solver1D(BaseSolver):
             analytic_solutions=analytic_solutions, optimizer=optimizer, loss_fn=loss_fn,
             n_batches_train=n_batches_train, n_batches_valid=n_batches_valid, metrics=metrics,
             n_input_units=1, n_output_units=n_output_units, residual_weights=residual_weights,
-            device=device, dtype=dtype, generator=generator, shuffle=shuffle, batch_size=batch_size)
+            device=device, dtype=dtype, generator=generator, shuffle=shuffle, batch_size=batch_size,
+            eval_mode=eval_mode)
 
     def get_solution(self, copy=True, best=True):
         r"""A callable solution evaluated as ``solution(ts)``.
@@ -646,7 +693,8 @@ class BundleSolver1D(BaseSolver):
     def __init__(self, ode_system, conditions, t_min, t_max, theta_min=None, theta_max=None, eq_param_index=(),
                  nets=None, train_generator=None, valid_generator=None, analytic_solutions=None, optimizer=None,
                  loss_fn=None, n_batches_train=1, n_batches_valid=4, metrics=None, n_output_units=1,
-                 residual_weights=None, device=None, dtype=None, generator=None, batch_size=None, shuffle=None):
+                 residual_weights=None, device=None, dtype=None, generator=None, batch_size=None, shuffle=None,
+                 eval_mode=None):
         if train_generator is None or valid_generator is None:
             if t_min is None or t_max is None:
                 raise ValueError(
@@ -686,7 +734,8 @@ class BundleSolver1D(BaseSolver):
             analytic_solutions=analytic_solutions, optimizer=optimizer, loss_fn=loss_fn,
             n_batches_train=n_batches_train, n_batches_valid=n_batches_valid, metrics=metrics,
             n_input_units=len(self.r_min), n_output_units=n_output_units, residual_weights=residual_weights,
-            device=device, dtype=dtype, generator=generator, shuffle=shuffle, batch_size=batch_size)
+            device=device, dtype=dtype, generator=generator, shuffle=shuffle, batch_size=batch_size,
+            eval_mode=eval_mode)
 
     def get_solution(self, copy=True, best=True):
         r"""A callable solution evaluated as ``solution(ts, theta_1, ..., theta_n)``.
@@ -722,7 +771,8 @@ class Solver2D(BaseSolver):
     def __init__(self, pde_system, conditions, xy_min=None, xy_max=None, nets=None,
                  train_generator=None, valid_generator=None, analytic_solutions=None, optimizer=None,
                  loss_fn=None, n_batches_train=1, n_batches_valid=4, metrics=None, n_output_units=1,
-                 residual_weights=None, device=None, dtype=None, generator=None, shuffle=None, batch_size=None):
+                 residual_weights=None, device=None, dtype=None, generator=None, shuffle=None, batch_size=None,
+                 eval_mode=None):
         if train_generator is None or valid_generator is None:
             if xy_min is None or xy_max is None:
                 raise ValueError(
@@ -743,7 +793,8 @@ class Solver2D(BaseSolver):
             analytic_solutions=analytic_solutions, optimizer=optimizer, loss_fn=loss_fn,
             n_batches_train=n_batches_train, n_batches_valid=n_batches_valid, metrics=metrics,
             n_input_units=2, n_output_units=n_output_units, residual_weights=residual_weights,
-            device=device, dtype=dtype, generator=generator, shuffle=shuffle, batch_size=batch_size)
+            device=device, dtype=dtype, generator=generator, shuffle=shuffle, batch_size=batch_size,
+            eval_mode=eval_mode)
 
     def get_solution(self, copy=True, best=True):
         r"""A callable solution evaluated as ``solution(xs, ys)``.
@@ -813,7 +864,7 @@ class SolverSpherical(BaseSolver):
                  train_generator=None, valid_generator=None, analytic_solutions=None, optimizer=None,
                  loss_fn=None, n_batches_train=1, n_batches_valid=4, metrics=None, enforcer=None,
                  n_output_units=1, residual_weights=None, device=None, dtype=None, generator=None,
-                 shuffle=None, batch_size=None):
+                 shuffle=None, batch_size=None, eval_mode=None):
         if train_generator is None or valid_generator is None:
             if r_min is None or r_max is None:
                 raise ValueError(
@@ -835,7 +886,8 @@ class SolverSpherical(BaseSolver):
             analytic_solutions=analytic_solutions, optimizer=optimizer, loss_fn=loss_fn,
             n_batches_train=n_batches_train, n_batches_valid=n_batches_valid, metrics=metrics,
             n_input_units=3, n_output_units=n_output_units, residual_weights=residual_weights,
-            device=device, dtype=dtype, generator=generator, shuffle=shuffle, batch_size=batch_size)
+            device=device, dtype=dtype, generator=generator, shuffle=shuffle, batch_size=batch_size,
+            eval_mode=eval_mode)
 
     def _auto_enforce(self, net, cond, *coordinates):
         r"""Enforce the condition with as many coordinates as its

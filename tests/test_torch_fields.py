@@ -127,9 +127,10 @@ def test_torch_math_on_a_field_raises():
 
 
 def test_unported_paths_raise():
-    """A field without a Taylor rule raises, for want of the compose
-    fallback; a mixed partial of a network field equals torch's double
-    backward."""
+    """A field without a Taylor rule composes (nested ``torch.func.jvp``),
+    counting one fallback, and equals torch's backward; a mixed partial of a
+    network field equals torch's double backward. (The name dates from
+    before the compose fallback was ported, when such a field raised.)"""
     pts = torch.rand(6, 2, dtype=torch.float64)
     x, y = F.coords_from_points(pts)
     _, _, tnet = _nets()
@@ -139,9 +140,10 @@ def test_unported_paths_raise():
     _close(F.diff(F.diff(F.network_field(tnet, (x, y)), x), y).value[:, 0], hx[:, 1])
     relu_net = FCNN(2, 1, hidden_units=(4,), actv=torch.nn.ReLU, dtype=torch.float64)
     F.reset_taylor_fallback_count()
-    with pytest.raises(NotImplementedError, match='fallback'):
-        F.diff(F.network_field(relu_net, (x, y)), x).value
+    got = F.diff(F.network_field(relu_net, (x, y)), x).value
     assert F.taylor_fallback_count() == 1
+    (want,) = torch.autograd.grad(relu_net(leaf).sum(), leaf)
+    _close(got[:, 0], want[:, 0])
     F.reset_taylor_fallback_count()
 
 

@@ -378,12 +378,19 @@ def test_identities_needing_mixed_partials_raise(identity):
 
 
 def test_h1_of_the_poisson_residual_needs_order_3():
-    """The second-order spherical residual's H1 norm needs order 3 first."""
-    (net,) = _nets(3, 1, 1, (8,), seed=32)[2]
-    coords = F.coords_from_points(torch.tensor(_sphere_points(8, 33)))
-    u = NoCondition().enforce(net, *coords)
-    with pytest.raises(NotImplementedError, match='item 16'):
-        L._losses['h1'](O.spherical_laplacian(u, *coords), [u], list(coords))
+    """The second-order spherical residual's H1 norm needs order 3: it
+    equals the JAX package's to 1e-10, with no fallback."""
+    from neurodiffeq_tpu import losses as JL
+    jnets, params, tnets = _nets(3, 1, 1, (8,), seed=32)
+    pts = _sphere_points(8, 33)
+    coords = F.coords_from_points(torch.tensor(pts))
+    u = NoCondition().enforce(tnets[0], *coords)
+    F.reset_taylor_fallback_count()
+    got = L._losses['h1'](O.spherical_laplacian(u, *coords), [u], list(coords))
+    assert F.taylor_fallback_count() == 0
+    jc = JF.coords_from_points(jnp.asarray(pts))
+    ju = JNoCondition().enforce(jnets[0], params[0], *jc)
+    _close(got, JL._losses['h1'](JO.spherical_laplacian(ju, *jc), [ju], list(jc)))
 
 
 # ------------------------------------------------------------- conditions
