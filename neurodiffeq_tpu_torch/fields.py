@@ -406,12 +406,29 @@ def _raw(x):
     return x.value if isinstance(x, Field) else x
 
 
+# (id(field), id(points), grad mode) -> (field, points, value) while an
+# outermost _call runs: a field that a formula names twice (a Neumann anchor
+# of IBVP1D's insulated variant, the columns of one net) is evaluated once
+_CALLS = None
+
+
 def _call(field, points):
     """``field.fn`` at ``points``, as an ``(N, width)`` tensor."""
-    out = field.fn(points)
-    if out.ndim < 2:
-        out = out.reshape(1, -1)
-    return out.expand(points.shape[0], field.width)
+    global _CALLS
+    if _CALLS is None:
+        _CALLS = {}
+        try:
+            return _call(field, points)
+        finally:
+            _CALLS = None
+    key = (id(field), id(points), torch.is_grad_enabled())
+    hit = _CALLS.get(key)
+    if hit is None:
+        out = field.fn(points)
+        if out.ndim < 2:
+            out = out.reshape(1, -1)
+        hit = _CALLS[key] = (field, points, out.expand(points.shape[0], field.width))
+    return hit[2]
 
 
 def _as_2d(v, n, like):
@@ -772,9 +789,10 @@ def diff(u, t, order=1, shape_check=True):
 
     When ``u`` has a Taylor rule, the value is read off its shared batched
     Taylor series (one network forward for every derivative of every order
-    and direction); otherwise it composes forward-mode derivatives of
-    ``u.fn``. Either way the result is a lazy Field on the same points that
-    can be differentiated further.
+    and direction); otherwise it composes repeated reverse-mode
+    ``torch.autograd.grad`` of ``u.fn`` (:func:`_grad_levels`). Either way
+    the result is a lazy Field on the same points that can be differentiated
+    further.
 
     :param u: The dependent variable, a Field of column width 1.
     :param t: The independent variable: a coordinate Field.

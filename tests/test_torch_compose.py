@@ -3,7 +3,8 @@ JAX package, in float64.
 
 - a field without a Taylor rule composes (repeated ``torch.autograd.grad`` on its
   batched function) and counts one fallback: ``pin`` and its derivatives,
-  ``scalar_field``, ``where``; every value equals the JAX package's;
+  ``scalar_field``, ``where``; every value equals the JAX package's; a
+  field named twice in one formula is evaluated once;
 - ``coordinates``, ``composite``, the lifted ``power``, ``maximum`` and
   ``minimum``, ``safe_diff``/``unsafe_diff``, ``set_diff_method`` (its three
   methods agree) and the ``neurodiffeq`` module alias;
@@ -282,3 +283,24 @@ def test_compose_values_are_differentiable_in_their_inputs():
     _close(grad[:, 1:], 2 * torch.cos(yv) - yv * torch.sin(yv))
     assert torch.equal(grad[:, 0], torch.zeros(N, dtype=torch.float64))
 
+
+
+
+def test_compose_evaluates_a_field_named_twice_once():
+    """A field that one formula names more than once (IBVP1D's insulated
+    variant names its x_min anchor's slope twice) is evaluated once per
+    composition, and the value and its derivatives still equal the JAX
+    package's: g = f^2 + f for f = pin(x^2 sin y, x = 0.5, slope) = sin y."""
+    (jx, jy), (x, y) = _both(_points(10))
+    calls = []
+    inner = x * x * F.sin(y)
+    traced = F.Field(inner.coords, 1, lambda p: calls.append(1) or inner.fn(p))
+    f = F.pin(traced, 0, 0.5, derivative_order=1)
+    jf = JF.pin(jx * jx * JF.sin(jy), 0, 0.5, derivative_order=1)
+    g, jg = f * f + f, jf * jf + jf
+    _close(g.value, jg.value)
+    assert len(calls) == 1
+    calls.clear()
+    for order in (1, 2):  # both start from g's one shared first gradient
+        _close(F.diff(g, y, order).value, JF.diff(jg, jy, order).value)
+    assert len(calls) == 1

@@ -127,10 +127,11 @@ def test_torch_math_on_a_field_raises():
 
 
 def test_unported_paths_raise():
-    """A field without a Taylor rule composes (nested ``torch.func.jvp``),
-    counting one fallback, and equals torch's backward; a mixed partial of a
-    network field equals torch's double backward. (The name dates from
-    before the compose fallback was ported, when such a field raised.)"""
+    """A field without a Taylor rule composes (repeated
+    ``torch.autograd.grad``), counting one fallback, and equals torch's
+    backward; a mixed partial of a network field equals torch's double
+    backward. (The name dates from before the compose fallback was ported,
+    when such a field raised.)"""
     pts = torch.rand(6, 2, dtype=torch.float64)
     x, y = F.coords_from_points(pts)
     _, _, tnet = _nets()
