@@ -136,6 +136,22 @@ class CoordSet:
             self._tctx = TContext(self.points, order)
         return self._tctx
 
+    def release(self):
+        """Empty the memoized Taylor contexts and first gradients. Their
+        fields refer back to this set (and a context to itself), cycles that
+        only Python's cycle collector would free, with every tensor and
+        autograd graph they hold; a solver releases each batch's set once
+        its loss is built (the loss's own graph keeps what its backward
+        needs)."""
+        from .ops.taylor import TContext
+        if self._tctx is not None:
+            for _, payload in list(self._tctx.cache.values()):
+                if isinstance(payload, TContext):  # a polarization context
+                    payload.cache.clear()
+            self._tctx.cache.clear()
+        self._tctx = None
+        self._grads = {}
+
     def coord_fields(self):
         """The d coordinate components as Fields (each knows its index)."""
         return tuple(Field(self, width=1, fn=_make_coord_fn(i), index=i, trule=_make_coord_trule(i))
@@ -146,10 +162,10 @@ def _make_coord_fn(i):
     return lambda p: p[:, i:i + 1]
 
 
-def _make_coord_trule(i):
+def _make_coord_trule(i, stop=None):
     def trule(ctx):
         from .ops.taylor import coordinate_series
-        return coordinate_series(i, ctx)
+        return coordinate_series(i, ctx, stop)
 
     return trule
 
@@ -682,6 +698,13 @@ def cat(fields, dim=1):
     width = sum(a.width if isinstance(a, Field) else _as_2d(p, n, cs.points).shape[1]
                 for a, (_, p) in zip(args, specs))
     torder = max(f.torder for f in field_args)
+    idxs = [a.index if isinstance(a, Field) else None for a in args]
+    if None not in idxs and idxs == list(range(idxs[0], idxs[-1] + 1)):
+        # a run of raw coordinates is a slice of the points (all of them: the
+        # points themselves), so its compose path splits and joins nothing
+        lo, hi = idxs[0], idxs[-1] + 1
+        return Field(cs, width, lambda p: p[:, lo:hi], trule=_make_coord_trule(lo, hi),
+                     combine=('cat', None, specs, field_args))
 
     def fn(p, _specs=tuple(specs), _operands=tuple(field_args)):
         return torch.cat([_as_2d(v, p.shape[0], p) for v in _operand_values(_specs, _operands, p)], dim=1)
@@ -708,11 +731,14 @@ def _grad_levels(out, z, order, pick, keep):
     the per-row derivative. ``pick(g)`` takes the direction differentiated
     along from a gradient (a column of the points, or all of a pinned
     value). ``keep``: record the last level's graph too (a loss then
-    differentiates the result again)."""
+    differentiates the result again). The graph that ``out`` hangs on is
+    kept: a field's first gradients serve all its derivatives
+    (:func:`_first_grads`), so one derivative under ``no_grad`` must not
+    free it for the next."""
     for k in range(order):
         if not out.requires_grad:  # constant in z
             return torch.zeros_like(out)
-        grads = [torch.autograd.grad(out[:, j].sum(), z, create_graph=keep or k < order - 1,
+        grads = [torch.autograd.grad(out[:, j].sum(), z, create_graph=keep or k < order - 1, retain_graph=True,
                                      allow_unused=True, materialize_grads=True)[0]
                  for j in range(out.shape[1])]
         out = torch.cat([pick(g) for g in grads], dim=1)

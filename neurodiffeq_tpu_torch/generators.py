@@ -26,13 +26,10 @@ import torch
 
 from .utils import get_generator, resolve
 
-__all__ = ['BaseGenerator', 'Generator1D', 'Generator2D', 'Generator3D', 'GeneratorSpherical', 'ConcatGenerator',
-           'StaticGenerator', 'PredefinedGenerator', 'TransformGenerator', 'EnsembleGenerator', 'MeshGenerator',
-           'FilterGenerator', 'ResampleGenerator', 'BatchGenerator', 'ResidualAdaptiveGenerator',
-           'SamplerGenerator', 'contains_buried_adaptive']
-
-_NO_HALTON = ("method 'halton' is not ported yet "
-              "(ROADMAP.md §1 item 17, the high-dimensional toolkit: scrambled Halton)")
+__all__ = ['BaseGenerator', 'Generator1D', 'Generator2D', 'Generator3D', 'GeneratorND', 'GeneratorSpherical',
+           'GeneratorHypercube', 'ConcatGenerator', 'StaticGenerator', 'PredefinedGenerator', 'TransformGenerator',
+           'EnsembleGenerator', 'MeshGenerator', 'FilterGenerator', 'ResampleGenerator', 'BatchGenerator',
+           'ResidualAdaptiveGenerator', 'SamplerGenerator', 'contains_buried_adaptive']
 
 
 def _linspace(start, stop, num, dtype, device):
@@ -74,6 +71,79 @@ def _latin_hypercube(gen, a, b, n, dtype, device):
     lowers = a + step * torch.arange(n, dtype=dtype, device=device)
     points = lowers + torch.rand(n, generator=gen, dtype=dtype, device=device) * step
     return points[torch.randperm(n, generator=gen, device=device)]
+
+
+# the prime bases of the Halton sequence's first 15 dimensions
+_HALTON_PRIMES = (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37, 41, 43, 47)
+
+
+def _halton_draws(gen, n, dim, dtype, device):
+    """The random draws of :func:`_halton_points`: per dimension of base
+    ``b >= 17`` a digit multiplier in ``[1, b)`` and ``n_digits`` digit
+    shifts in ``[0, b)`` (None below base 17), and the ``(dim,)`` rotation."""
+    scrambles = []
+    for b in _HALTON_PRIMES[:dim]:
+        if b < 17:
+            scrambles.append(None)
+            continue
+        a = int(torch.randint(1, b, (), generator=gen, device=device))
+        c = torch.randint(0, b, (_halton_digits(n, b),), generator=gen, device=device)
+        scrambles.append((a, c))
+    shift = torch.rand(dim, generator=gen, dtype=dtype, device=device)
+    return shift, scrambles
+
+
+def _halton_digits(n, b):
+    return int(np.log(max(n, 2)) / np.log(b)) + 2
+
+
+def _halton_points(n, dim, shift, scrambles, dtype, device):
+    r"""Halton points in ``[0, 1)^dim`` from given draws: the radical inverse
+    of 1..n in the first ``dim`` prime bases, each digit of base ``b >= 17``
+    scrambled as ``(a * digit + c_j) mod b`` (Matousek), then rotated by
+    ``shift`` modulo 1 (Cranley-Patterson). The columns run side by side,
+    each in the JAX package's order of operations (``x += f * digit`` with
+    ``f`` the Python float ``b^-(j+1)`` cast to the dtype), so the points
+    equal its ``_halton`` bit for bit given the same draws."""
+    if dim > len(_HALTON_PRIMES):
+        raise ValueError(f"the Halton sequence supports up to {len(_HALTON_PRIMES)} dimensions, got {dim}")
+    bases = _HALTON_PRIMES[:dim]
+    n_digits = [_halton_digits(n, b) for b in bases]
+    # digit j's weight per column, divided in Python as the JAX package
+    # divides it; 0 past a column's digits, where the sum then stays as it is
+    weights = np.zeros((max(n_digits), dim))
+    for col, (b, k) in enumerate(zip(bases, n_digits)):
+        f = 1.0 / b
+        for j in range(k):
+            weights[j, col] = f
+            f = f / b
+    weights = torch.tensor(weights, dtype=dtype, device=device)
+    mult = torch.tensor([1 if s is None else s[0] for s in scrambles], device=device)
+    shifts = torch.zeros((max(n_digits), dim), dtype=torch.long, device=device)
+    for col, s in enumerate(scrambles):
+        if s is not None:
+            shifts[:len(s[1]), col] = s[1]
+    b_t = torch.tensor(bases, device=device)
+    idx = torch.arange(1, n + 1, device=device)[:, None].expand(n, dim)
+    x = torch.zeros((n, dim), dtype=dtype, device=device)
+    for j in range(max(n_digits)):
+        digit = (mult * (idx % b_t) + shifts[j]) % b_t
+        x = x + weights[j] * digit.to(dtype)
+        idx = idx // b_t
+    return torch.remainder(x + shift, 1.0)
+
+
+def _halton(gen, n, dim, dtype, device):
+    r"""Randomized Halton points in ``[0, 1)^dim``, drawn from the
+    ``torch.Generator`` ``gen`` (:func:`_halton_points`). A fresh draw per
+    batch randomizes the rotation (the integral estimate stays unbiased)
+    while each batch keeps its low discrepancy; dimensions of base 17 and
+    up are also digit-scrambled, which breaks the correlated 2-D
+    projections of neighbouring high bases at typical batch sizes."""
+    if dim > len(_HALTON_PRIMES):
+        raise ValueError(f"the Halton sequence supports up to {len(_HALTON_PRIMES)} dimensions, got {dim}")
+    shift, scrambles = _halton_draws(gen, n, dim, dtype, device)
+    return _halton_points(n, dim, shift, scrambles, dtype, device)
 
 
 def _compute_log_negative(t_min, t_max, whence):
@@ -182,7 +252,8 @@ class Generator1D(BaseGenerator):
     :param method: one of 'uniform' (the default), 'equally-spaced',
         'equally-spaced-noisy', 'log-spaced', 'log-spaced-noisy',
         'chebyshev'/'chebyshev1', 'chebyshev2', 'chebyshev2-noisy',
-        'latin-hypercube'. ('halton' is not ported yet and raises.)
+        'latin-hypercube' or 'halton' (randomized low-discrepancy points,
+        :func:`_halton`).
     :param noise_std: standard deviation of the noise for noisy methods;
         defaults to ``((t_max - t_min) / size) / 4``.
     :param device: device of the points (the port's default if None).
@@ -191,12 +262,10 @@ class Generator1D(BaseGenerator):
     """
 
     _METHODS = ('uniform', 'equally-spaced', 'equally-spaced-noisy', 'log-spaced', 'log-spaced-noisy',
-                'chebyshev', 'chebyshev1', 'chebyshev2', 'chebyshev2-noisy', 'latin-hypercube')
+                'chebyshev', 'chebyshev1', 'chebyshev2', 'chebyshev2-noisy', 'latin-hypercube', 'halton')
 
     def __init__(self, size, t_min=0.0, t_max=1.0, method='uniform', noise_std=None, device=None, dtype=None):
         super().__init__(device, dtype)
-        if method == 'halton':
-            raise NotImplementedError(_NO_HALTON)
         if method not in self._METHODS:
             raise ValueError(f'Unknown method: {method}')
         self.size = size
@@ -226,6 +295,8 @@ class Generator1D(BaseGenerator):
             t = _chebyshev_second_noisy(generator, self.t_min, self.t_max, n, dt, dev)
         elif m == 'latin-hypercube':
             t = _latin_hypercube(generator, self.t_min, self.t_max, n, dt, dev)
+        elif m == 'halton':
+            t = self.t_min + (self.t_max - self.t_min) * _halton(generator, n, 1, dt, dev)[:, 0]
         else:
             t = self._base
         return (t,)
@@ -245,20 +316,20 @@ class Generator2D(BaseGenerator):
     :param method: 'equally-spaced', 'equally-spaced-noisy' (the default: the
         grid plus Gaussian noise per point), 'chebyshev'/'chebyshev1',
         'chebyshev2', 'chebyshev2-noisy' or 'latin-hypercube' (the per-axis
-        nodes of the 1-D method, meshed). ('halton' is not ported yet.)
+        nodes of the 1-D method, meshed), or 'halton': ``grid[0] * grid[1]``
+        randomized low-discrepancy points filling the rectangle directly
+        (:func:`_halton`).
     :param xy_noise_std: per-axis noise std; defaults to grid-step / 4 per axis.
     :param device: device of the points (the port's default if None).
     :param dtype: dtype of the points (the port's default if None).
     """
 
     _METHODS = ('equally-spaced', 'equally-spaced-noisy', 'chebyshev', 'chebyshev1', 'chebyshev2',
-                'chebyshev2-noisy', 'latin-hypercube')
+                'chebyshev2-noisy', 'latin-hypercube', 'halton')
 
     def __init__(self, grid=(10, 10), xy_min=(0.0, 0.0), xy_max=(1.0, 1.0),
                  method='equally-spaced-noisy', xy_noise_std=None, device=None, dtype=None):
         super().__init__(device, dtype)
-        if method == 'halton':
-            raise NotImplementedError(_NO_HALTON)
         if method not in self._METHODS:
             raise ValueError(f'Unknown method: {method}')
         self.grid = grid
@@ -268,7 +339,7 @@ class Generator2D(BaseGenerator):
         self.method = method
         self.xy_noise_std = xy_noise_std
         self._grid_points = None
-        if method not in ('chebyshev2-noisy', 'latin-hypercube'):
+        if method not in ('chebyshev2-noisy', 'latin-hypercube', 'halton'):
             self._grid_points = self._mesh(self._axes(None))
 
     def _axes(self, generator):
@@ -295,6 +366,9 @@ class Generator2D(BaseGenerator):
 
     def sample(self, generator):
         """One batch ``(x, y)``; ``generator`` lives on the points' device."""
+        if self.method == 'halton':
+            u = _halton(generator, self.size, 2, self.dtype, self.device)
+            return tuple(self.xy_min[i] + (self.xy_max[i] - self.xy_min[i]) * u[:, i] for i in range(2))
         if self._grid_points is None:
             return self._mesh(self._axes(generator))
         gx, gy = self._grid_points
@@ -325,20 +399,18 @@ class Generator3D(BaseGenerator):
     :param method: 'equally-spaced', 'equally-spaced-noisy' (the default: the
         grid plus Gaussian noise of a quarter grid step per axis and point),
         'chebyshev'/'chebyshev1', 'chebyshev2' or 'latin-hypercube' (the
-        per-axis nodes of the 1-D method, meshed). ('halton' is not ported
-        yet and raises.)
+        per-axis nodes of the 1-D method, meshed), or 'halton': randomized
+        low-discrepancy points filling the box directly (:func:`_halton`).
     :param device: device of the points (the port's default if None).
     :param dtype: dtype of the points (the port's default if None).
     """
 
     _METHODS = ('equally-spaced', 'equally-spaced-noisy', 'chebyshev', 'chebyshev1', 'chebyshev2',
-                'latin-hypercube')
+                'latin-hypercube', 'halton')
 
     def __init__(self, grid=(10, 10, 10), xyz_min=(0.0, 0.0, 0.0), xyz_max=(1.0, 1.0, 1.0),
                  method='equally-spaced-noisy', device=None, dtype=None):
         super().__init__(device, dtype)
-        if method == 'halton':
-            raise NotImplementedError(_NO_HALTON)
         if method not in self._METHODS:
             raise ValueError(f"Unknown method: {method}")
         self.size = grid[0] * grid[1] * grid[2]
@@ -346,7 +418,7 @@ class Generator3D(BaseGenerator):
         self.xyz_min = xyz_min
         self.xyz_max = xyz_max
         self.method = method
-        self._grid_points = None if method == 'latin-hypercube' else self._mesh(self._axes(None))
+        self._grid_points = None if method in ('latin-hypercube', 'halton') else self._mesh(self._axes(None))
 
     def _axes(self, generator):
         m, dt, dev = self.method, self.dtype, self.device
@@ -369,6 +441,9 @@ class Generator3D(BaseGenerator):
 
     def sample(self, generator):
         """One batch ``(x, y, z)``; ``generator`` lives on the points' device."""
+        if self.method == 'halton':
+            u = _halton(generator, self.size, 3, self.dtype, self.device)
+            return tuple(self.xyz_min[i] + (self.xyz_max[i] - self.xyz_min[i]) * u[:, i] for i in range(3))
         if self._grid_points is None:
             return self._mesh(self._axes(generator))
         if self.method != 'equally-spaced-noisy':
@@ -380,6 +455,135 @@ class Generator3D(BaseGenerator):
     def _internal_vars(self):
         d = super()._internal_vars()
         d.update(dict(grid=self.grid, xyz_min=self.xyz_min, xyz_max=self.xyz_max, method=self.method))
+        return d
+
+
+class GeneratorND(BaseGenerator):
+    r"""N-D training points as a meshgrid (flattened, ``indexing='ij'``) of
+    per-axis node sets.
+
+    :param grid: per-axis node counts; an int if N = 1.
+    :param r_min: per-axis lower bounds.
+    :param r_max: per-axis upper bounds.
+    :param methods: per-axis method: 'uniform', 'equally-spaced',
+        'log-spaced', 'exp-spaced', 'chebyshev'/'chebyshev1', 'chebyshev2'.
+        The whole-box string ``methods='halton'`` instead fills the N-D box
+        with ``prod(grid)`` randomized low-discrepancy points
+        (:func:`_halton`, N <= 15); ``noisy`` and ``cut`` do not apply to it.
+    :param noisy: add per-axis Gaussian noise if True (the default).
+    :param r_noise_std: per-axis noise std; defaults to a quarter of each
+        axis's grid step (relative to the node for 'log-spaced' and
+        'exp-spaced').
+    :param cut: per-axis ``(start, stop)`` slices of the node sets (kwarg).
+    :param base: per-axis log base of 'exp-spaced' (kwarg, default 10).
+    :param abs_value: take the absolute value of noisy samples (kwarg).
+    :param device: device of the points (the port's default if None).
+    :param dtype: dtype of the points (the port's default if None).
+    """
+
+    _METHODS = ('uniform', 'equally-spaced', 'log-spaced', 'exp-spaced', 'chebyshev', 'chebyshev1', 'chebyshev2')
+
+    def __init__(self, grid=(10, 10), r_min=(0.0, 0.0), r_max=(1.0, 1.0),
+                 methods=('equally-spaced', 'equally-spaced'), noisy=True, r_noise_std=None, device=None,
+                 dtype=None, **kwargs):
+        super().__init__(device, dtype)
+        self.grid, self.r_min, self.r_max = grid, r_min, r_max
+        self.methods, self.noisy, self.r_noise_std = methods, noisy, r_noise_std
+        if isinstance(methods, str):
+            methods = [methods]
+        if isinstance(grid, int):
+            grid = (grid,)
+        if isinstance(r_min, (float, int)):
+            r_min = (r_min,)
+        if isinstance(r_max, (float, int)):
+            r_max = (r_max,)
+        if isinstance(r_noise_std, (float, int)):
+            r_noise_std = (r_noise_std,)
+        n_axes = len(grid)
+        self._halton_box = isinstance(self.methods, str) and self.methods == 'halton'
+        if not self._halton_box and 'halton' in methods:
+            raise ValueError(
+                "'halton' is a whole-box method, not a per-axis one: pass "
+                "methods='halton' (a string) to fill the N-D box with "
+                "low-discrepancy points")
+        cut = kwargs.pop('cut', None)
+        if self._halton_box:
+            if cut is not None:
+                raise ValueError("'cut' does not apply to methods='halton' "
+                                 "(points fill the box, not a per-axis mesh)")
+            if n_axes > len(_HALTON_PRIMES):
+                raise ValueError(f"methods='halton' supports up to "
+                                 f"{len(_HALTON_PRIMES)} dimensions, got {n_axes}")
+        if cut is None:
+            cut = tuple((None, None) for _ in range(n_axes))
+        base = kwargs.pop('base', tuple(10 for _ in range(n_axes)))
+        abs_value = kwargs.pop('abs_value', False)
+        if kwargs:
+            raise ValueError(f'Unknown keyword argument(s): {list(kwargs.keys())}')
+        if isinstance(base, (float, int)):
+            base = (base,)
+        if isinstance(cut[0], (float, int)) or cut[0] is None:
+            cut = (cut,)
+        if not self._halton_box:
+            for m in methods:
+                if m not in self._METHODS:
+                    raise ValueError(f'Unknown method: {m}')
+        self._n_axes, self._grid, self._r_min, self._r_max = n_axes, grid, r_min, r_max
+        self._methods, self._cut, self._base, self._abs_value = methods, cut, base, abs_value
+        self._r_noise_std_tuple = r_noise_std
+        self.size = int(np.prod([len(range(*slice(*cut[i]).indices(grid[i]))) for i in range(n_axes)]))
+        # the node sets and noise stds of the deterministic axes, made once
+        self._fixed = None if self._halton_box else [
+            None if m == 'uniform' else self._axis_nodes(i, None) for i, m in enumerate(methods)]
+
+    def _axis_nodes(self, i, generator):
+        method, dt, dev = self._methods[i], self.dtype, self.device
+        a, b, n = self._r_min[i], self._r_max[i], self._grid[i]
+        noise_rstd = self._r_noise_std_tuple[i] if self._r_noise_std_tuple else ((b - a) / n) / 4.0
+        if method == 'equally-spaced':
+            x = _linspace(a, b, n, dt, dev)
+            std = noise_rstd * torch.ones(n, dtype=dt, device=dev)
+        elif method == 'uniform':
+            x = torch.rand(n, generator=generator, dtype=dt, device=dev) * (b - a) + a
+            std = torch.zeros(n, dtype=dt, device=dev)
+        elif method == 'log-spaced':
+            x = torch.pow(10.0, _linspace(float(np.log10(a)), float(np.log10(b)), n, dt, dev))
+            std = noise_rstd * x
+        elif method == 'exp-spaced':
+            lin = _linspace(self._base[i] ** a, self._base[i] ** b, n, dt, dev)
+            x = torch.log(lin) / float(np.log(self._base[i]))
+            std = noise_rstd * x
+        elif method in ('chebyshev', 'chebyshev1'):
+            x = _chebyshev_first(a, b, n, dt, dev)
+            std = noise_rstd * torch.ones(n, dtype=dt, device=dev)
+        else:
+            x = _chebyshev_second(a, b, n, dt, dev)
+            std = noise_rstd * torch.ones(n, dtype=dt, device=dev)
+        sl = slice(*self._cut[i])
+        return x[sl], std[sl]
+
+    def sample(self, generator):
+        """One batch of N columns; ``generator`` lives on the points' device."""
+        if self._halton_box:
+            u = _halton(generator, self.size, self._n_axes, self.dtype, self.device)
+            return tuple(self._r_min[i] + (self._r_max[i] - self._r_min[i]) * u[:, i] for i in range(self._n_axes))
+        axes = [fixed if fixed is not None else self._axis_nodes(i, generator) for i, fixed in enumerate(self._fixed)]
+        grids = torch.meshgrid(*[x for x, _ in axes], indexing='ij')
+        stds = torch.meshgrid(*[s for _, s in axes], indexing='ij')
+        out = []
+        for g, s in zip(grids, stds):
+            g = g.flatten()
+            if self.noisy:
+                g = g + torch.randn(g.shape, generator=generator, dtype=self.dtype, device=self.device) * s.flatten()
+                if self._abs_value:
+                    g = torch.abs(g)
+            out.append(g)
+        return tuple(out)
+
+    def _internal_vars(self):
+        d = super()._internal_vars()
+        d.update(dict(grid=self.grid, r_min=self.r_min, r_max=self.r_max,
+                      methods=self.methods, noisy=self.noisy, r_noise_std=self.r_noise_std))
         return d
 
 
@@ -428,6 +632,81 @@ class GeneratorSpherical(BaseGenerator):
     def _internal_vars(self):
         d = super()._internal_vars()
         d.update(dict(r_min=self.r_min, r_max=self.r_max, method=self.method))
+        return d
+
+
+class GeneratorHypercube(BaseGenerator):
+    r"""IID (or quasi-Monte-Carlo) points in a ``dim``-dimensional box, the
+    high-dimensional companion of
+    :func:`~neurodiffeq_tpu_torch.operators.stde_laplacian`
+    (:class:`GeneratorND`'s meshgrid has the product of its axes' counts).
+
+    With ``boundary=True`` the points lie ON the box's boundary: a uniform
+    interior draw with one coordinate snapped to its min or max. Axis ``i``
+    is picked with probability proportional to its face's (d-1)-measure,
+    :math:`\prod_{j \ne i} (b_j - a_j)`, that is :math:`\propto 1/(b_i -
+    a_i)`, either side with probability 1/2, so the sample is uniform on
+    the whole boundary, anisotropic boxes included.
+
+    :param size: number of points.
+    :param dim: number of dimensions (columns returned).
+    :param r_min: scalar or per-axis lower bounds. Defaults to 0.
+    :param r_max: scalar or per-axis upper bounds. Defaults to 1.
+    :param method: 'uniform' (iid) or 'halton' (randomized low-discrepancy,
+        ``dim`` <= 15, interior only).
+    :param boundary: sample the boundary instead of the interior.
+    :param device: device of the points (the port's default if None).
+    :param dtype: dtype of the points (the port's default if None).
+    """
+
+    def __init__(self, size, dim, r_min=0.0, r_max=1.0, method='uniform', boundary=False, device=None, dtype=None):
+        super().__init__(device, dtype)
+        if dim < 1:
+            raise ValueError(f"dim must be >= 1, got {dim}")
+        r_min = tuple(r_min) if np.ndim(r_min) else (float(r_min),) * dim
+        r_max = tuple(r_max) if np.ndim(r_max) else (float(r_max),) * dim
+        if len(r_min) != dim or len(r_max) != dim:
+            raise ValueError(
+                f"r_min/r_max must be scalars or length-{dim}: got {len(r_min)}/{len(r_max)}")
+        if any(hi <= lo for lo, hi in zip(r_min, r_max)):
+            raise ValueError(f"Illegal box [{r_min}, {r_max}]")
+        if method not in ('uniform', 'halton'):
+            raise ValueError(f'Unknown method: {method}')
+        if method == 'halton':
+            if boundary:
+                raise ValueError("method='halton' samples the interior; use "
+                                 "method='uniform' with boundary=True")
+            if dim > len(_HALTON_PRIMES):
+                raise ValueError(f"method='halton' supports up to "
+                                 f"{len(_HALTON_PRIMES)} dimensions, got {dim}")
+        self.size, self.dim = size, dim
+        self.r_min, self.r_max = r_min, r_max
+        self.method, self.boundary = method, boundary
+        self._lo = torch.tensor(r_min, dtype=self.dtype, device=self.device)
+        self._hi = torch.tensor(r_max, dtype=self.dtype, device=self.device)
+        inv_len = 1.0 / (np.asarray(r_max) - np.asarray(r_min))
+        self._face_p = torch.tensor(inv_len / inv_len.sum(), dtype=torch.float64, device=self.device)
+
+    def sample(self, generator):
+        """One batch of ``dim`` columns; ``generator`` lives on the points' device."""
+        n, d, dt, dev = self.size, self.dim, self.dtype, self.device
+        if self.method == 'halton':
+            u = _halton(generator, n, d, dt, dev)
+        else:
+            u = torch.rand((n, d), generator=generator, dtype=dt, device=dev)
+        pts = self._lo + (self._hi - self._lo) * u
+        if self.boundary:
+            face = torch.multinomial(self._face_p, n, replacement=True, generator=generator)
+            side = torch.randint(0, 2, (n, 1), generator=generator, device=dev).to(dt)
+            onehot = torch.nn.functional.one_hot(face, d).to(dt)
+            face_val = self._lo * (1 - side) + self._hi * side
+            pts = pts * (1 - onehot) + face_val * onehot
+        return tuple(pts[:, i] for i in range(d))
+
+    def _internal_vars(self):
+        d = super()._internal_vars()
+        d.update(dict(dim=self.dim, r_min=self.r_min, r_max=self.r_max,
+                      method=self.method, boundary=self.boundary))
         return d
 
 

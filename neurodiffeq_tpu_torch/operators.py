@@ -1,12 +1,12 @@
 r"""Vector calculus operators in cartesian, spherical and cylindrical
-coordinates (counterpart of ``neurodiffeq_tpu/operators.py`` but its
-high-dimensional and stochastic operators).
+coordinates, and the high-dimensional ones (counterpart of
+``neurodiffeq_tpu/operators.py``).
 
 Every partial is read off the shared batched Taylor series of its field with
 :func:`~neurodiffeq_tpu_torch.fields.diff`: one network forward serves all
-of them. A field without a Taylor rule raises when it is evaluated, as
-:mod:`~neurodiffeq_tpu_torch.fields` does (the per-sample compose fallback
-is not ported).
+of them. A field without a Taylor rule composes instead (repeated
+``torch.autograd.grad`` on its batched function,
+:func:`~neurodiffeq_tpu_torch.fields._nested_grad`), counting one fallback.
 
 The spherical operators use the expanded metric forms of the JAX package
 (``u_rr + 2 u_r / r + ...`` rather than ``diff(r^2 u_r, r) / r^2``), so that
@@ -16,10 +16,22 @@ in batch by polarization (:func:`~neurodiffeq_tpu_torch.ops.taylor.partial_entry
 so the composed identities (``div(*grad(u))``, ``curl(*grad(u)) = 0``, div
 of a curl, curl of a curl) run in every coordinate system. Physics
 convention: theta is the polar angle, phi the azimuth.
-"""
-from .fields import Field, atan2, cos, diff, sin, sqrt
 
-__all__ = ['grad', 'div', 'curl', 'laplacian', 'vector_laplacian',
+The biharmonic and the stochastic estimators of the Laplacian and the
+biharmonic (:func:`stde_laplacian`, :func:`stde_biharmonic`) are fields
+without a Taylor rule, as in the JAX package: an axis-direction series is
+the O(d) cost the estimators avoid. Each is one compose fallback: the rows
+of its points, replicated once per probe (or basis pair), go through one
+chain of directional derivatives, each a reverse-mode gradient.
+"""
+import zlib
+
+import numpy as np
+import torch
+
+from .fields import Field, _call, atan2, cos, diff, sin, sqrt
+
+__all__ = ['grad', 'div', 'curl', 'laplacian', 'vector_laplacian', 'stde_laplacian', 'biharmonic', 'stde_biharmonic',
            'spherical_curl', 'spherical_grad', 'spherical_div', 'spherical_laplacian',
            'spherical_vector_laplacian', 'spherical_to_cartesian', 'cartesian_to_spherical',
            'cylindrical_grad', 'cylindrical_div', 'cylindrical_curl', 'cylindrical_laplacian',
@@ -76,6 +88,196 @@ def laplacian(u, *xs):
 def vector_laplacian(u_x, u_y, u_z, x, y, z):
     r"""Component-wise laplacian of a cartesian vector field."""
     return laplacian(u_x, x, y, z), laplacian(u_y, x, y, z), laplacian(u_z, x, y, z)
+
+
+def _check_operands(name, u, xs):
+    if not isinstance(u, Field):
+        raise TypeError(f"{name} expects a Field, got {type(u)}")
+    for x in xs:
+        if not isinstance(x, Field) or x.index is None:
+            raise TypeError(f"{name} expects coordinate Fields as independent variables")
+    if not xs:
+        raise TypeError(f"{name} needs at least one coordinate")
+
+
+def _directional_field(u, xs, vs, ws, weights):
+    r"""The field :math:`\sum_j c_j D^k u[v_j, v_j, (w_j, w_j)]` of a scalar
+    field ``u``: per row, a weighted sum over J directions of its second
+    (``ws`` None) or fourth directional derivative.
+
+    ``vs`` and ``ws`` are ``(N|1, J, len(xs))``: direction j of row r over
+    the coordinates ``xs`` (the other coordinates' components are 0);
+    ``weights`` is ``(J,)``. The rows are replicated J times (row
+    ``j * N + r`` carries direction j of row r), and each level of the
+    chain is one reverse-mode gradient of the ``J * N`` rows' sum,
+    contracted with their directions: every row depends on its own point
+    only, so that is the per-row directional derivative. It has no Taylor
+    rule, so it is one compose fallback."""
+    if u.width != 1:
+        raise TypeError(f"expected a scalar field of one column, got {u.width} columns")
+    idx = [x.index for x in xs]
+    n_coords = u.coords.n_dims
+    # the directions' coordinates in the gradient: all of them (the common case), a run, or a list
+    pick = (slice(None) if idx == list(range(n_coords)) else
+            slice(idx[0], idx[-1] + 1) if idx == list(range(idx[0], idx[-1] + 1)) else idx)
+    levels = [vs, vs] if ws is None else [vs, vs, ws, ws]
+    n_dirs = vs.shape[1]
+
+    def fn(p):
+        n = p.shape[0]
+        rows = [lv.expand(n, -1, -1).transpose(0, 1).reshape(n_dirs * n, len(idx)) for lv in levels]
+        keep = torch.is_grad_enabled()
+        with torch.enable_grad():
+            z = p.repeat(n_dirs, 1)
+            if not z.requires_grad:
+                z.requires_grad_()
+            out = _call(u, z).reshape(-1)
+            for k, r in enumerate(rows):
+                if not out.requires_grad:  # constant in the points
+                    out = torch.zeros_like(out)
+                    break
+                (g,) = torch.autograd.grad(out.sum(), z, create_graph=keep or k < len(rows) - 1)
+                out = (g[:, pick] * r).sum(dim=1)
+        total = (weights[:, None] * out.reshape(n_dirs, n)).sum(dim=0)[:, None]
+        return total if keep else total.detach()
+
+    return Field(u.coords, 1, fn)
+
+
+def biharmonic(u, *xs):
+    r"""The exact biharmonic :math:`\Delta^2 u = \sum_{i,j} \partial^4 u /
+    \partial x_i^2 \partial x_j^2` (the plate operator), as
+    :math:`\sum_{i \le j} w_{ij} D^4 u[e_i, e_i, e_j, e_j]` with
+    :math:`w_{ii} = 1`, :math:`w_{i<j} = 2`: one chain of four directional
+    derivatives over the rows replicated for the :math:`d(d+1)/2` basis
+    pairs (:func:`_directional_field`), so its cost grows like
+    :math:`d^2`; past d ~ 10 use :func:`stde_biharmonic`. Pair it with
+    :class:`~neurodiffeq_tpu_torch.conditions.DirichletBoxND` ``(power=2)``
+    for a clamped plate.
+
+    :param u: A scalar Field (N, 1).
+    :param xs: Coordinate Fields to sum over (all of them for the full biharmonic).
+    :return: A scalar Field, exact.
+    """
+    _check_operands('biharmonic', u, xs)
+    ii, jj = np.triu_indices(len(xs))
+    p = u.coords.points
+    eye = torch.eye(len(xs), dtype=p.dtype, device=p.device)
+    weights = torch.tensor(np.where(ii == jj, 1.0, 2.0), dtype=p.dtype, device=p.device)
+    return _directional_field(u, xs, eye[ii][None], eye[jj][None], weights)
+
+
+# odd multipliers below 2**31: a product with a 32-bit value fits in int64
+_MIX = (0x21f0aaad, 0x735a2d97)
+_MASK32 = 0xFFFFFFFF
+
+
+def _mix32(x):
+    """A 32-bit integer hash (two multiply-xorshift rounds) of the int64
+    tensor (or int) ``x`` in [0, 2**32), without overflow: the same bits on
+    the CPU and on the card."""
+    x = x ^ (x >> 16)
+    x = (x * _MIX[0]) & _MASK32
+    x = x ^ (x >> 15)
+    x = (x * _MIX[1]) & _MASK32
+    return x ^ (x >> 15)
+
+
+def _stde_probes(points, indices, n_est, salt, tag, shape):
+    r"""Rademacher probes of ``shape`` (rows first), a pure function of the
+    seed value (:func:`~neurodiffeq_tpu_torch.utils.seed_value`), the
+    coordinate indices, ``n_est``, ``salt``, the estimator's ``tag`` and the
+    bits of the points (as float32, summed modulo 2**32), the determinism
+    contract of the JAX package (whose threefry streams torch cannot
+    reproduce). Everything after the static key is integer arithmetic on
+    the points' device: no value is read back to the host, and the CPU and
+    the card give the same probes."""
+    from .utils import seed_value
+
+    stable = np.asarray(list(indices) + [n_est, salt, tag], dtype=np.int64)
+    folded = zlib.crc32(stable.tobytes()) & 0x7FFFFFFF
+    static = _mix32(_mix32(int(seed_value()) & _MASK32) ^ folded)
+    bits = points.to(torch.float32).contiguous().view(torch.int32).to(torch.int64) & _MASK32
+    key = _mix32((bits.sum() & _MASK32) ^ static)
+    element = torch.arange(int(np.prod(shape)), device=points.device)
+    h = _mix32((_mix32(element ^ key) + static) & _MASK32)
+    return (1 - 2 * (h >> 31)).to(points.dtype).reshape(shape)
+
+
+def stde_laplacian(u, *xs, n_est=16, salt=0):
+    r"""Unbiased stochastic estimator of the Laplacian for high-dimensional
+    problems, the Stochastic Taylor Derivative Estimator (Shi et al. 2024,
+    arXiv:2412.00088; Hutchinson trace estimation):
+
+    .. math:: \widehat{\nabla^2 u} = \tfrac1J\sum_{j=1}^{J} v_j^T H v_j,
+        \qquad v_j \in \{\pm 1\}^d \text{ (Rademacher)},
+
+    unbiased since :math:`E[v v^T] = I`, at a cost in ``n_est`` = J and not
+    in d. The probes are drawn per row from a hash of the points
+    (:func:`_stde_probes`), so every fresh batch gets fresh probes: pair it
+    with a stochastic generator. **Determinism contract:** the probes are a
+    pure function of the seed (:func:`~neurodiffeq_tpu_torch.utils.set_seed`),
+    the coordinate indices, ``n_est``, ``salt`` and the points; pass
+    distinct ``salt`` values to decorrelate otherwise identical calls.
+
+    It has no Taylor rule (as in the JAX package, a deliberate fallback): the
+    J probes' second directional derivatives run as one chain over the
+    rows replicated J times.
+
+    :param u: A scalar Field (N, 1).
+    :param xs: Coordinate Fields to sum second derivatives over.
+    :param n_est: number of probe directions J, defaults to 16.
+    :param salt: integer folded into the probe key, defaults to 0.
+    :return: A scalar Field estimating :math:`\sum_i \partial^2 u/\partial x_i^2`.
+    """
+    _check_operands('stde_laplacian', u, xs)
+    pts = u.coords.points
+    probes = _stde_probes(pts, [x.index for x in xs], n_est, salt, 2, (pts.shape[0], n_est, len(xs)))
+    return _stde_laplacian_with(u, xs, probes)
+
+
+def _stde_laplacian_with(u, xs, probes):
+    """:func:`stde_laplacian` with given ``(N, n_est, len(xs))`` probes."""
+    n_est = probes.shape[1]
+    return _directional_field(u, xs, probes, None, torch.full((n_est,), 1.0 / n_est, dtype=probes.dtype,
+                                                               device=probes.device))
+
+
+def stde_biharmonic(u, *xs, n_est=16, salt=0):
+    r"""Unbiased stochastic estimator of the biharmonic
+    :math:`\Delta^2 u = \sum_{i,j} \partial^4 u / \partial x_i^2 \partial x_j^2`:
+
+    .. math:: \widehat{\Delta^2 u} = \tfrac1J \sum_{j=1}^{J}
+        D^4 u[v_j, v_j, w_j, w_j], \qquad v_j, w_j \in \{\pm 1\}^d
+        \text{ independent}.
+
+    Independence makes it unbiased (one probe used four times is not:
+    :math:`E[D^4u[v,v,v,v]] = 3\Delta^2 u - 2\sum_i u_{iiii}`), and it is
+    exact on additively separable functions such as :math:`\sum_i c_i
+    x_i^4`. The probes follow :func:`stde_laplacian`'s determinism contract
+    with their own tag, so a Laplacian estimate on the same points draws
+    others. It has no Taylor rule: one fallback, the J pairs' fourth
+    directional derivatives as one chain over the replicated rows. Pair it
+    with :class:`~neurodiffeq_tpu_torch.conditions.DirichletBoxND`
+    ``(power=2)`` for a clamped plate.
+
+    :param u: A scalar Field (N, 1).
+    :param xs: Coordinate Fields to sum over.
+    :param n_est: number of probe pairs J, defaults to 16.
+    :param salt: integer folded into the probe key, defaults to 0.
+    :return: A scalar Field estimating the biharmonic.
+    """
+    _check_operands('stde_biharmonic', u, xs)
+    pts = u.coords.points
+    probes = _stde_probes(pts, [x.index for x in xs], n_est, salt, 4, (pts.shape[0], n_est, 2, len(xs)))
+    return _stde_biharmonic_with(u, xs, probes)
+
+
+def _stde_biharmonic_with(u, xs, probes):
+    """:func:`stde_biharmonic` with given ``(N, n_est, 2, len(xs))`` probe pairs."""
+    n_est = probes.shape[1]
+    return _directional_field(u, xs, probes[:, :, 0], probes[:, :, 1],
+                              torch.full((n_est,), 1.0 / n_est, dtype=probes.dtype, device=probes.device))
 
 
 # ----------------------------------------------------------------- spherical

@@ -382,14 +382,16 @@ def constant_series(value, ctx, n_samples):
     return TSeries(c0, [ctx.zeros()] * ctx.order)
 
 
-def coordinate_series(index, ctx):
-    """Series of the index-th coordinate: value = points[:, i], first
-    derivative = the directions' i-th components (constant across the
-    batch), second = 0."""
-    c0 = ctx.points[:, index:index + 1]
-    d1 = ctx.directions[:, index][:, None, None]
-    derivs = [d1] + [ctx.zeros()] * (ctx.order - 1)
-    return TSeries(c0, derivs[:ctx.order])
+def coordinate_series(index, ctx, stop=None):
+    """Series of the index-th coordinate (of coordinates ``index`` to
+    ``stop``, a run of columns): value = points[:, i], first derivative =
+    the directions' i-th components (constant across the batch), second =
+    0."""
+    stop = index + 1 if stop is None else stop
+    c0 = ctx.points[:, index:stop]
+    if ctx.order == 0:
+        return TSeries(c0, [])
+    return TSeries(c0, [ctx.directions[:, index:stop][:, None, :]] + [ctx.zeros()] * (ctx.order - 1))
 
 
 def affine_series(ts, W, b=None):
@@ -715,6 +717,16 @@ def _derivative_of(g, one):
     return lambda s: jvp(g, (s,), (one,))[1]
 
 
+def _reciprocal_derivs(x, v, K):
+    """f^(j) of f = c / x at x for j = 1..K, given the value ``v = c / x``:
+    c (-1)^j j! / x^(j+1)."""
+    inv = 1 / x
+    fs = [-v * inv]
+    for j in range(2, K + 1):
+        fs.append(-j * fs[-1] * inv)
+    return fs
+
+
 def _power_derivs(x, p, K):
     r"""f^(j) of :math:`x^p` for a constant p: :math:`p (p-1) \cdots (p-j+1) x^{p-j}`,
     in closed form at every order; None once the falling factorial of a
@@ -757,13 +769,9 @@ def lifted_series(op, arg_descs, ctx):
         if op is operator.mul:
             return TSeries(s.c0 * c, [d * c for d in s.derivs])
         if op is operator.truediv:
-            if const_first:  # c / x: f^(j) = c (-1)^j j! / x^(j+1)
+            if const_first:
                 c0 = c / s.c0
-                inv = 1 / s.c0
-                fs = [-c0 * inv]
-                for j in range(2, order + 1):
-                    fs.append(-j * fs[-1] * inv)
-                return _chain_unary(s, order, c0, fs)
+                return _chain_unary(s, order, c0, _reciprocal_derivs(s.c0, c0, order))
             inv = 1 / c
             return TSeries(s.c0 * inv, [d * inv for d in s.derivs])
         if op is operator.pow:

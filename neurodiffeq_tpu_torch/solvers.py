@@ -284,6 +284,7 @@ class BaseSolver(ABC):
         loss = loss + self.additional_loss(residual, funcs, coord_fields)
         metrics = {name: torch.as_tensor(fn(*[f.value for f in funcs], *[c.value for c in coord_fields]))
                    for name, fn in self.metrics_fn.items()}
+        coord_fields[0].coords.release()
         return loss, metrics
 
     def additional_loss(self, residual, funcs, coords):
@@ -300,6 +301,7 @@ class BaseSolver(ABC):
         with self._eval_scope():
             funcs, coord_fields = self._forward(cols)
             r = self._residuals(funcs, coord_fields, weighted=True).value
+            coord_fields[0].coords.release()
         return torch.sqrt((r * r).sum(dim=1))
 
     def _generate_batch(self, phase):
@@ -311,6 +313,14 @@ class BaseSolver(ABC):
         return [c.reshape(-1, 1) for c in _as_tuple(samples)]
 
     # ---------------------------------------------------------------- epochs
+    def _backward(self, loss):
+        """``loss.backward()`` into the optimizer's parameters only: the
+        backward then skips the graph that leads only to the points (the
+        compose path differentiates with respect to copies of them), whose
+        gradients nothing reads."""
+        loss.backward(inputs=[p for group in self.optimizer.param_groups for p in group['params']
+                              if p.requires_grad])
+
     def _closure_step(self, cols):
         """One closure-style optimizer step on one batch; returns the loss
         and metrics at the parameters before the step."""
@@ -319,7 +329,7 @@ class BaseSolver(ABC):
         def closure():
             self.optimizer.zero_grad(set_to_none=True)
             loss, metrics = self._loss_and_metrics(cols)
-            loss.backward()
+            self._backward(loss)
             if not first:
                 first.append((loss.detach(), metrics))
             return loss
@@ -343,7 +353,7 @@ class BaseSolver(ABC):
                 else:
                     loss, metrics = self._loss_and_metrics(cols)
                     if train:
-                        loss.backward()
+                        self._backward(loss)
                 total = total + loss.detach()
                 for name in self.metrics_fn:
                     metric_sums[name] = metric_sums[name] + metrics[name].detach()

@@ -12,7 +12,7 @@ import random
 import numpy as np
 import torch
 
-__all__ = ['set_tensor_type', 'set_seed', 'get_default_dtype', 'get_default_device',
+__all__ = ['set_tensor_type', 'set_seed', 'seed_value', 'get_default_dtype', 'get_default_device',
            'get_generator', 'resolve', 'full_precision_matmuls', 'safe_mkdir', 'as_2d_column',
            'split_columns', 'hstack', 'vstack']
 
@@ -81,6 +81,13 @@ def set_seed(seed_value, ignore_numpy=False, ignore_random=False, ignore_torch=F
         torch.manual_seed(seed_value)
         _SEED = seed_value
         _GENERATORS.clear()
+
+
+def seed_value():
+    """The seed of the last :func:`set_seed` (0 before any): the stochastic
+    operators' probe keys are a pure function of it and of their call's
+    data (:func:`~neurodiffeq_tpu_torch.operators.stde_laplacian`)."""
+    return _SEED
 
 
 def get_generator(device=None):

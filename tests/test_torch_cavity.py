@@ -335,7 +335,9 @@ def test_generator3d_random_methods():
     for x, n, top in zip(xs, (4, 5, 6), (1, 2, 3)):
         strata = torch.unique(torch.floor(x / (top / n)))
         assert torch.equal(strata, torch.arange(n, dtype=F64))
-    with pytest.raises(NotImplementedError, match='item 17'):
-        Generator3D(method='halton')
+    # 'halton' (the high-dimensional slice): 336 low-discrepancy points filling the box
+    xs = Generator3D((6, 7, 8), (0, 0, 0), (1, 2, 3), method='halton').sample(torch.Generator().manual_seed(0))
+    for x, top in zip(xs, (1, 2, 3)):
+        assert x.shape == (336,) and x.min() >= 0 and x.max() < top
     with pytest.raises(ValueError):
         Generator3D(method='bogus')

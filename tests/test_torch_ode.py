@@ -483,9 +483,10 @@ def test_generator_combinators():
     assert pre.size == 3 and torch.equal(pre.get_examples()[1], torch.tensor([4., 5., 6.], dtype=F64))
     with pytest.raises(ValueError):
         G.PredefinedGenerator([1, 2], [1])
-    for make in (lambda: G.Generator1D(4, method='halton'), lambda: G.Generator2D(method='halton')):
-        with pytest.raises(NotImplementedError, match='item 17'):
-            make()
+    # 'halton' (the high-dimensional slice): randomized low-discrepancy points in the box
+    for gen in (G.Generator1D(4, method='halton'), G.Generator2D(method='halton')):
+        cols = gen.sample(torch.Generator().manual_seed(0))
+        assert all(c.shape == (gen.size,) and c.min() >= 0 and c.max() < 1 for c in cols)
     with pytest.raises(ValueError):
         G.Generator1D(4, -1.0, 1.0, method='log-spaced')
     with pytest.raises(ValueError):

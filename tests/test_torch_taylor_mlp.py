@@ -217,6 +217,10 @@ KERNEL_SHAPES = [
     ((2, 2800, 2800, 1), 'tanh', 2, 300),
     ((12, 1000, 1000, 2), 'sin', 2, 200),
     ((3, 32, 70000), 'tanh', 1, 5),
+    # the high-dimensional Poisson nets at their 768 points: d = 10 (two
+    # direction chunks) and the d = 100 exact laplacian's forward (13 chunks)
+    ((10, 64, 64, 1), 'sin', 2, 768),
+    ((100, 64, 64, 1), 'sin', 2, 768),
 ]
 H100_SMS = 132
 
