@@ -56,7 +56,15 @@ line each or more:
       32 x 32 grid), float32, ``fit(700)``: ``taylor_mlp_1h`` must carry
       it, no Taylor fallback may occur, the loss must fall, and
       ``get_solution()`` must be within 1e-2 of the analytic solution on a
-      101 x 101 grid; ``get_residuals`` must be finite;
+      101 x 101 grid; ``get_residuals`` must be finite; then the trained
+      solver is saved and loaded into a new solver on the card through a
+      ``SolverConfig`` (the path without dill), whose ``get_solution()``
+      must equal the original's bitwise on the grid; both resume
+      ``fit(1)`` from one generator state through ``taylor_mlp_1h``, their
+      train losses within ``RESUME_LIMIT`` relative (bitwise equality
+      reported); and the solution exported (``torch.export``) and served
+      by ``load_exported_solution`` must equal it to ``EXPORT_LIMIT`` at N
+      = 1, 7 and 10,201;
    b. the same problem through ``Solver2D`` with every default (the
       default device, the default FCNN 2-32-32-1, the default generators),
       ``fit(300)``: ``taylor_mlp`` must carry it and the loss must fall;
@@ -139,6 +147,19 @@ line each or more:
       points), ``fit(300)``: no launch, one fallback per residual, the loss
       must fall, u = u* and du/dn = du*/dn on the faces to 1e-5, the
       relative L2 error reported;
+   o. the control plane on the stiff oscillator (``benchmarks/balancing_ab.py``:
+      u' = v, v' = -100 u, two FCNN 1-64-64-1 sin, ``Solver1D``'s defaults),
+      ``fit(1500)`` with ``AutoResidualWeightCallback`` on
+      ``OnFirstLocal() | PeriodLocal(500)``, ``CheckpointCallback`` in the
+      'state_dict' format on ``PeriodLocal(500)`` and
+      ``SimpleTensorboardCallback`` with a recording writer: exactly
+      ``OSC_LAUNCHES`` ``taylor_mlp`` launches (10 per epoch and 2 per weight
+      fire, the CPU rehearsal's count), none of ``taylor_mlp_1h``, no
+      fallback, 4 weight fires with w_2 < 1 after the first and max(w) = 1
+      after each, one scalar per metric per epoch, the loss must fall, the
+      error against cos(10 t) and -sin(10 t) (``oscillator_error``) below
+      ``OSC_LIMIT``, and the last checkpoint restored into a new solver must
+      give its parameters, Adam state and histories bitwise;
 6. timing: device time per call of kernel and twin at every shape of
    ``TABLE_SHAPES`` and ``REACH_SHAPES`` (``torch.profiler`` over 25 calls;
    the latter only where the tree's kernels take them) beside the kernel's
@@ -149,9 +170,10 @@ line each or more:
    both cavity, the bundle, heat and Burgers epochs' rates from the
    300-epoch windows of their own fits in 5d-5f and 5h-5k, device time
    split by kernel kind over 3 profiled epochs, and device-busy shares;
-   the same for 5l-5n; and, only when named (``--phases 6b``), 5m's epoch
-   in the design before this slice's batching (per-coordinate fields, one
-   Hessian-vector product per probe: 3.5-13 s per epoch), one profiled;
+   the same for 5l-5n, and for 5o (its rate from its own fit); and, only
+   when named (``--phases 6b``), 5m's epoch in the design before this
+   slice's batching (per-coordinate fields, one Hessian-vector product per
+   probe: 3.5-13 s per epoch), one profiled;
 7. the result (full run only).
 
 ``python3 chip_smoke.py --phases 3d,5l,5m,5n`` runs phases 1 and 2 and the listed
@@ -266,9 +288,21 @@ HD_HIDDEN, HD_POINTS, HD_EVAL, HD_N_EST, HD_CHECK_POINTS = (64, 64), 768, 4096, 
 POISSON10_EPOCHS, POISSON10_LIMIT, POISSON10_LAUNCHES = 1000, 0.036, 1
 POISSON100_EPOCHS, POISSON100_LIMIT = 2000, 0.47
 PLATE_DIM, PLATE_POINTS, PLATE_EPOCHS = 4, 512, 300
+# 5a's persistence: the loaded solver's resumed train loss against the saved one's (relative)
+RESUME_LIMIT, EXPORT_LIMIT, EXPORT_SIZES = 1e-6, 1e-6, (1, 7, 101 * 101)
+# the stiff oscillator of benchmarks/balancing_ab.py:42-55 at its published widths (u' = v,
+# v' = -omega^2 u, omega = 10, two FCNN 1-64-64-1 sin, Solver1D's defaults, its seed 11), with
+# AutoResidualWeightCallback on OnFirstLocal() | PeriodLocal(500) as its 'auto' arm runs it, for
+# 1,500 of the study's 10,000 epochs (its TPU record: 0.0397 at 10,000); OSC_LAUNCHES is the CPU
+# float32 rehearsal's count (cpu_rehearsal.py 5o): 10 per epoch (2 nets x (1 train + 4
+# validation batches)) plus 2 per weight fire (one forward of each net); the limit is about twice
+# that rehearsal's error at 1,500 epochs, 1.1544 (seeds 0-5: 0.908-1.148; the JAX package's
+# run_arm on the CPU: 0.9964), far from converged at this cut
+OSC_OMEGA, OSC_HIDDEN, OSC_SEED, OSC_EPOCHS, OSC_PERIOD = 10.0, (64, 64), 11, 1500, 500
+OSC_FIRES, OSC_LAUNCHES, OSC_LIMIT = 4, 10 * 1500 + 2 * 4, 2.3
 WIDE_INPUTS = (9, 32, 32, 1)  # more inputs than one direction chunk: two chunks in one launch
 PHASES = ('3', '3c', '3d', '4', '5a', '5b', '5c', '5d', '5e', '5f', '5g', '5h', '5i', '5j', '5k', '5l', '5m', '5n',
-          '6')
+          '5o', '6')
 EXTRA_PHASES = ('6b',)  # run only when named: a baseline that PERF.md records, too slow for every run
 WINDOW = 300  # epochs per timing window of a path's own fit
 # phase 6's own work, which checks nothing, cut when the whole run with the high-dimensional
@@ -318,6 +352,7 @@ TABLE_SHAPES = [  # (layer widths, activation, order, N, dtype timed in phase 6)
     ((3, 32, 32, 1), 'tanh', 2, 1000, F32),  # GenericSolver 3-D Poisson on Generator3D 10^3, phase 5g
     ((1, 32, 32, 1), 'sin', 1, 32, F32),     # Lotka-Volterra batch, phase 5c
     ((1, 32, 32, 1), 'sin', 2, 32, F32),     # the same under the h1 loss
+    ((1, 64, 64, 1), 'sin', 1, 32, F32),     # the stiff oscillator's batch, phase 5o
     ((2, 32, 32, 1), 'tanh', 1, 1024, F32),  # the bundle on (t, lam), phase 5h
     ((2,) + (20,) * 8 + (1,), 'tanh', 2, 16384, F32),  # Burgers, scoring 8 x 2,048 candidates, phase 5k
     ((2,) + (20,) * 8 + (1,), 'tanh', 2, 2048, F32),   # Burgers train batch
@@ -421,19 +456,25 @@ def flagship_solver(**kwargs):
         device=dev, dtype=dt, **kwargs)
 
 
-def laplace_solver(**kwargs):
-    """The flagship's 2-D Laplace Dirichlet problem; ``kwargs`` go to ``Solver2D``."""
+def laplace_problem():
+    """(equation, condition) of the flagship's 2-D Laplace Dirichlet problem."""
     from neurodiffeq_tpu_torch import fields as F, diff
     from neurodiffeq_tpu_torch.conditions import DirichletBVP2D
-    from neurodiffeq_tpu_torch.solvers import Solver2D
 
     cond = DirichletBVP2D(
         x_min=0.0, x_min_val=lambda y: 0 * y,
         x_max=1.0, x_max_val=lambda y: 0 * y,
         y_min=0.0, y_min_val=lambda x: F.sin(np.pi * x),
         y_max=1.0, y_max_val=lambda x: 0 * x)
-    return Solver2D(pde_system=lambda u, x, y: [diff(u, x, 2) + diff(u, y, 2)],
-                    conditions=[cond], xy_min=(0.0, 0.0), xy_max=(1.0, 1.0), **kwargs)
+    return (lambda u, x, y: [diff(u, x, 2) + diff(u, y, 2)]), cond
+
+
+def laplace_solver(**kwargs):
+    """The flagship's 2-D Laplace Dirichlet problem; ``kwargs`` go to ``Solver2D``."""
+    from neurodiffeq_tpu_torch.solvers import Solver2D
+
+    pde, cond = laplace_problem()
+    return Solver2D(pde_system=pde, conditions=[cond], xy_min=(0.0, 0.0), xy_max=(1.0, 1.0), **kwargs)
 
 
 def lv_solver(**kwargs):
@@ -1970,7 +2011,76 @@ def run_flagship(F, taylor_mlp):
                          + ', '.join(f"{k}: {'ok' if v else 'FAIL'}" for k, v in checks.items()))
     if not all(checks.values()):
         raise SystemExit("chip_smoke: flagship training check failed")
-    return launches_main
+    resumed = check_persistence(F, taylor_mlp, solver, xs, ys)
+    return {k: launches_main[k] + resumed[k] for k in launches_main}
+
+
+def check_persistence(F, taylor_mlp, solver, xs, ys):
+    """Phase 5a, continued: the trained flagship saved, loaded into a new
+    solver on the card through a ``SolverConfig`` (the path without dill),
+    resumed on both from the same generator state, and its solution
+    exported. Returns the launch counts of the two resumed epochs."""
+    import tempfile
+
+    from neurodiffeq_tpu_torch.generators import Generator2D
+    from neurodiffeq_tpu_torch.networks import FCNN
+    from neurodiffeq_tpu_torch.solvers import Solver2D, load_exported_solution
+    from neurodiffeq_tpu_torch.solvers_utils import SolverConfig
+
+    pde, cond = laplace_problem()
+    config = SolverConfig(pde_system=pde, conditions=[cond],
+                          nets=[FCNN(n_input_units=2, n_output_units=1, hidden_units=HIDDEN)],
+                          train_generator=Generator2D(GRID, (0, 0), (1, 1), method='equally-spaced-noisy'),
+                          valid_generator=Generator2D(GRID, (0, 0), (1, 1), method='equally-spaced'))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / 'flagship.pt')
+        solver.save(path)
+        size = Path(path).stat().st_size
+        loaded = Solver2D.load(path, config=config)
+    save_s = time.perf_counter() - t0
+    u, u_loaded = (s.get_solution()(xs, ys, to_numpy=True) for s in (solver, loaded))
+    restored = loaded.metrics_history == solver.metrics_history and loaded.global_epoch == solver.global_epoch
+    F.reset_taylor_fallback_count()
+    taylor_mlp.reset_launches()
+    losses, per = [], []
+    for s in (solver, loaded):
+        s.rng.manual_seed(2024)
+        before = taylor_mlp.LAUNCHES['taylor_mlp_1h']
+        s.fit(1, tqdm_file=None)
+        per.append(taylor_mlp.LAUNCHES['taylor_mlp_1h'] - before)
+        losses.append(s.metrics_history['train_loss'][-1])
+    torch.cuda.synchronize()
+    launches = dict(taylor_mlp.LAUNCHES)
+    fallbacks = F.taylor_fallback_count()
+    resume_rel = abs(losses[1] - losses[0]) / abs(losses[0])
+    t0 = time.perf_counter()
+    sol = solver.get_solution()
+    blob = sol.export(n_coords=2)
+    serve = load_exported_solution(blob)
+    export_s = time.perf_counter() - t0
+    pts = np.stack([xs.reshape(-1), ys.reshape(-1)], axis=1)
+    export_err = {}
+    for n in EXPORT_SIZES:
+        (out,) = serve(pts[:n])
+        want = sol(pts[:n, 0], pts[:n, 1], to_numpy=True)
+        export_err[n] = float(np.abs(out.cpu().numpy()[:, 0] - want).max()) if out.shape == (n, 1) else np.inf
+    checks = {
+        "loaded on the solver's device": next(loaded.nets[0].parameters()).device.type == solver.device.type,
+        'reloaded solution bitwise equal': bool(np.array_equal(u, u_loaded)),
+        'histories and epoch restored': restored,
+        'both resumed epochs launch taylor_mlp_1h': min(per) > 0,
+        'no Taylor fallback': fallbacks == 0,
+        f'resumed train losses agree to {RESUME_LIMIT} relative': resume_rel <= RESUME_LIMIT,
+        f'export equals the solution to {EXPORT_LIMIT} at N = {EXPORT_SIZES}': max(export_err.values()) <= EXPORT_LIMIT,
+    }
+    report('5a flagship', f"save -> Solver2D.load(config=SolverConfig(...)) on {loaded.device.type}: {size} bytes, {save_s:.1f} s; "
+                          f"resumed fit(1) on both from one generator state: taylor_mlp_1h launches {per}, train "
+                          f"losses {losses[0]:.9e} and {losses[1]:.9e} (bitwise equal: {losses[0] == losses[1]}, "
+                          f"rel diff {resume_rel:.1e}); export -> load_exported_solution {len(blob)} bytes in "
+                          f"{export_s:.1f} s, max |served - solution| {export_err}", checks,
+           "flagship persistence check failed")
+    return launches
 
 
 def run_default_solver2d(F, taylor_mlp):
@@ -2003,6 +2113,99 @@ def run_default_solver2d(F, taylor_mlp):
     if not all(checks.values()):
         raise SystemExit("chip_smoke: default Solver2D check failed")
     return launches_default
+
+
+def oscillator_solver():
+    """The stiff oscillator of ``benchmarks/balancing_ab.py:42-55``: u' = v,
+    v' = -omega^2 u, ``IVP(0, 1)`` and ``IVP(0, 0)`` on t in [0, 1], two
+    FCNN 1-64-64-1 sin nets, ``Solver1D``'s defaults, on the port's default
+    device and dtype (cuda, float32)."""
+    from neurodiffeq_tpu_torch import diff
+    from neurodiffeq_tpu_torch.conditions import IVP
+    from neurodiffeq_tpu_torch.networks import FCNN, SinActv
+    from neurodiffeq_tpu_torch.solvers import Solver1D
+
+    return Solver1D(ode_system=lambda u, v, t: [diff(u, t) - v, diff(v, t) + OSC_OMEGA ** 2 * u],
+                    conditions=[IVP(0.0, 1.0), IVP(0.0, 0.0)], t_min=0.0, t_max=1.0,
+                    nets=[FCNN(hidden_units=OSC_HIDDEN, actv=SinActv) for _ in range(2)])
+
+
+def oscillator_error(solver):
+    """``benchmarks/balancing_ab.py``'s error: the larger of max |u - cos(omega t)|
+    and max |v + omega sin(omega t)| / omega on 400 points."""
+    ts = np.linspace(0.0, 1.0, 400)
+    u, v = solver.get_solution()(ts, to_numpy=True)
+    return float(max(np.abs(u - np.cos(OSC_OMEGA * ts)).max(),
+                     np.abs(v + OSC_OMEGA * np.sin(OSC_OMEGA * ts)).max() / OSC_OMEGA))
+
+
+class ScalarRecorder:
+    """A writer for ``SimpleTensorboardCallback``: (tag, value, step) per call."""
+
+    def __init__(self):
+        self.records = []
+
+    def add_scalar(self, tag, scalar_value, global_step):
+        self.records.append((tag, float(scalar_value), global_step))
+
+
+def run_oscillator(F, taylor_mlp):
+    """Phase 5o: the control plane on the stiff oscillator: residual weights
+    adapted by ``AutoResidualWeightCallback``, ``CheckpointCallback`` in the
+    'state_dict' format and ``SimpleTensorboardCallback`` through one
+    ``fit``; the last checkpoint restored into a new solver. Returns the
+    launch counts, the solver, no schedule and the epochs/s of the fit."""
+    import tempfile
+
+    from neurodiffeq_tpu_torch import callbacks as cb
+    from neurodiffeq_tpu_torch.utils import set_seed
+
+    set_seed(OSC_SEED)
+    solver = oscillator_solver()
+    weights, recorder = cb.AutoResidualWeightCallback(), ScalarRecorder()
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        callbacks = [weights.conditioned_on(cb.OnFirstLocal() | cb.PeriodLocal(OSC_PERIOD)),
+                     cb.CheckpointCallback(ckpt_dir, format='state_dict').conditioned_on(cb.PeriodLocal(OSC_PERIOD)),
+                     cb.SimpleTensorboardCallback(writer=recorder)]
+        fit_s, launches, fallbacks, _ = fit_path(F, taylor_mlp, solver, OSC_EPOCHS, callbacks)
+        saved = sorted(p.name for p in Path(ckpt_dir).iterdir())
+        set_seed(OSC_SEED + 1)
+        fresh = oscillator_solver()
+        cb.CheckpointCallback.restore(fresh, ckpt_dir, OSC_EPOCHS)
+    params_equal = all(torch.equal(p, q) for p, q in zip(solver._parameters(), fresh._parameters()))
+    adam_equal = all(all(torch.equal(solver.optimizer.state[p][k], fresh.optimizer.state[q][k])
+                         for k in solver.optimizer.state[p])
+                     for p, q in zip(solver._parameters(), fresh._parameters()))
+    hist = solver.metrics_history['train_loss']
+    early, late = float(np.mean(hist[:100])), float(np.mean(hist[-100:]))
+    err = oscillator_error(solver)
+    history = weights.weight_history
+    steps = [s for _, _, s in recorder.records]
+    names = list(solver.metrics_history)
+    checks = {
+        f'taylor_mlp launched {OSC_LAUNCHES} times': launches['taylor_mlp'] == OSC_LAUNCHES,
+        'taylor_mlp_1h not launched': launches['taylor_mlp_1h'] == 0,
+        'no Taylor fallback': fallbacks == 0,
+        f'weights fired {OSC_FIRES} times': [e for e, _, _ in history] == [1] + list(range(OSC_PERIOD, OSC_EPOCHS + 1,
+                                                                                             OSC_PERIOD)),
+        'w_2 < 1 after the first fire': history[0][2][1] < 1.0,
+        'max(w) = 1 after every fire': all(max(w) == 1.0 for _, _, w in history),
+        'one scalar per metric per epoch': (len(recorder.records) == len(names) * OSC_EPOCHS
+                                            and steps == [e for e in range(1, OSC_EPOCHS + 1) for _ in names]),
+        'loss fell': late < early,
+        f'max error < {OSC_LIMIT}': np.isfinite(err) and err < OSC_LIMIT,
+        'checkpoint restored bitwise (parameters, Adam state, histories)': (
+            params_equal and adam_equal and fresh.metrics_history == solver.metrics_history),
+    }
+    report('5o control plane', f"stiff oscillator, two FCNN 1-64-64-1 sin, fit({OSC_EPOCHS}) float32 in {fit_s:.1f} s "
+                               f"({OSC_EPOCHS / fit_s:.1f} epochs/s with validation and 3 callbacks): launches "
+                               f"{launches}, {fallbacks} fallbacks, weight fires "
+                               f"{[(e, [round(x, 6) for x in w]) for e, _, w in history]}, gradient norms at the first "
+                               f"fire {[round(x, 4) for x in history[0][1]]}, checkpoints {saved}, "
+                               f"{len(recorder.records)} scalars recorded, train loss mean {early:.3e} (first 100) -> "
+                               f"{late:.3e} (last 100), max error against cos(10t) and -sin(10t) {err:.4e}", checks,
+           "control-plane check failed")
+    return launches, solver, None, [OSC_EPOCHS / fit_s]
 
 
 def main():
@@ -2075,10 +2278,11 @@ def main():
               '5k': 'Burgers, adaptive (scoring 8 x 2048, train 2048, 4 validation batches of 32 x 32)',
               '5l': f'Poisson d = 10, exact laplacian (one train batch of {HD_POINTS} points)',
               '5m': f'Poisson d = 100, stde_laplacian, compose path (one train batch of {HD_POINTS} points)',
-              '5n': f'clamped plate d = {PLATE_DIM}, exact biharmonic (one train batch of {PLATE_POINTS} points)'}
+              '5n': f'clamped plate d = {PLATE_DIM}, exact biharmonic (one train batch of {PLATE_POINTS} points)',
+              '5o': 'stiff oscillator (train + 4 validation batches of 32 points, 2 nets; the rate with 3 callbacks)'}
     runs = {'5d': run_sph, '5e': run_cavity, '5f': run_psi, '5g': run_generic_3d, '5h': run_bundle,
             '5i': run_heat, '5j': run_heat_neumann, '5k': run_burgers, '5l': run_poisson10, '5m': run_poisson100,
-            '5n': run_plate}
+            '5n': run_plate, '5o': run_oscillator}
     for name, run in runs.items():
         if name in chosen:
             out = run(F, taylor_mlp)

@@ -1,18 +1,23 @@
 """CPU rehearsal of ``chip_smoke.py``'s training phases.
 
-``python3 cpu_rehearsal.py [5l] [5m] [5n] [5a] [5g] [5d] [--epochs N] [--seed S]``
+``python3 cpu_rehearsal.py [5l] [5m] [5n] [5a] [5g] [5d] [5o] [5o-jax] [--epochs N] [--seed S]``
 trains the problems of phases 5l (d = 10 Poisson, exact laplacian), 5m
 (d = 100 Poisson, ``stde_laplacian``), 5n (d = 4 clamped plate, exact
-``biharmonic``), 5a (the flagship), 5g (``GenericSolver`` 3-D Poisson) and
-5d (spherical Poisson), built by the same functions of ``chip_smoke.py``, on the CPU in
-float32. The Taylor-MLP entry point (``ops.taylor_mlp.fcnn_taylor``) is
+``biharmonic``), 5a (the flagship, with its save, load, resume and
+export), 5g (``GenericSolver`` 3-D Poisson), 5d (spherical Poisson) and 5o
+(the stiff oscillator with the weight, checkpoint and TensorBoard
+callbacks), built by the same functions of ``chip_smoke.py``, on the CPU in
+float32. ``5o-jax`` runs the same arm through the JAX package
+(``benchmarks/balancing_ab.py``'s ``run_arm`` with its
+``AutoResidualWeightCallback``, seed 11) for comparison; only it imports
+JAX. The Taylor-MLP entry point (``ops.taylor_mlp.fcnn_taylor``) is
 wrapped with a counter, each call counted as the kernel launch it is on the
 card. For 5l-5n it prints per phase the calls and the compose fallbacks per
 epoch, the first and last 100-epoch mean train loss, the relative L2 error
 against the analytic solution on 4,096 points, the boundary defect and the
-seconds (``--seed`` picks the seed of 5l and 5m); 5a, 5g and 5d run
-``chip_smoke.py``'s own phase function, which prints its line of errors and
-checks. ``chip_smoke.py``'s limits on those errors are about twice what
+seconds (``--seed`` picks the seed of 5l, 5m and 5o; 5o's default is its
+phase's 11); 5a, 5g, 5d and 5o run ``chip_smoke.py``'s own phase
+function, which prints its line of errors and checks. ``chip_smoke.py``'s limits on those errors are about twice what
 this gives at the same epochs, and its launch checks use the counts per
 epoch. Needs no GPU; the epochs default to the chip phases'.
 """
@@ -58,6 +63,22 @@ def rehearse(name, build, d, epochs):
           f"{np.mean(hist[-100:]):.4e} (last 100), rel L2 error {rel:.4e}, boundary defect {bdef:.1e}", flush=True)
 
 
+def rehearse_jax_oscillator(epochs):
+    """The JAX package's run of phase 5o's arm on the CPU (float32):
+    ``benchmarks/balancing_ab.py``'s ``run_arm`` with its
+    ``AutoResidualWeightCallback`` on ``OnFirstLocal() | PeriodLocal(500)``."""
+    import os
+    os.environ['JAX_PLATFORMS'] = 'cpu'
+    sys.path.insert(0, 'benchmarks')
+    import balancing_ab
+    from neurodiffeq_tpu.callbacks import AutoResidualWeightCallback
+
+    t0 = time.perf_counter()
+    err = balancing_ab.run_arm('auto (JAX)', epochs, callback=AutoResidualWeightCallback(), seed=cs.OSC_SEED)
+    print(f"5o-jax: the JAX package's run_arm('auto', {epochs}) on the CPU in {time.perf_counter() - t0:.1f} s: "
+          f"max error {err:.4e}", flush=True)
+
+
 def main():
     from neurodiffeq_tpu_torch import fields as F
     from neurodiffeq_tpu_torch.ops import taylor_mlp
@@ -71,6 +92,8 @@ def main():
             opts[opt] = int(args[i + 1])
             args = args[:i] + args[i + 2:]
     epochs, seed = opts.get('--epochs'), opts.get('--seed', 0)
+    if '--seed' in opts:
+        cs.OSC_SEED = seed
     chosen = args or ['5l', '5m', '5n']
     torch.set_num_threads(4)
     torch.cuda.synchronize = lambda *a, **k: None  # the phase functions time the card
@@ -80,8 +103,11 @@ def main():
               '5m': (lambda: cs.highdim_solver(100, 'stde', seed), 100, cs.POISSON100_EPOCHS),
               '5n': (lambda: cs.plate_solver(cs.PLATE_DIM), cs.PLATE_DIM, cs.PLATE_EPOCHS)}
     own = {'5a': (cs.run_flagship, 'EPOCHS'), '5g': (cs.run_generic_3d, 'GEN3D_EPOCHS'),
-           '5d': (cs.run_sph, 'SPH_EPOCHS')}
+           '5d': (cs.run_sph, 'SPH_EPOCHS'), '5o': (cs.run_oscillator, 'OSC_EPOCHS')}
     for name in chosen:
+        if name == '5o-jax':
+            rehearse_jax_oscillator(epochs or cs.OSC_EPOCHS)
+            continue
         if name in own:
             run, constant = own[name]
             if epochs:

@@ -15,12 +15,20 @@ and residual-adaptive sampling), the 1-D, bundle, ``DirichletBVP2D``,
 spherical and cylindrical operators, the function bases, the loss registry,
 the callbacks, ``Solver1D``/``BundleSolver1D``/``Solver2D``/
 ``SolverSpherical``/``GenericSolver`` with
-``fit(max_epochs, callbacks, tqdm_file)``, and the hypersolver. The fused
+``fit(max_epochs, callbacks, tqdm_file, profile_dir, pipeline)``, save,
+load and resume (``solvers_utils``), the monitors, the checkpoint,
+monitor, TensorBoard and residual-weight callbacks, solution export
+through ``torch.export``, and the hypersolver. The fused
 Taylor-mode FCNN runs as a hand-written CUDA kernel for Hopper
 (``csrc/taylor_mlp.cu``) on CUDA tensors and as its plain PyTorch twin on
-CPU tensors. The package imports ``torch`` and never ``jax``.
+CPU tensors. The package imports ``torch`` and never ``jax``; matplotlib,
+dill, requests and tensorboard are imported at first use.
 """
 import sys as _sys
+import warnings as _warnings
+
+# as the JAX package does, always show deprecation warnings
+_warnings.simplefilter('always', FutureWarning)
 
 from . import utils
 from . import fields
@@ -31,6 +39,8 @@ from . import operators
 from . import function_basis
 from . import losses
 from . import solvers
+from . import solvers_utils
+from . import monitors
 from . import callbacks
 from . import hypersolver
 
@@ -44,4 +54,4 @@ neurodiffeq = fields
 __version__ = '0.1.0'
 
 __all__ = ['diff', 'safe_diff', 'unsafe_diff', 'neurodiffeq', 'utils', 'fields', 'networks', 'generators', 'conditions', 'operators',
-           'function_basis', 'losses', 'solvers', 'callbacks', 'hypersolver']
+           'function_basis', 'losses', 'solvers', 'solvers_utils', 'monitors', 'callbacks', 'hypersolver']

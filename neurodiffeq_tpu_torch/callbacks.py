@@ -8,22 +8,31 @@ the batch count); condition callbacks gate an action and combine with
 
 The port's ``fit`` runs one epoch at a time, so the JAX package's
 ``next_fire_epoch`` hints (which let it fuse epochs between callback fires
-into one device program) have no counterpart. ``MonitorCallback``,
-``CheckpointCallback``, ``SimpleTensorboardCallback`` and
-``AutoResidualWeightCallback`` are not ported yet (``ROADMAP.md`` §1 item 13a).
+into one device program) have no counterpart. Checkpoints come in two
+formats: ``'internals'`` (dill, as in the JAX package) and ``'state_dict'``
+(``torch.save`` of the solver's tensor part, where the JAX package writes
+orbax). matplotlib, dill and tensorboard are imported at first use.
 """
+import json
 import logging
+import math
+import os
 import random
+import warnings
 from abc import ABC, abstractmethod
+from datetime import datetime
 
 import numpy as np
 import torch
 
 from ._version_utils import deprecated_alias, warn_deprecate_class
+from .utils import safe_mkdir as _safe_mkdir
 
 __all__ = [
     'BaseCallback', 'ActionCallback', 'ConditionCallback',
-    'StopCallback', 'ReportCallback', 'EveCallback', 'SetLossFn', 'SetOptimizer', 'ProgressBarCallBack',
+    'MonitorCallback', 'StopCallback', 'CheckpointCallback', 'ReportCallback',
+    'EveCallback', 'AutoResidualWeightCallback', 'SimpleTensorboardCallback',
+    'SetLossFn', 'SetOptimizer', 'ProgressBarCallBack',
     'AndCallback', 'OrCallback', 'NotCallback', 'XorCallback',
     'TrueCallback', 'FalseCallback',
     'OnFirstLocal', 'OnFirstGlobal', 'OnLastLocal',
@@ -74,12 +83,179 @@ class ActionCallback(BaseCallback):
         return condition_callback.set_action_callback(self)
 
 
+class MonitorCallback(ActionCallback):
+    r"""Updates monitor plots (and optionally saves figures to disk).
+
+    :param monitor: The underlying monitor responsible for plotting solutions.
+    :param fig_dir: Directory for saving monitor figs; not saved if omitted.
+    :param format: Figure format ('png' default).
+    :param background: If True, draw on a worker thread instead of stalling
+        training. The nets are live modules that the next optimizer step
+        changes, so the worker gets frozen copies of them and of the
+        histories, taken when the callback fires. At most one draw is in
+        flight; fires arriving while the worker is busy are skipped, except
+        the final local epoch, which joins and draws synchronously. A GUI
+        matplotlib backend draws synchronously (with a warning). Default
+        False: the draw completes before training resumes.
+    """
+
+    def __init__(self, monitor, fig_dir=None, format=None, logger=None, background=False, **kwargs):
+        super().__init__(logger=logger)
+        self.monitor = monitor
+        self.fig_dir = fig_dir
+        self.format = format or 'png'
+        self.background = background
+        self._worker = None
+        self._warned_gui_backend = False
+
+        for kw in ['check_against_local', 'check_against']:
+            if kwargs.pop(kw, None) is not None:
+                warnings.warn(f'`Passing {kw}` is deprecated and ignored, use a `PeriodLocal` or `PeriodGlobal` to '
+                              f'control how frequently the callback is run', FutureWarning)
+        if kwargs.pop('repaint_last', None) is not None:
+            warnings.warn('Passing repaint_last is deprecated and ignored, Use a `OnLastLocal` callback to plot on '
+                          'last epoch', FutureWarning)
+        if kwargs:
+            raise ValueError(f'Unknown keyword argument(s): {list(kwargs.keys())}')
+        if fig_dir:
+            _safe_mkdir(fig_dir)
+
+    def __call__(self, solver):
+        is_last = solver.local_epoch >= getattr(solver, '_max_local_epoch', 0)
+        background = self.background and not is_last
+        if background and not getattr(self.monitor, 'using_non_gui_backend', False):
+            if not self._warned_gui_backend:
+                warnings.warn('MonitorCallback(background=True) requires a non-GUI matplotlib backend (e.g. Agg); '
+                              'drawing synchronously.')
+                self._warned_gui_backend = True
+            background = False
+        global_epoch = solver.global_epoch
+        if background:
+            if self._worker is not None and self._worker.is_alive():
+                return  # the previous draw is still rendering: the live plot lags
+            import copy
+            # the worker never sees live training state: frozen copies of the
+            # nets (one deepcopy keeps a shared net shared) and of the histories
+            nets = solver._nets_for(best=False)
+            history = {k: list(v) for k, v in solver.metrics_history.items()}
+            monitor_solver = copy.copy(solver)
+            monitor_solver.nets = nets
+            monitor_solver.metrics_history = history
+        else:
+            nets, history, monitor_solver = solver.nets, solver.metrics_history, solver
+        conditions = solver.conditions
+
+        def draw():
+            self.monitor.check(nets, conditions, history=history, solver=monitor_solver)
+            if self.fig_dir:
+                pic_path = os.path.join(self.fig_dir, f"epoch-{global_epoch}.{self.format}")
+                self.monitor.fig.savefig(pic_path, bbox_inches='tight')
+                self.logger.info(f'plot saved to {pic_path}')
+
+        if not background:
+            self.flush()
+            draw()
+            return
+        import threading
+        self._worker = threading.Thread(target=draw, daemon=True)
+        self._worker.start()
+
+    def flush(self):
+        """Wait for any in-flight background draw to finish."""
+        if self._worker is not None:
+            self._worker.join()
+            self._worker = None
+
+
 class StopCallback(ActionCallback):
     r"""Stops training, terminating the ``solver.fit()`` call. Use together
     with a ``ConditionCallback`` (otherwise fit exits after the first epoch)."""
 
     def __call__(self, solver):
         solver._stop_training = True
+
+
+def _numpy_tree(tree):
+    """``tree`` with every tensor made a numpy array."""
+    if torch.is_tensor(tree):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, dict):
+        return type(tree)((k, _numpy_tree(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_numpy_tree(v) for v in tree)
+    return tree
+
+
+class CheckpointCallback(ActionCallback):
+    r"""Saves solver state to ``ckpt_dir`` at each call.
+
+    :param format: 'internals' (default; a timestamped dill dump of
+        ``solver.get_internals('all')`` with the parameters as numpy arrays
+        and the optimizer as its class name and numpy state dict)
+        or 'state_dict' (``step_<global_epoch>.pt``, the ``torch.save`` of
+        the solver's tensor part that :meth:`~neurodiffeq_tpu_torch.solvers.BaseSolver.save`
+        writes, beside a ``step_<global_epoch>.meta.json`` of the global
+        epoch, the lowest loss and the histories; :meth:`restore` reads it).
+        The JAX package's 'orbax' is 'state_dict' here.
+    """
+
+    def __init__(self, ckpt_dir, logger=None, format='internals'):
+        super().__init__(logger=logger)
+        if format == 'orbax':
+            raise ValueError("format='orbax' is the JAX package's; use format='state_dict' here")
+        if format not in ('internals', 'state_dict'):
+            raise ValueError(f"Unknown checkpoint format {format}")
+        self.ckpt_dir = ckpt_dir
+        self.format = format
+        _safe_mkdir(ckpt_dir)
+
+    def __call__(self, solver):
+        if self.format == 'state_dict':
+            return self._save_state_dict(solver)
+        import dill
+
+        fname = os.path.join(self.ckpt_dir, datetime.now().strftime("%Y-%m-%d_%H-%M-%S") + ".internals")
+        internals = dict(solver.get_internals("all"))
+        for key in ('params', 'best_params'):
+            internals[key] = _numpy_tree(internals.get(key))
+        # a torch optimizer does not pickle: its class and state as data
+        internals['optimizer'] = {'type': type(solver.optimizer).__name__,
+                                  'state_dict': _numpy_tree(solver.optimizer.state_dict())}
+        with open(fname, 'wb') as f:
+            dill.dump(internals, f)
+        self.logger.info(f"Saved checkpoint to {fname} at local epoch = {solver.local_epoch} "
+                         f"(global epoch = {solver.global_epoch})")
+
+    def _save_state_dict(self, solver):
+        from .solvers_utils import _state
+
+        step = solver.global_epoch
+        path = os.path.join(self.ckpt_dir, f"step_{step}.pt")
+        torch.save(_state(solver), path)
+        meta = {'global_epoch': step, 'lowest_loss': solver.lowest_loss, 'metrics_history': solver.metrics_history}
+        with open(os.path.join(self.ckpt_dir, f"step_{step}.meta.json"), 'w') as f:
+            json.dump(meta, f)
+        self.logger.info(f"Saved checkpoint to {path}")
+
+    @staticmethod
+    def restore(solver, ckpt_dir, step):
+        """Load the checkpoint of global epoch ``step`` (format
+        'state_dict') into ``solver``, a solver built like the saved one:
+        its nets' and best parameters, its optimizer and the state of its
+        sampling generator, and the histories and lowest loss of the
+        ``.meta.json`` sidecar."""
+        from .solvers_utils import _restore, _restore_optimizer
+
+        state = torch.load(os.path.join(ckpt_dir, f"step_{step}.pt"), weights_only=True, map_location=solver.device)
+        _restore(solver, state)
+        _restore_optimizer(solver, state['optimizer'], type(solver.optimizer))
+        meta_path = os.path.join(ckpt_dir, f"step_{step}.meta.json")
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                meta = json.load(f)
+            solver.metrics_history = meta['metrics_history']
+            solver.lowest_loss = meta['lowest_loss']
+        return solver
 
 
 class ReportCallback(ActionCallback):
@@ -122,6 +298,122 @@ class EveCallback(ActionCallback):
         double_times = int(self.__class__.EPS + (np.log(value) - np.log(self.base_value)) / np.log(self.double_at))
         double_times = max(double_times, 0)
         solver.n_batches['train'] = int(min(self.n_0 * 2 ** double_times, self.n_max))
+
+
+class AutoResidualWeightCallback(ActionCallback):
+    r"""Adapts per-equation ``residual_weights`` toward balanced gradient
+    contributions.
+
+    Every fire it measures the parameter-gradient norm :math:`g_k =
+    \|\nabla_\theta\,\mathrm{mean}(r_k^2)\|_2` of each equation's unweighted
+    loss term on a fresh batch of the train generator (drawn with the
+    solver's generator, through the solver's ``_forward``, so the network
+    passes are the training path's), and moves the weights toward the
+    balanced target :math:`w_k \propto \max_j g_j / g_k` (the multi-equation
+    analog of the learning-rate annealing of Wang, Teng & Perdikaris, SIAM
+    J. Sci. Comput. 2021). Undamped, that prescription starves the stiff
+    equation (``benchmarks/balancing_ab.py``), so the update is a log-space
+    step of size ``rate`` toward the target, each factor clipped to
+    ``[1/clip, clip]`` per fire, the weights renormalized to ``max(w) = 1``
+    and floored at ``min_weight``. Updates freeze once the weights stop
+    moving (``freeze_tol`` relative change for ``freeze_patience``
+    consecutive fires). Compose with e.g. ``OnFirstLocal() | PeriodLocal(500)``.
+
+    :param rate: log-space step size toward the balanced target (0 < rate <= 1).
+    :param clip: max multiplicative weight change per fire (> 1).
+    :param min_weight: lower floor on normalized weights.
+    :param freeze_tol: relative weight change below which a fire counts as converged.
+    :param freeze_patience: consecutive converged fires before updates stop.
+    """
+
+    def __init__(self, rate=0.3, clip=2.0, min_weight=1e-4, freeze_tol=0.05, freeze_patience=2, logger=None):
+        super().__init__(logger=logger)
+        if not 0 < rate <= 1:
+            raise ValueError(f'rate must be in (0, 1], got {rate}')
+        if clip <= 1:
+            raise ValueError(f'clip must be > 1, got {clip}')
+        if min_weight <= 0:
+            raise ValueError(f'min_weight must be positive, got {min_weight}')
+        self.rate = rate
+        self.clip = clip
+        self.min_weight = min_weight
+        self.freeze_tol = freeze_tol
+        self.freeze_patience = freeze_patience
+        self.weight_history = []  # (local_epoch, grad_norms, weights) per fire
+        self.frozen = False
+        self._still_fires = 0
+
+    @staticmethod
+    def _grad_norms(solver, cols):
+        """The L2 norm over the solver's parameters of the gradient of each
+        equation's mean squared unweighted residual on ``cols``: one forward,
+        one ``torch.autograd.grad`` per equation."""
+        params = solver._parameters()
+        with torch.enable_grad(), solver._eval_scope():
+            funcs, coords = solver._forward(cols)
+            res = solver._residuals(funcs, coords, weighted=False).value
+            coords[0].coords.release()
+            norms = []
+            for k in range(res.shape[1]):
+                grads = torch.autograd.grad((res[:, k] ** 2).mean(), params, retain_graph=k + 1 < res.shape[1],
+                                            allow_unused=True)
+                norms.append(torch.sqrt(sum((g * g).sum() for g in grads if g is not None)))
+        return np.asarray(torch.stack(norms).tolist(), dtype=float)
+
+    def __call__(self, solver):
+        if self.frozen:
+            return
+        from .generators import _as_tuple
+
+        cols = [c.reshape(-1, 1) for c in _as_tuple(solver.generator['train'].sample(solver.rng))]
+        g = self._grad_norms(solver, cols)
+        if len(g) < 2:
+            warnings.warn('AutoResidualWeightCallback: the system has a single equation; there is nothing to '
+                          'balance. Freezing.')
+            self.frozen = True
+            return
+        target = g.max() / np.maximum(g, 1e-30)
+        cur = np.asarray(solver.residual_weights or [1.0] * len(g), dtype=float)
+        if len(cur) != len(g):
+            raise ValueError(f'residual_weights has {len(cur)} entries but the system produced {len(g)} residuals')
+        step = np.exp(self.rate * np.log(np.maximum(target, 1e-30) / cur))
+        w = cur * np.clip(step, 1.0 / self.clip, self.clip)
+        w = np.maximum(w / w.max(), self.min_weight)
+        self.weight_history.append((solver.local_epoch, [float(x) for x in g], [float(x) for x in w]))
+        rel = float(np.abs(np.log(w / cur)).max())
+        if rel < math.log1p(self.freeze_tol):
+            self._still_fires += 1
+            if self._still_fires >= self.freeze_patience:
+                self.frozen = True
+                self.logger.info(f'residual weights converged at {list(w)}; freezing')
+        else:
+            self._still_fires = 0
+        if rel > 1e-3:
+            solver.residual_weights = [float(x) for x in w]
+
+
+class SimpleTensorboardCallback(ActionCallback):
+    r"""Writes every metric's latest value per epoch for TensorBoard. Any
+    writer with ``add_scalar(tag, scalar_value, global_step)`` works; the
+    default, torch's ``SummaryWriter``, needs the tensorboard package and is
+    imported only when no writer is given."""
+
+    def __init__(self, writer=None, logger=None):
+        super().__init__(logger=logger)
+        if writer:
+            self.writer = writer
+            return
+        self.logger.info('No writer specified, creating a SummaryWriter automatically.')
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError as e:  # pragma: no cover
+            raise ImportError(f"TensorBoard doesn't seem to be installed. See the following\n{e}")
+        self.writer = SummaryWriter()
+
+    def __call__(self, solver):
+        for name, values in solver.metrics_history.items():
+            self.writer.add_scalar(tag=name, scalar_value=values[-1] if values else np.nan,
+                                   global_step=solver.global_epoch)
 
 
 class SetLossFn(ActionCallback):

@@ -142,11 +142,15 @@ _DIRECTIONS = {}  # (matrix bytes, shape, dtype, device) -> tensor
 
 def _directions(matrix, points):
     """The direction matrix as a tensor of the points' dtype on their device,
-    made once per matrix, dtype and device (it is never written to)."""
+    made once per matrix, dtype and device (it is never written to). One
+    made while ``torch.export`` traces is a stand-in of that trace and is
+    not kept."""
     key = (matrix.tobytes(), matrix.shape, points.dtype, points.device)
     out = _DIRECTIONS.get(key)
     if out is None:
-        out = _DIRECTIONS[key] = torch.tensor(matrix, dtype=points.dtype, device=points.device)
+        out = torch.tensor(matrix, dtype=points.dtype, device=points.device)
+        if not torch.compiler.is_compiling():
+            _DIRECTIONS[key] = out
     return out
 
 

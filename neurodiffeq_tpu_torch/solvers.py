@@ -16,12 +16,19 @@ validation loss are kept (``best_params``). ``fit`` runs one epoch at a
 time and calls its callbacks after each.
 
 The JAX package's compiled-epoch machinery (flat parameter carry,
-seed-keyed compile cache, scanned fit chunks, speculative dispatch,
-``profile_dir``) has no counterpart here: PyTorch runs eagerly, so a
-generator whose batches change size (``FilterGenerator``,
-``BatchGenerator``) trains through the same ``fit``.
+seed-keyed compile cache, scanned fit chunks, speculative dispatch) has no
+counterpart here: PyTorch runs eagerly, so a generator whose batches change
+size (``FilterGenerator``, ``BatchGenerator``) trains through the same
+``fit``, and ``fit(pipeline=...)`` is accepted and changes nothing.
+``fit(profile_dir=...)`` traces the run with ``torch.profiler``. Solvers
+save, load and resume through
+:class:`~neurodiffeq_tpu_torch.solvers_utils.PretrainedSolver`; a solution
+exports its evaluator as a ``torch.export`` program
+(:meth:`BaseSolution.export`, :func:`load_exported_solution`).
 """
 import inspect
+import io
+import json
 import sys
 import warnings
 from abc import ABC, abstractmethod
@@ -38,6 +45,7 @@ from .fields import Field, cat as field_cat, coords_from_points
 from .generators import Generator1D, Generator2D, GeneratorSpherical, _as_tuple, contains_buried_adaptive
 from .losses import _losses
 from .networks import FCNN, Tanh
+from .solvers_utils import PretrainedSolver
 from .utils import full_precision_matmuls, get_generator, resolve
 
 try:  # tqdm is optional at run time
@@ -47,7 +55,7 @@ except ImportError:  # pragma: no cover
 
 __all__ = ['BaseSolver', 'GenericSolver', 'Solver1D', 'BundleSolver1D', 'Solver2D', 'SolverSpherical',
            'BaseSolution', 'GenericSolution', 'Solution1D', 'BundleSolution1D', 'Solution2D', 'SolutionSpherical',
-           'SolutionSphericalHarmonics']
+           'SolutionSphericalHarmonics', 'load_exported_solution']
 
 
 def _warn_if_buried(generator):
@@ -68,7 +76,7 @@ def _requires_closure(optimizer):
     return p is not None and p.default is inspect.Parameter.empty
 
 
-class BaseSolver(ABC):
+class BaseSolver(ABC, PretrainedSolver):
     r"""A class for solving ODE/PDE systems.
 
     :param diff_eqs: maps funcs and coordinate Fields to a (list of) residual Field(s).
@@ -159,6 +167,7 @@ class BaseSolver(ABC):
             raise ValueError(f"need n_batches_train >= 1 and n_batches_valid >= 0, "
                              f"got {n_batches_train} and {n_batches_valid}")
         self.n_batches = {'train': n_batches_train, 'valid': n_batches_valid}
+        self._batch = {'train': None, 'valid': None}  # the last batch of each phase
         self.rng = generator if generator is not None else get_generator(self.device)
 
         self.metrics_fn = metrics if metrics else {}
@@ -233,6 +242,29 @@ class BaseSolver(ABC):
     @property
     def global_epoch(self):
         return len(self.metrics_history['train_loss'])
+
+    @property
+    def batch(self):
+        """The last batch of each phase (``{'train': cols, 'valid': cols}``)."""
+        return self._batch
+
+    @property
+    def _batch_examples(self):
+        warnings.warn('`._batch_examples` has been deprecated in favor of `._batch` and will be removed in a '
+                      'future version', FutureWarning)
+        return self._batch
+
+    @property
+    def criterion(self):
+        warnings.warn(f'`{self.__class__.__name__}.criterion` is a deprecated alias for '
+                      f'`{self.__class__.__name__}.loss_fn`.')
+        return self.loss_fn
+
+    @criterion.setter
+    def criterion(self, loss_fn):
+        warnings.warn(f'`{self.__class__.__name__}.criterion` is a deprecated alias for '
+                      f'`{self.__class__.__name__}.loss_fn`.')
+        self._set_loss_fn(loss_fn)
 
     # -------------------------------------------------------------- the loss
     def compute_func_val(self, net, cond, *coordinates):
@@ -310,7 +342,8 @@ class BaseSolver(ABC):
             samples = gen.sample_scored(self.rng, lambda cand: self._residual_scores([c.reshape(-1, 1) for c in cand]))
         else:
             samples = gen.sample(self.rng)
-        return [c.reshape(-1, 1) for c in _as_tuple(samples)]
+        self._batch[phase] = [c.reshape(-1, 1) for c in _as_tuple(samples)]
+        return self._batch[phase]
 
     # ---------------------------------------------------------------- epochs
     def _backward(self, loss):
@@ -402,7 +435,7 @@ class BaseSolver(ABC):
         elif self.n_batches['valid'] == 0:
             self._update_best('train')
 
-    def fit(self, max_epochs, callbacks=(), tqdm_file=sys.stderr, **kwargs):
+    def fit(self, max_epochs, callbacks=(), tqdm_file=sys.stderr, profile_dir=None, pipeline=True, **kwargs):
         r"""Run ``max_epochs`` epochs of training and validation, tracking the
         best parameters.
 
@@ -411,11 +444,24 @@ class BaseSolver(ABC):
             epoch; one may stop training by setting ``_stop_training``.
         :param tqdm_file: file for the tqdm progress bar; None (or no tqdm
             installed) shows none.
+        :param profile_dir: if set, the run is traced by ``torch.profiler``
+            (the host and, on the card, the device), and the trace is written
+            to this directory as a TensorBoard-readable file.
+        :param pipeline: accepted and without effect. The JAX package
+            dispatches its next compiled chunk of epochs ahead of the
+            callbacks; eager PyTorch has no such chunk, and the committed
+            epochs are the same either way.
         """
-        if kwargs.pop('monitor', None):
-            raise NotImplementedError(
-                "Passing `monitor` is deprecated, and MonitorCallback, which replaces it, is not "
-                "ported yet (ROADMAP.md §1 item 13a, the callbacks left out)")
+        if profile_dir is not None:
+            from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+            activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.device.type == 'cuda' else [])
+            with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(str(profile_dir))):
+                return self.fit(max_epochs, callbacks=callbacks, tqdm_file=tqdm_file, pipeline=pipeline, **kwargs)
+        monitor = kwargs.pop('monitor', None)
+        if monitor:
+            warnings.warn("Passing `monitor` is deprecated, use a MonitorCallback and pass a list of callbacks "
+                          "instead")
+            callbacks = [monitor.to_callback()] + list(callbacks)
         if kwargs:
             raise ValueError(f'Unknown keyword argument(s): {list(kwargs.keys())}')
         self._stop_training = False
@@ -436,6 +482,7 @@ class BaseSolver(ABC):
         finally:
             if pbar is not None:
                 pbar.close()
+            # no callback worker (a background monitor draw) outlives fit()
             for cb in callbacks:
                 flush = getattr(cb, 'flush', None)
                 if callable(flush):
@@ -579,14 +626,85 @@ class BaseSolution(ABC):
         shape = coords[0].shape
         points = torch.cat([c.reshape(-1, 1) for c in coords], dim=1)
         with nullcontext() if points.requires_grad else torch.no_grad():
-            coord_fields = coords_from_points(points)
-            us = [self._compute_u(net, cond, *coord_fields).value
-                  for net, cond in zip(self.nets, self.conditions)]
+            us = self._eval(points)
         if not no_reshape:
             us = [u.reshape(shape) for u in us]
         if to_numpy:
             us = [u.detach().cpu().numpy() for u in us]
         return us if len(self.nets) > 1 else us[0]
+
+    def _eval(self, points):
+        """The (N, 1) values of every function at the (N, d) ``points``."""
+        coord_fields = coords_from_points(points)
+        return [self._compute_u(net, cond, *coord_fields).value for net, cond in zip(self.nets, self.conditions)]
+
+    def export(self, n_coords, path=None, dtype=None):
+        """Serialize the solution's evaluator as a ``torch.export`` program
+        (a ``.pt2`` archive) with a dynamic batch dimension: the serving
+        counterpart of the JAX package's StableHLO artifact.
+
+        :param n_coords: number of coordinate inputs (1 for ODE solutions,
+            2 for 2-D PDEs, 3 for spherical, ...).
+        :param path: optional file to write the artifact to.
+        :param dtype: input dtype of the artifact (the solution's if None);
+            the points are cast to the solution's dtype inside it.
+        :return: the serialized bytes; :func:`load_exported_solution` reads them.
+        """
+        dtype = dtype or self.dtype
+        evaluator = _Evaluator(self)
+        example = torch.rand(7, n_coords, dtype=dtype, device=self.device)
+        with torch.no_grad():
+            evaluator(example)  # an eager pass first: the engine's constants are then real tensors
+            program = torch.export.export(evaluator, (example,),
+                                          dynamic_shapes={'points': {0: torch.export.Dim('batch', min=1)}})
+        meta = {'n_coords': n_coords, 'dtype': str(dtype).replace('torch.', ''), 'device': str(self.device)}
+        buf = io.BytesIO()
+        torch.export.save(program, buf, extra_files={'solution.json': json.dumps(meta)})
+        blob = buf.getvalue()
+        if path is not None:
+            with open(path, 'wb') as f:
+                f.write(blob)
+        return blob
+
+
+class _Evaluator(torch.nn.Module):
+    """A solution's evaluator as a module: its distinct nets are submodules,
+    so that ``torch.export`` lifts their parameters into the program."""
+
+    def __init__(self, solution):
+        super().__init__()
+        self.nets = torch.nn.ModuleList(list({id(n): n for n in solution.nets}.values()))
+        self._solution = [solution]  # a list: not a submodule
+
+    def forward(self, points):
+        solution = self._solution[0]
+        return tuple(solution._eval(points.to(solution.dtype)))
+
+
+def load_exported_solution(path_or_bytes):
+    """Load a solution artifact written by :meth:`BaseSolution.export`.
+
+    :param path_or_bytes: a file path or the artifact's bytes.
+    :return: a callable from ``(N, n_coords)`` points (a tensor or a numpy
+        array, N >= 1) to a tuple of ``(N, 1)`` tensors, on the device the
+        solution was exported from.
+    """
+    extra = {'solution.json': ''}
+    if isinstance(path_or_bytes, (bytes, bytearray)):
+        program = torch.export.load(io.BytesIO(bytes(path_or_bytes)), extra_files=extra)
+    else:
+        program = torch.export.load(str(path_or_bytes), extra_files=extra)
+    meta = json.loads(extra['solution.json'])
+    dtype, device = getattr(torch, meta['dtype']), torch.device(meta['device'])
+    module = program.module()
+
+    def serve(points):
+        points = torch.as_tensor(np.asarray(points) if not torch.is_tensor(points) else points,
+                                 dtype=dtype, device=device)
+        with torch.no_grad():
+            return tuple(module(points))
+
+    return serve
 
 
 class GenericSolution(BaseSolution):
@@ -734,6 +852,7 @@ class BundleSolver1D(BaseSolver):
         # the thetas follow the functions and t among the equation wrapper's arguments
         n_leading = len(conditions) + 1
         self.eq_param_index = tuple(n_leading + i for i in eq_param_index)
+        self._ode_system = ode_system  # what save() keeps: the wrapper is rebuilt on load
 
         def _diff_eqs_wrapper(*variables):
             return ode_system(*variables[:n_leading], *(variables[i] for i in self.eq_param_index))
@@ -762,6 +881,13 @@ class BundleSolver1D(BaseSolver):
         d = super()._get_internal_variables()
         d.update({'r_min': self.r_min, 'r_max': self.r_max, 'eq_param_index': self.eq_param_index})
         return d
+
+    def _constructor_kwargs(self):
+        n_leading = self.n_funcs + 1
+        kwargs = {k: v for k, v in super()._constructor_kwargs().items() if k not in ('r_min', 'r_max')}
+        kwargs.update(t_min=self.r_min[0], t_max=self.r_max[0], theta_min=self.r_min[1:],
+                      theta_max=self.r_max[1:], eq_param_index=tuple(i - n_leading for i in self.eq_param_index))
+        return kwargs
 
 
 class Solution2D(BaseSolution):

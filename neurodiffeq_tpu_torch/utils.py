@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 __all__ = ['set_tensor_type', 'set_seed', 'seed_value', 'get_default_dtype', 'get_default_device',
-           'get_generator', 'resolve', 'full_precision_matmuls', 'safe_mkdir', 'as_2d_column',
+           'get_generator', 'resolve', 'full_precision_matmuls', 'safe_mkdir', 'get_residual_info', 'as_2d_column',
            'split_columns', 'hstack', 'vstack']
 
 _DEFAULT_DTYPE = torch.float32
@@ -118,6 +118,38 @@ def full_precision_matmuls():
 def safe_mkdir(path):
     """Create a directory, ignoring if it already exists."""
     os.makedirs(path, exist_ok=True)
+
+
+def get_residual_info(solution_fields, coords, diff_eqs, highest_order=0, detach=True):
+    """Equation residuals and their derivatives up to ``highest_order``.
+
+    :param solution_fields: list of solution Fields (e.g. conditions
+        enforced on networks over ``coords``).
+    :param coords: list of coordinate Fields.
+    :param diff_eqs: the equation system; maps (*funcs, *coords) to residuals.
+    :param highest_order: how many derivative levels of the residuals to take.
+    :param detach: if True, return the (N, 1) tensors (detached) instead of Fields.
+    :return: ``[residuals, first_derivatives, ...]`` where level k >= 1 is a
+        nested list ``[per-residual [per-coordinate derivative]]``.
+    """
+    from .fields import Field, diff
+
+    residuals = diff_eqs(*solution_fields, *coords)
+    if isinstance(residuals, Field):
+        residuals = [residuals]
+
+    def diff_level(entry):
+        return [diff(entry, x) for x in coords] if isinstance(entry, Field) else [diff_level(e) for e in entry]
+
+    ret = [list(residuals)]
+    for _ in range(highest_order):
+        ret.append([diff_level(e) for e in ret[-1]])
+    if detach:
+        def values(level):
+            return level.value.detach() if isinstance(level, Field) else [values(e) for e in level]
+
+        ret = [values(level) for level in ret]
+    return ret
 
 
 def as_2d_column(x, dtype=None, device=None):

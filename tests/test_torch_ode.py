@@ -160,12 +160,20 @@ def test_fit_api():
     solver.fit(3, callbacks=[Flush()], tqdm_file=None)
     assert flushed == [True] and solver.global_epoch == 3 and solver.local_epoch == 3
     with pytest.raises(ValueError, match='Unknown keyword'):
-        solver.fit(1, tqdm_file=None, pipeline=False)
-    with pytest.raises(NotImplementedError, match='item 13a'):
-        solver.fit(1, monitor=object())
+        solver.fit(1, tqdm_file=None, bogus=False)
+    solver.fit(1, tqdm_file=None, pipeline=False)  # accepted, as in the JAX package (F9)
+    assert solver.global_epoch == 4
+
+    class Monitor:  # fit(monitor=...) warns and draws through the monitor's callback, as in JAX
+        def to_callback(self):
+            return Flush()
+
+    with pytest.warns(UserWarning, match='MonitorCallback'):
+        solver.fit(1, monitor=Monitor(), tqdm_file=None)
+    assert flushed == [True, True] and solver.global_epoch == 5
     # internals, and the best nets as copies
     internals = solver.get_internals()
-    assert internals['t_min'] == 0.1 and internals['global_epoch'] == 3
+    assert internals['t_min'] == 0.1 and internals['global_epoch'] == 5
     assert solver.get_internals('lowest_loss') == solver.lowest_loss == min(solver.metrics_history['valid_loss'])
     assert solver.get_internals(['n_funcs', 'nets'], return_type='dict')['n_funcs'] == 2
     with pytest.raises(ValueError):
