@@ -160,6 +160,32 @@ line each or more:
       error against cos(10 t) and -sin(10 t) (``oscillator_error``) below
       ``OSC_LIMIT``, and the last checkpoint restored into a new solver must
       give its parameters, Adam state and histories bitwise;
+   p. the temporal subsystem (``neurodiffeq_tpu_torch.temporal``): (a) the heat
+      problem of ``tests/test_temporal.py`` through
+      ``SingleNetworkApproximator1DSpatialTemporal`` (FCNN 2-32-32-1, penalty
+      ends, 32 x 32 points from numpy's stream in batches of 512, Adam 3e-3),
+      300 epochs: exactly ``THEAT_LAUNCHES`` ``taylor_mlp`` launches per epoch
+      (two mini-batch steps, the epoch loss, validation; order-0 reads run
+      the plain forward), no fallback, the error at t = 1 on 21 points <
+      ``THEAT_LIMIT``, u(x, 0) = u0 to 1e-6; (b) the RE100 cavity through
+      ``SingleNetworkApproximator2DSpatialSystem`` on one FCNN 2-256-3 with
+      penalty walls, 300 epochs: exactly ``TCAV_LAUNCHES`` ``taylor_mlp_1h``
+      launches per epoch, one per collocation set for the three columns,
+      no fallback, the loss's fall > ``TCAV_DROP``;
+   q. the legacy APIs on their defaults (FCNN 1-32-32-n, 2-32-32-1 and
+      3-32-32-1 tanh): ``ode.solve`` (u' + u = 0) and ``ode.solve_system``
+      (u1' = u2, u2' = -u1, one shared net) for 1,000 epochs, ``pde.solve2D``
+      (Laplace) for 500 and ``pde_spherical.solve_spherical`` (the Gaussian
+      charge) for 300, each with exactly the rehearsal's launches per epoch,
+      no fallback and a falling loss, the errors against exp(-t), (sin t,
+      cos t) (initial values exact to 1e-6) and the analytic Laplace
+      solution below their limits; then the hexagram of
+      ``tests/test_pde_irregular.py`` through ``pde.solve2D`` and
+      ``CustomBoundaryCondition`` (FCNN 2-100-100-1 ELU, one epoch) in
+      float64: the Dirichlet control points within 1e-4 and the normal
+      derivatives at the Neumann ones within 1e-2 (``BASELINE.md``), no
+      launch, ``HEXAGRAM_FALLBACKS`` compose fallbacks, the float32
+      deviations reported beside them;
 6. timing: device time per call of kernel and twin at every shape of
    ``TABLE_SHAPES`` and ``REACH_SHAPES`` (``torch.profiler`` over 25 calls;
    the latter only where the tree's kernels take them) beside the kernel's
@@ -170,7 +196,9 @@ line each or more:
    both cavity, the bundle, heat and Burgers epochs' rates from the
    300-epoch windows of their own fits in 5d-5f and 5h-5k, device time
    split by kernel kind over 3 profiled epochs, and device-busy shares;
-   the same for 5l-5n, and for 5o (its rate from its own fit); and, only
+   the same for 5l-5n, for 5o (its rate from its own fit), and for 5p's two
+   problems and 5q's ``solve``, ``solve_system`` and ``solve2D`` (their rates
+   from their own runs); and, only
    when named (``--phases 6b``), 5m's epoch in the design before this
    slice's batching (per-coordinate fields, one Hessian-vector product per
    probe: 3.5-13 s per epoch), one profiled;
@@ -194,6 +222,7 @@ Any failure ends the run with a non-zero exit code and no result line. The
 card's name and power limit and the kernel record come before the last
 line, which is ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import inspect
 import json
 import math
@@ -300,9 +329,37 @@ RESUME_LIMIT, EXPORT_LIMIT, EXPORT_SIZES = 1e-6, 1e-6, (1, 7, 101 * 101)
 # run_arm on the CPU: 0.9964), far from converged at this cut
 OSC_OMEGA, OSC_HIDDEN, OSC_SEED, OSC_EPOCHS, OSC_PERIOD = 10.0, (64, 64), 11, 1500, 500
 OSC_FIRES, OSC_LAUNCHES, OSC_LIMIT = 4, 10 * 1500 + 2 * 4, 2.3
+# the temporal subsystem (5p): (a) the heat problem of tests/test_temporal.py:40-76 (k = 0.3, L = 2, T = 3,
+# u0 = sin(pi x / L), penalty u = 0 at both ends, FCNN 2-32-32-1 tanh, 32 x 32 points drawn from numpy's
+# stream, batch 512, Adam 3e-3, 300 epochs, shuffled), whose error at t = 1 the JAX test holds to 0.12; (b)
+# the RE100 cavity of the temporal-API experiment at its published width (one FCNN 2-256-3 tanh,
+# SURVEY.md:344, BASELINE.md:25) through SingleNetworkApproximator2DSpatialSystem, the penalty walls of
+# examples/lid_driven_cavity.py::build_penalty (strictness 10), 32 x 32 points in one batch, Adam 1e-3, 300
+# epochs; no Ghia check: this shallow configuration is basin-unstable under its own protocol
+# (benchmarks/configs.py:180-186). The launch counts are exactly the port's CPU float32 rehearsal's
+# (cpu_rehearsal.py 5p) per epoch. The heat limit is about twice the largest error of that rehearsal over
+# seeds 0-4 (1.598e-3, 4.344e-3, 3.544e-3, 2.219e-3, 2.588e-3: the card's float32 run is another draw);
+# the cavity's fall over the first to the last 10 epochs must pass half the rehearsal's 2.38x (seeds 1-4:
+# 1.88x-3.49x)
+TEMPORAL_EPOCHS, TEMPORAL_BATCH, TEMPORAL_SEED = 300, 512, 0
+THEAT_K, THEAT_L, THEAT_T, THEAT_LIMIT, THEAT_LAUNCHES = 0.3, 2.0, 3.0, 8.7e-3, 4
+TCAV_HIDDEN, TCAV_BATCH, TCAV_STRICTNESS, TCAV_DROP, TCAV_LAUNCHES = (256,), 1024, 10.0, 1.19, 3
+# the legacy APIs (5q), on their default nets and generators: (a) ode.solve on u' + u = 0, IVP(0, 1), t in
+# [0, 2], 1,000 epochs; (b) ode.solve_system on u1' = u2, u2' = -u1 with the shared FCNN 1-32-32-2, 1,000
+# epochs; (c) pde.solve2D on the Laplace problem
+# of tests/test_legacy_apis.py:76-91, 500 epochs, error on 101 x 101; (d) pde_spherical.solve_spherical on
+# the direct electric potential of tests/test_pde_spherical.py:44-57, 300 epochs; (e) the hexagram of
+# tests/test_pde_irregular.py through pde.solve2D with FCNN 2-100-100-1 ELU for one epoch, in float64 (and
+# float32, reported), against the anchors of BASELINE.md:15-16. The launch and fallback counts are exactly
+# the port's CPU float32 rehearsal's (cpu_rehearsal.py 5q); the limits about twice its largest error over
+# the seeds LEGACY_SEED = 0, 10, 20, 30 (a: 1.151e-3, 2.172e-3, 1.251e-3, 9.489e-4; b: 5.967e-3, 7.837e-3,
+# 1.026e-2, 4.284e-3; c: 2.751e-2, 2.516e-2, 1.539e-2, 5.640e-3)
+LEGACY_ODE_EPOCHS, LEGACY_2D_EPOCHS, LEGACY_SPH_EPOCHS, LEGACY_LAUNCHES, LEGACY_SEED = 1000, 500, 300, 5, 0
+LEGACY_ODE_LIMIT, LEGACY_SYSTEM_LIMIT, LEGACY_2D_LIMIT, LEGACY_SPH_LAUNCHES = 4.4e-3, 2.1e-2, 5.5e-2, 2
+HEXAGRAM_HIDDEN, HEXAGRAM_DIRICHLET, HEXAGRAM_NEUMANN, HEXAGRAM_FALLBACKS = (100, 100), 1e-4, 1e-2, 25
 WIDE_INPUTS = (9, 32, 32, 1)  # more inputs than one direction chunk: two chunks in one launch
 PHASES = ('3', '3c', '3d', '4', '5a', '5b', '5c', '5d', '5e', '5f', '5g', '5h', '5i', '5j', '5k', '5l', '5m', '5n',
-          '5o', '6')
+          '5o', '5p', '5q', '6')
 EXTRA_PHASES = ('6b',)  # run only when named: a baseline that PERF.md records, too slow for every run
 WINDOW = 300  # epochs per timing window of a path's own fit
 # phase 6's own work, which checks nothing, cut when the whole run with the high-dimensional
@@ -359,6 +416,10 @@ TABLE_SHAPES = [  # (layer widths, activation, order, N, dtype timed in phase 6)
     ((2,) + (20,) * 8 + (1,), 'tanh', 2, 1024, F32),   # Burgers validation batch
     ((10, 64, 64, 1), 'sin', 2, 768, F32),   # d = 10 Poisson, exact laplacian: 2 direction chunks, phase 5l
     ((100, 64, 64, 1), 'sin', 2, 768, F32),  # the d = 100 exact laplacian's forward: 13 chunks, phase 3d
+    ((2, 32, 32, 1), 'tanh', 2, 512, F32),   # the temporal heat's mini-batch, phase 5p
+    ((2, 256, 3), 'tanh', 2, 1024, F32),     # the temporal cavity system, one pass for its 3 columns, phase 5p
+    ((1, 32, 32, 1), 'tanh', 1, 32, F32),    # ode.solve's default net, phase 5q
+    ((1, 32, 32, 2), 'tanh', 1, 32, F32),    # ode.solve_system's shared default net, phase 5q
 ]
 # the result line times taylor_mlp_1h at the flagship's shape and taylor_mlp at
 # the primitive cavity's, its heaviest path
@@ -608,11 +669,7 @@ def cavity_problem(form):
             def parameterize(self, out, x, y):
                 return (1 - F.exp(-x)) * (1 - F.exp(-y)) * out
 
-        def equations(u, v, p, x, y):
-            return [u * diff(u, x) + v * diff(u, y) + diff(p, x) - nu * (diff(u, x, 2) + diff(u, y, 2)),
-                    u * diff(v, x) + v * diff(v, y) + diff(p, y) - nu * (diff(v, x, 2) + diff(v, y, 2)),
-                    diff(u, x) + diff(v, y)]
-
+        equations = steady_navier_stokes(diff, nu)
         conds, weights = [HardCavityU(), HardCavityV(), HardCavityP()], None
     else:
         def u_lid(x):  # C^1 at the corners, A = 50
@@ -1851,16 +1908,22 @@ def enqueue_us(fn, calls=200, warmup=10):
 
 def device_us(fn, calls=100):
     """(device microseconds, device kernels) per call, summed over the CUDA
-    kernel events of ``calls`` calls under ``torch.profiler``."""
+    kernel events of ``calls`` calls under ``torch.profiler``. A trace that
+    recorded no kernel (the profiler dropped one in a full run on the card)
+    is taken again, up to three times; then the time comes from CUDA events
+    and the kernel count is nan."""
     from torch.profiler import ProfilerActivity, profile
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type.name == 'CUDA']
-    return sum(e.device_time for e in kernels) / calls, len(kernels) / calls
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type.name == 'CUDA']
+        if kernels:
+            return sum(e.device_time for e in kernels) / calls, len(kernels) / calls
+    return cuda_time_ms(fn, calls) * 1e3, float('nan')
 
 
 def check_kernels(fcnn_taylor, fcnn_taylor_reference):
@@ -2208,6 +2271,372 @@ def run_oscillator(F, taylor_mlp):
     return launches, solver, None, [OSC_EPOCHS / fit_s]
 
 
+class EpochRunner:
+    """A temporal training routine as ``fit(n)``: ``n`` more epochs of
+    ``solve(max_epochs=n)`` (the approximator and the optimizer keep their
+    state), so that phase 6 profiles its epochs as it does a solver's."""
+
+    def __init__(self, solve):
+        self.solve = solve
+
+    def fit(self, n, callbacks=(), tqdm_file=None):
+        return self.solve(max_epochs=n)
+
+
+class SolverGrab:
+    """A monitor for the legacy functions' ``monitor=`` that draws nothing:
+    its callback keeps the solver that ``fit`` runs, for phase 6."""
+
+    def __init__(self):
+        self.solver = None
+
+    def to_callback(self):
+        def grab(solver):
+            self.solver = solver
+        return grab
+
+
+@contextlib.contextmanager
+def no_progress_bar():
+    """The legacy functions' ``fit`` without its progress bar (they pass no
+    ``tqdm_file``), restored after."""
+    from neurodiffeq_tpu_torch import solvers
+    bar, solvers.tqdm = solvers.tqdm, None
+    try:
+        yield
+    finally:
+        solvers.tqdm = bar
+
+
+@contextlib.contextmanager
+def default_dtype(dtype):
+    """The port's default dtype set to ``dtype`` on its default device, and restored."""
+    from neurodiffeq_tpu_torch.utils import get_default_device, get_default_dtype, set_tensor_type
+    device, before = str(get_default_device()), get_default_dtype()
+    set_tensor_type(device, 64 if dtype == F64 else 32)
+    try:
+        yield
+    finally:
+        set_tensor_type(device, 64 if before == F64 else 32)
+
+
+def count_path(F, taylor_mlp, run):
+    """``run()`` with the launch and fallback counts reset just before and
+    read just after: (its result, seconds, launches, fallbacks)."""
+    F.reset_taylor_fallback_count()
+    taylor_mlp.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(taylor_mlp.LAUNCHES), F.taylor_fallback_count()
+
+
+def steady_navier_stokes(diff, nu):
+    """The steady incompressible Navier-Stokes residuals of (u, v, p) in 2-D
+    with viscosity ``nu`` (examples/lid_driven_cavity.py), in the package of
+    ``diff``."""
+    def equations(u, v, p, x, y):
+        return [u * diff(u, x) + v * diff(u, y) + diff(p, x) - nu * (diff(u, x, 2) + diff(u, y, 2)),
+                u * diff(v, x) + v * diff(v, y) + diff(p, y) - nu * (diff(v, x, 2) + diff(v, y, 2)),
+                diff(u, x) + diff(v, y)]
+
+    return equations
+
+
+def temporal_problem(kind, T, F, diff, FCNN):
+    """Phase 5p's approximator of ``kind`` and its training routine, a
+    function of ``(optimizer, max_epochs)``, in the package whose
+    ``temporal`` and ``fields`` modules, ``diff`` and ``FCNN`` are passed:
+    the port's here, the JAX package's in ``cpu_rehearsal.py 5p-jax``.
+    'heat': the heat problem of tests/test_temporal.py; 'cavity': the
+    steady Re = 100 cavity on one FCNN 2-256-3 with penalty walls."""
+    if kind == 'heat':
+        approx = T.SingleNetworkApproximator1DSpatialTemporal(
+            single_network=FCNN(n_input_units=2, hidden_units=(32, 32)),
+            pde=lambda u, x, t: diff(u, t) - THEAT_K * diff(u, x, 2),
+            initial_condition=T.FirstOrderInitialCondition(u0=lambda x: F.sin(np.pi / THEAT_L * x)),
+            boundary_conditions=[T.BoundaryCondition(form=lambda u, x, t: u,
+                                                     points_generator=T.generator_1dspatial(4, a, a, random=False))
+                                 for a in (0.0, THEAT_L)])
+        gens = (T.generator_1dspatial(32, 0, THEAT_L), T.generator_temporal(32, 0, THEAT_T),
+                T.generator_1dspatial(32, 0, THEAT_L, random=False),
+                T.generator_temporal(32, 0, THEAT_T, random=False))
+        return approx, lambda optimizer, max_epochs: T._solve_1dspatial_temporal(
+            *gens, approx, optimizer, batch_size=TEMPORAL_BATCH, max_epochs=max_epochs, shuffle=True, metrics={},
+            monitor=None)
+
+    def u_lid(x):  # examples/lid_driven_cavity.py:42-44
+        return (1 - F.exp(-50.0 * x)) * (1 - F.exp(50.0 * (x - 1)))
+
+    walls = [((0, 0), (1, 0)), ((1, 0), (1, 1)), ((0, 1), (0, 0))]
+    bcs = [T.BoundaryCondition(form=lambda u, v, p, x, y: F.cat([u, v]),
+                               points_generator=T.generator_2dspatial_segment(32, a, b)) for a, b in walls]
+    bcs.append(T.BoundaryCondition(form=lambda u, v, p, x, y: F.cat([u - u_lid(x), v]),
+                                   points_generator=T.generator_2dspatial_segment(32, (1, 1), (0, 1))))
+    approx = T.SingleNetworkApproximator2DSpatialSystem(
+        single_network=FCNN(n_input_units=2, n_output_units=3, hidden_units=TCAV_HIDDEN),
+        pde=steady_navier_stokes(diff, 1.0 / CAV_RE), boundary_conditions=bcs, boundary_strictness=TCAV_STRICTNESS)
+    gens = (T.generator_2dspatial_rectangle((32, 32), 0, 1, 0, 1),
+            T.generator_2dspatial_rectangle((32, 32), 0, 1, 0, 1, random=False))
+    return approx, lambda optimizer, max_epochs: T._solve_2dspatial(
+        *gens, approx, optimizer, batch_size=TCAV_BATCH, max_epochs=max_epochs, shuffle=True, metrics={},
+        monitor=None)
+
+
+def temporal_runner(kind):
+    """The port's 5p problem of ``kind``: the approximator and an
+    :class:`EpochRunner` over its routine with Adam (3e-3 for the heat, 1e-3
+    for the cavity)."""
+    from neurodiffeq_tpu_torch import diff, fields as F, temporal as T
+    from neurodiffeq_tpu_torch.networks import FCNN
+
+    approx, solve = temporal_problem(kind, T, F, diff, FCNN)
+    opt = torch.optim.Adam(approx.parameters(), lr=3e-3 if kind == 'heat' else 1e-3)
+    return approx, EpochRunner(lambda max_epochs: solve(opt, max_epochs))
+
+
+def run_temporal(F, taylor_mlp):
+    """Phase 5p: the temporal subsystem on the card. Returns the launch
+    counts and phase 6's entries for its two problems."""
+    from neurodiffeq_tpu_torch.utils import set_seed
+
+    n = TEMPORAL_EPOCHS
+    set_seed(TEMPORAL_SEED)  # the net's initialization and numpy's stream, from which the samplers draw
+    approx, runner = temporal_runner('heat')
+    (_, hist), heat_s, launches, fallbacks = count_path(F, taylor_mlp, lambda: runner.fit(n))
+    xs = np.linspace(0, THEAT_L, 21)
+    err = float(np.abs(approx(xs, np.ones(21)) - np.sin(np.pi * xs / THEAT_L)
+                       * np.exp(-THEAT_K * (np.pi / THEAT_L) ** 2)).max())
+    ic = float(np.abs(approx(xs, np.zeros(21)) - np.sin(np.pi * xs / THEAT_L)).max())
+    checks = launch_checks(launches, fallbacks, THEAT_LAUNCHES, n)
+    checks.update({'loss fell': hist['train_loss'][-1] < hist['train_loss'][0],
+                   f'max error at t = 1 < {THEAT_LIMIT}': err < THEAT_LIMIT, 'u(x, 0) = u0 to 1e-6': ic < 1e-6})
+    report('5p temporal', f"heat through SingleNetworkApproximator1DSpatialTemporal, FCNN 2-32-32-1, 32 x 32 points "
+                          f"in batches of {TEMPORAL_BATCH}, {n} epochs float32 in {heat_s:.1f} s ({n / heat_s:.1f} "
+                          f"epochs/s with validation): launches {launches} ({launches['taylor_mlp'] / n:.2f} "
+                          f"taylor_mlp per epoch), {fallbacks} fallbacks, train loss {hist['train_loss'][0]:.3e} -> "
+                          f"{hist['train_loss'][-1]:.3e}, max error at t = 1 on 21 points {err:.4e}, max |u(x, 0) - "
+                          f"u0| {ic:.1e}", checks, "temporal heat check failed")
+    timed = {'temporal heat (2 steps of 512, the epoch loss and validation on 1,024)': (
+        launches, runner, None, [n / heat_s])}
+
+    set_seed(TEMPORAL_SEED)
+    _, runner = temporal_runner('cavity')
+    (_, hist), cav_s, cav_launches, fallbacks = count_path(F, taylor_mlp, lambda: runner.fit(n))
+    loss = hist['train_loss']
+    drop = float(np.mean(loss[:10]) / np.mean(loss[-10:]))
+    checks = {f'taylor_mlp_1h launched {TCAV_LAUNCHES} per epoch (one per collocation set, 3 columns)':
+              cav_launches['taylor_mlp_1h'] == TCAV_LAUNCHES * n,
+              'taylor_mlp not launched': cav_launches['taylor_mlp'] == 0, 'no Taylor fallback': fallbacks == 0,
+              f'loss fell {TCAV_DROP}x': bool(np.isfinite(loss).all()) and drop > TCAV_DROP}
+    report('5p temporal', f"RE100 cavity through SingleNetworkApproximator2DSpatialSystem, FCNN 2-256-3, penalty "
+                          f"walls, 32 x 32 points, {n} epochs float32 in {cav_s:.1f} s ({n / cav_s:.1f} epochs/s): "
+                          f"launches {cav_launches}, {fallbacks} fallbacks, train loss mean {np.mean(loss[:10]):.4e} "
+                          f"(first 10) -> {np.mean(loss[-10:]):.4e} (last 10), {drop:.2f}x", checks,
+           "temporal cavity check failed")
+    timed['temporal cavity system (one batch of 1,024, the epoch loss and validation)'] = (
+        cav_launches, runner, None, [n / cav_s])
+    return {k: launches[k] + cav_launches[k] for k in launches}, timed
+
+
+def hexagram(P):
+    """The hexagram of tests/test_pde_irregular.py:29-100 through the port's
+    ``pde`` module: the condition and the Dirichlet and Neumann control
+    points on the hexagram (the dummy points on two circles close each)."""
+    def exact(x, y):
+        return np.log(1 + x ** 2 + y ** 2)
+
+    def grad(x, y):
+        return 2 * x / (1 + x ** 2 + y ** 2), 2 * y / (1 + x ** 2 + y ** 2)
+
+    step = 2.0 / np.sin(np.pi / 3) / 4 / 10
+    left, right = np.pi / 3, -np.pi * 2 / 3
+    dirichlet, direction, (px, py) = [], np.pi * 2 / 3, (0.0, -1.0)
+    for i in range(6):
+        for _ in range(10):
+            dirichlet.append(P.DirichletControlPoint(loc=(px, py), val=exact(px, py)))
+            px, py = px + step * np.cos(direction), py + step * np.sin(direction)
+        direction += left if i % 2 == 0 else right
+    radius = 1.0 / np.sin(np.pi / 6)
+    cx = radius * np.cos(np.pi / 6)
+    dummy = [P.DirichletControlPoint(loc=(cx + radius * np.cos(th), radius * np.sin(th)),
+                                     val=exact(cx + radius * np.cos(th), radius * np.sin(th)))
+             for th in np.linspace(-np.pi * 5 / 6, np.pi * 5 / 6, 60)]
+    neumann, normal, direction, (px, py) = [], np.pi / 6, -np.pi / 3, (0.0, 1.0)
+    for i in range(6):
+        nx, ny = np.cos(normal), np.sin(normal)
+        px, py = px + step * np.cos(direction), py + step * np.sin(direction)
+        for _ in range(9):
+            gx, gy = grad(px, py)
+            neumann.append(P.NeumannControlPoint(loc=(px, py), val=gx * nx + gy * ny, normal_vector=(nx, ny)))
+            px, py = px + step * np.cos(direction), py + step * np.sin(direction)
+        turn = left if i % 2 == 0 else right
+        direction, normal = direction + turn, normal + turn
+    ndummy = []
+    for th in np.linspace(np.pi / 6, np.pi * 11 / 6, 60):
+        px, py = -cx + radius * np.cos(th), radius * np.sin(th)
+        gx, gy = grad(px, py)
+        ndummy.append(P.NeumannControlPoint(loc=(px, py), val=gx * np.cos(th) + gy * np.sin(th),
+                                            normal_vector=(np.cos(th), np.sin(th))))
+    cbc = P.CustomBoundaryCondition(P.Point((0.0, 0.0)), dirichlet + dummy, neumann + ndummy)
+    return cbc, dirichlet, neumann, exact
+
+
+def run_hexagram(F, taylor_mlp, dtype):
+    """Phase 5q (e): the irregular-domain anchor through ``pde.solve2D`` in
+    ``dtype`` on the card, one epoch of an FCNN 2-100-100-1 ELU (no Taylor
+    rule: the enforced solution composes). Returns (max deviation at the
+    Dirichlet control points, max normal-derivative deviation at the Neumann
+    ones, launches, fallbacks, seconds)."""
+    import warnings
+
+    from neurodiffeq_tpu_torch import diff, pde as P
+    from neurodiffeq_tpu_torch.generators import PredefinedGenerator
+    from neurodiffeq_tpu_torch.networks import FCNN
+    from neurodiffeq_tpu_torch.utils import set_seed
+
+    class ELU(torch.nn.Module):
+        def forward(self, x):
+            return torch.nn.functional.elu(x)
+
+    set_seed(0)
+    with default_dtype(dtype):
+        cbc, dirichlet, neumann, exact = hexagram(P)
+        grid = [np.meshgrid(np.linspace(-1, 1, n), np.linspace(-1, 1, n)) for n in (28, 10)]
+        gens = [PredefinedGenerator(xx[cbc.in_domain(xx, yy)], yy[cbc.in_domain(xx, yy)]) for xx, yy in grid]
+        F.reset_taylor_fallback_count()
+        taylor_mlp.reset_launches()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(), no_progress_bar():
+            warnings.simplefilter('ignore')  # the deprecation warnings: this is the deprecated API
+            solution, _ = P.solve2D(
+                pde=lambda u, x, y: (diff(u, x, 2) + diff(u, y, 2) + F.exp(u) - 1.0 - x ** 2 - y ** 2
+                                     - 4.0 / (1.0 + x ** 2 + y ** 2) ** 2),
+                condition=cbc, xy_min=(-1, -1), xy_max=(1, 1), train_generator=gens[0], valid_generator=gens[1],
+                net=FCNN(n_input_units=2, hidden_units=HEXAGRAM_HIDDEN, actv=ELU), max_epochs=1)
+        torch.cuda.synchronize()
+        seconds, launches, fallbacks = time.perf_counter() - t0, dict(taylor_mlp.LAUNCHES), F.taylor_fallback_count()
+        xs, ys = (np.array([p.loc[i] for p in dirichlet]) for i in (0, 1))
+        d_dev = float(np.abs(solution(xs, ys, to_numpy=True) - exact(xs, ys)).max())
+        xs, ys = (np.array([p.loc[i] for p in neumann]) for i in (0, 1))
+        nx, ny = (np.array([p.normal_vector[i] for p in neumann])[:, None] for i in (0, 1))
+        xf, yf = F.coordinates(xs, ys)
+        uf = solution.conditions[0].enforce(solution.nets[0], xf, yf)
+        dn = (nx * diff(uf, xf).value.detach().cpu().numpy() + ny * diff(uf, yf).value.detach().cpu().numpy()).ravel()
+        n_dev = float(np.abs(dn - np.array([p.val for p in neumann])).max())
+    return d_dev, n_dev, launches, fallbacks, seconds
+
+
+def legacy_cases(ode, pde, C, F, diff):
+    """Phase 5q (a)-(c) in the package whose ``ode`` and ``pde`` modules,
+    ``conditions``, ``fields`` and ``diff`` are passed (the port's here, the
+    JAX package's in ``cpu_rehearsal.py 5q-jax``): name -> (function,
+    epochs, keyword arguments, the max error of its solution)."""
+    ts = np.linspace(0, 2, 201)
+    xx, yy = np.meshgrid(np.linspace(0, 1, 101), np.linspace(0, 1, 101))
+    laplace = np.sin(np.pi * xx) * np.sinh(np.pi * (1 - yy)) / np.sinh(np.pi)
+
+    def system_error(sol):
+        u1, u2 = (np.asarray(u) for u in sol(ts, to_numpy=True))
+        return float(max(np.abs(u1 - np.sin(ts)).max(), np.abs(u2 - np.cos(ts)).max()))
+
+    cond = C.DirichletBVP2D(x_min=0.0, x_min_val=lambda y: 0 * y, x_max=1.0, x_max_val=lambda y: 0 * y,
+                            y_min=0.0, y_min_val=lambda x: F.sin(np.pi * x), y_max=1.0, y_max_val=lambda x: 0 * x)
+    return {
+        'ode.solve': (ode.solve, LEGACY_ODE_EPOCHS,
+                      dict(ode=lambda u, t: diff(u, t) + u, condition=C.IVP(t_0=0.0, u_0=1.0), t_min=0.0, t_max=2.0),
+                      lambda sol: float(np.abs(np.asarray(sol(ts, to_numpy=True)) - np.exp(-ts)).max())),
+        'ode.solve_system': (ode.solve_system, LEGACY_ODE_EPOCHS,
+                             dict(ode_system=lambda u1, u2, t: [diff(u1, t) - u2, diff(u2, t) + u1],
+                                  conditions=[C.IVP(t_0=0.0, u_0=0.0), C.IVP(t_0=0.0, u_0=1.0)], t_min=0.0, t_max=2.0),
+                             system_error),
+        'pde.solve2D': (pde.solve2D, LEGACY_2D_EPOCHS,
+                        dict(pde=lambda u, x, y: diff(u, x, 2) + diff(u, y, 2), condition=cond, xy_min=(0, 0),
+                             xy_max=(1, 1)),
+                        lambda sol: float(np.abs(np.asarray(sol(xx, yy, to_numpy=True)) - laplace).max())),
+    }
+
+
+def run_legacy(F, taylor_mlp):
+    """Phase 5q: the legacy APIs on the card, on their default nets and
+    generators, and the irregular-domain anchor. Returns the launch counts
+    and phase 6's entries for ``solve``, ``solve_system`` and ``solve2D``."""
+    import warnings
+
+    from neurodiffeq_tpu_torch import conditions as C, diff, ode, pde, pde_spherical
+    from neurodiffeq_tpu_torch.operators import spherical_laplacian
+    from neurodiffeq_tpu_torch.utils import set_seed
+
+    total, timed = {k: 0 for k in taylor_mlp.LAUNCHES}, {}
+
+    def legacy(timing_label, fn, epochs, per_epoch, seed, **kwargs):
+        """``fn`` trained with the counts read around it; phase 6 times its
+        solver under ``timing_label`` (None: not timed)."""
+        set_seed(LEGACY_SEED + seed)
+        grab = SolverGrab()
+        with warnings.catch_warnings(), no_progress_bar():
+            warnings.simplefilter('ignore')  # the deprecation warnings: these are the deprecated APIs
+            (solution, hist), secs, launches, fallbacks = count_path(
+                F, taylor_mlp, lambda: fn(max_epochs=epochs, monitor=grab, **kwargs))
+        for k in total:
+            total[k] += launches[k]
+        loss = hist['train_loss']
+        checks = launch_checks(launches, fallbacks, per_epoch, epochs)
+        checks['loss fell'] = bool(np.isfinite(loss).all()) and np.mean(loss[-10:]) < np.mean(loss[:10])
+        if timing_label:
+            timed[timing_label] = (launches, grab.solver, None, [epochs / secs])
+        return solution, secs, launches, checks
+
+    cases = legacy_cases(ode, pde, C, F, diff)
+    what = {'ode.solve': ("u' + u = 0 on [0, 2], default FCNN 1-32-32-1", 'max |u - exp(-t)| on 201 points',
+                          LEGACY_ODE_LIMIT, 'train + 4 validation batches of 32'),
+            'ode.solve_system': ("u1' = u2, u2' = -u1 on [0, 2], shared default FCNN 1-32-32-2",
+                                 'max error against (sin t, cos t) on 201 points', LEGACY_SYSTEM_LIMIT,
+                                 'shared net; train + 4 validation batches of 32'),
+            'pde.solve2D': ('Laplace on the unit square, default FCNN 2-32-32-1',
+                            'max error against sin(pi x) sinh(pi (1 - y)) / sinh(pi) on 101 x 101', LEGACY_2D_LIMIT,
+                            'train + 4 validation batches of 32 x 32')}
+    for seed, (label, (fn, n, kwargs, error)) in enumerate(cases.items()):
+        problem, measure, limit, batches = what[label]
+        sol, secs, launches, checks = legacy(f'{label} ({batches})', fn, n, LEGACY_LAUNCHES, seed, **kwargs)
+        err = error(sol)
+        checks[f'{measure} < {limit}'] = err < limit
+        note = ''
+        if label == 'ode.solve_system':
+            u1, u2 = sol(np.zeros(1), to_numpy=True)
+            ic = float(max(abs(u1[0]), abs(u2[0] - 1)))
+            checks.update({'initial values exact to 1e-6': ic < 1e-6,
+                           'one shared net': sol.nets[0] is sol.nets[1] and sol.nets[0].n_output_units == 2})
+            note = f", initial values off by {ic:.1e}"
+        report('5q legacy', f"{label}, {problem}, {n} epochs float32 in {secs:.1f} s ({n / secs:.1f} epochs/s): "
+                            f"launches {launches}, {measure} {err:.4e}{note}", checks, f"legacy {label} check failed")
+
+    n = LEGACY_SPH_EPOCHS
+    r0, r1 = 0.1, 3.0
+    v0, v1 = float(sph_exact(r0)), float(sph_exact(r1))
+    coeff = 1 / (2 * np.pi) ** 1.5
+    sol, secs, launches, checks = legacy(
+        None, pde_spherical.solve_spherical, n, LEGACY_SPH_LAUNCHES, 3, pde=lambda u, r, th, ph: spherical_laplacian(u, r, th, ph) + coeff * F.exp(-r ** 2 / 2),
+        condition=C.DirichletBVPSpherical(r0, lambda th, ph: v0 + 0 * th, r1, lambda th, ph: v1 + 0 * th),
+        r_min=r0, r_max=r1)
+    report('5q legacy', f"pde_spherical.solve_spherical, the Gaussian charge's potential, default FCNN 3-32-32-1, {n} "
+                        f"epochs in {secs:.1f} s ({n / secs:.1f} epochs/s): launches {launches}", checks,
+           "legacy solve_spherical check failed")
+
+    d64, n64, launches, fallbacks, secs = run_hexagram(F, taylor_mlp, F64)
+    d32, n32, _, _, secs32 = run_hexagram(F, taylor_mlp, F32)
+    checks = {f'Dirichlet control points within {HEXAGRAM_DIRICHLET} (float64)': d64 < HEXAGRAM_DIRICHLET,
+              f'normal derivatives within {HEXAGRAM_NEUMANN} (float64)': n64 < HEXAGRAM_NEUMANN,
+              'no kernel launch (the ELU net has no Taylor rule)': sum(launches.values()) == 0,
+              f'{HEXAGRAM_FALLBACKS} compose fallbacks': fallbacks == HEXAGRAM_FALLBACKS}
+    report('5q legacy', f"the hexagram through pde.solve2D and CustomBoundaryCondition, FCNN 2-100-100-1 ELU, 1 epoch "
+                        f"({secs:.1f} s float64, {secs32:.1f} s float32; {fallbacks} compose fallbacks): max deviation "
+                        f"at the Dirichlet control points {d64:.3e} (float32 {d32:.3e}), of the normal derivative at "
+                        f"the Neumann ones {n64:.3e} (float32 {n32:.3e})", checks, "irregular-domain anchor failed")
+    return total, timed
+
+
 def main():
     args = sys.argv[1:]
     chosen = set(args[1].split(',')) if len(args) == 2 and args[0] == '--phases' else set()
@@ -2282,10 +2711,14 @@ def main():
               '5o': 'stiff oscillator (train + 4 validation batches of 32 points, 2 nets; the rate with 3 callbacks)'}
     runs = {'5d': run_sph, '5e': run_cavity, '5f': run_psi, '5g': run_generic_3d, '5h': run_bundle,
             '5i': run_heat, '5j': run_heat_neumann, '5k': run_burgers, '5l': run_poisson10, '5m': run_poisson100,
-            '5n': run_plate, '5o': run_oscillator}
+            '5n': run_plate, '5o': run_oscillator, '5p': run_temporal, '5q': run_legacy}
     for name, run in runs.items():
         if name in chosen:
             out = run(F, taylor_mlp)
+            if name in ('5p', '5q'):  # several problems each: their launches summed, each timed
+                paths[name], more = out
+                timed.update(more)
+                continue
             if name == '5i':
                 out, paths['5i h1'] = out[:4], out[4]
             paths[name] = out if name == '5g' else out[0]

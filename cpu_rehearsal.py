@@ -1,23 +1,27 @@
 """CPU rehearsal of ``chip_smoke.py``'s training phases.
 
-``python3 cpu_rehearsal.py [5l] [5m] [5n] [5a] [5g] [5d] [5o] [5o-jax] [--epochs N] [--seed S]``
+``python3 cpu_rehearsal.py [5l] [5m] [5n] [5a] [5g] [5d] [5o] [5o-jax] [5p] [5p-jax] [5q] [5q-jax] [--epochs N] [--seed S]``
 trains the problems of phases 5l (d = 10 Poisson, exact laplacian), 5m
 (d = 100 Poisson, ``stde_laplacian``), 5n (d = 4 clamped plate, exact
 ``biharmonic``), 5a (the flagship, with its save, load, resume and
 export), 5g (``GenericSolver`` 3-D Poisson), 5d (spherical Poisson) and 5o
 (the stiff oscillator with the weight, checkpoint and TensorBoard
-callbacks), built by the same functions of ``chip_smoke.py``, on the CPU in
-float32. ``5o-jax`` runs the same arm through the JAX package
-(``benchmarks/balancing_ab.py``'s ``run_arm`` with its
-``AutoResidualWeightCallback``, seed 11) for comparison; only it imports
-JAX. The Taylor-MLP entry point (``ops.taylor_mlp.fcnn_taylor``) is
+callbacks), 5p (the temporal subsystem: heat, and the RE100 cavity
+through one FCNN 2-256-3) and 5q (the legacy ``ode``, ``pde`` and
+``pde_spherical`` functions and the irregular-domain hexagram), built by the
+same functions of ``chip_smoke.py``, on the CPU in float32. ``5o-jax``
+runs the same arm through the JAX package (``benchmarks/balancing_ab.py``'s
+``run_arm`` with its ``AutoResidualWeightCallback``, seed 11) for
+comparison, ``5p-jax`` and ``5q-jax`` the problems of 5p and of 5q (a)-(c)
+through the JAX package's ``temporal`` and legacy functions; only the
+``-jax`` arms import JAX. The Taylor-MLP entry point (``ops.taylor_mlp.fcnn_taylor``) is
 wrapped with a counter, each call counted as the kernel launch it is on the
 card. For 5l-5n it prints per phase the calls and the compose fallbacks per
 epoch, the first and last 100-epoch mean train loss, the relative L2 error
 against the analytic solution on 4,096 points, the boundary defect and the
 seconds (``--seed`` picks the seed of 5l, 5m and 5o; 5o's default is its
-phase's 11); 5a, 5g, 5d and 5o run ``chip_smoke.py``'s own phase
-function, which prints its line of errors and checks. ``chip_smoke.py``'s limits on those errors are about twice what
+phase's 11); 5a, 5g, 5d, 5o, 5p and 5q run ``chip_smoke.py``'s own phase
+function, which prints its lines of errors and checks. ``chip_smoke.py``'s limits on those errors are about twice what
 this gives at the same epochs, and its launch checks use the counts per
 epoch. Needs no GPU; the epochs default to the chip phases'.
 """
@@ -79,6 +83,60 @@ def rehearse_jax_oscillator(epochs):
           f"max error {err:.4e}", flush=True)
 
 
+def _jax_cpu():
+    import os
+    os.environ['JAX_PLATFORMS'] = 'cpu'
+    import jax
+    jax.config.update('jax_platforms', 'cpu')
+    return jax
+
+
+def rehearse_jax_temporal(epochs):
+    """5p's two problems (``chip_smoke.temporal_problem``) through the JAX
+    package's ``temporal`` on the CPU (float32, optax.adam; the epoch losses
+    compiled, the same values)."""
+    jax = _jax_cpu()
+    import optax
+    from neurodiffeq_tpu import fields as F, temporal as T
+    from neurodiffeq_tpu.fields import diff
+    from neurodiffeq_tpu.networks import FCNN
+    from neurodiffeq_tpu.utils import set_seed
+
+    for kind, lr in (('heat', 3e-3), ('cavity', 1e-3)):
+        set_seed(cs.TEMPORAL_SEED)
+        approx, solve = cs.temporal_problem(kind, T, F, diff, FCNN)
+        approx._loss = jax.jit(approx._loss)
+        t0 = time.perf_counter()
+        loss = solve(optax.adam(lr), epochs)[1]['train_loss']
+        if kind == 'heat':
+            xs = np.linspace(0, cs.THEAT_L, 21)
+            exact = np.sin(np.pi * xs / cs.THEAT_L) * np.exp(-cs.THEAT_K * (np.pi / cs.THEAT_L) ** 2)
+            result = f"max error at t = 1 {np.abs(np.asarray(approx(xs, np.ones(21))) - exact).max():.4e}"
+        else:
+            result = (f"train loss mean {np.mean(loss[:10]):.4e} (first 10) -> {np.mean(loss[-10:]):.4e} (last 10), "
+                      f"{np.mean(loss[:10]) / np.mean(loss[-10:]):.2f}x")
+        print(f"5p-jax: {kind}, {epochs} epochs on the CPU in {time.perf_counter() - t0:.1f} s: {result}", flush=True)
+
+
+def rehearse_jax_legacy(epochs):
+    """5q (a)-(c) (``chip_smoke.legacy_cases``) through the JAX package's
+    legacy functions on the CPU (float32, their default nets and
+    generators)."""
+    import warnings
+    _jax_cpu()
+    from neurodiffeq_tpu import conditions as C, fields as F, ode, pde
+    from neurodiffeq_tpu.fields import diff
+    from neurodiffeq_tpu.utils import set_seed
+
+    for seed, (label, (fn, n, kwargs, error)) in enumerate(cs.legacy_cases(ode, pde, C, F, diff).items()):
+        set_seed(seed)
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter('ignore')
+            solution, _ = fn(max_epochs=epochs or n, **kwargs)
+        print(f"5q-jax: {label}, {epochs or n} epochs on the CPU in {time.perf_counter() - t0:.1f} s: max error "
+              f"{error(solution):.4e}", flush=True)
+
 def main():
     from neurodiffeq_tpu_torch import fields as F
     from neurodiffeq_tpu_torch.ops import taylor_mlp
@@ -103,10 +161,17 @@ def main():
               '5m': (lambda: cs.highdim_solver(100, 'stde', seed), 100, cs.POISSON100_EPOCHS),
               '5n': (lambda: cs.plate_solver(cs.PLATE_DIM), cs.PLATE_DIM, cs.PLATE_EPOCHS)}
     own = {'5a': (cs.run_flagship, 'EPOCHS'), '5g': (cs.run_generic_3d, 'GEN3D_EPOCHS'),
-           '5d': (cs.run_sph, 'SPH_EPOCHS'), '5o': (cs.run_oscillator, 'OSC_EPOCHS')}
+           '5d': (cs.run_sph, 'SPH_EPOCHS'), '5o': (cs.run_oscillator, 'OSC_EPOCHS'),
+           '5p': (cs.run_temporal, 'TEMPORAL_EPOCHS'), '5q': (cs.run_legacy, 'LEGACY_ODE_EPOCHS')}
     for name in chosen:
         if name == '5o-jax':
             rehearse_jax_oscillator(epochs or cs.OSC_EPOCHS)
+            continue
+        if name == '5p-jax':
+            rehearse_jax_temporal(epochs or cs.TEMPORAL_EPOCHS)
+            continue
+        if name == '5q-jax':
+            rehearse_jax_legacy(epochs)
             continue
         if name in own:
             run, constant = own[name]

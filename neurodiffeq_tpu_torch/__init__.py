@@ -18,7 +18,12 @@ the callbacks, ``Solver1D``/``BundleSolver1D``/``Solver2D``/
 ``fit(max_epochs, callbacks, tqdm_file, profile_dir, pipeline)``, save,
 load and resume (``solvers_utils``), the monitors, the checkpoint,
 monitor, TensorBoard and residual-weight callbacks, solution export
-through ``torch.export``, and the hypersolver. The fused
+through ``torch.export``, the hypersolver, the penalty-boundary
+``temporal`` subsystem and the legacy v1 APIs: ``ode`` (``solve``,
+``solve_system``), ``pde`` (``solve2D``, ``solve2D_system``,
+``make_animation`` and MacFall's thin-plate-spline boundaries on irregular
+domains, ``CustomBoundaryCondition``) and ``pde_spherical``
+(``solve_spherical``, ``solve_spherical_system``). The fused
 Taylor-mode FCNN runs as a hand-written CUDA kernel for Hopper
 (``csrc/taylor_mlp.cu``) on CUDA tensors and as its plain PyTorch twin on
 CPU tensors. The package imports ``torch`` and never ``jax``; matplotlib,
@@ -43,6 +48,10 @@ from . import solvers_utils
 from . import monitors
 from . import callbacks
 from . import hypersolver
+from . import temporal
+from . import ode
+from . import pde
+from . import pde_spherical
 
 from .fields import diff, safe_diff, unsafe_diff
 
@@ -54,4 +63,4 @@ neurodiffeq = fields
 __version__ = '0.1.0'
 
 __all__ = ['diff', 'safe_diff', 'unsafe_diff', 'neurodiffeq', 'utils', 'fields', 'networks', 'generators', 'conditions', 'operators',
-           'function_basis', 'losses', 'solvers', 'solvers_utils', 'monitors', 'callbacks', 'hypersolver']
+           'function_basis', 'losses', 'solvers', 'solvers_utils', 'monitors', 'callbacks', 'hypersolver', 'temporal', 'ode', 'pde', 'pde_spherical']
