@@ -115,7 +115,7 @@ line each or more:
       grid; neither launches a kernel (plain forwards);
    i. heat with Dirichlet ends (``examples/heat_equation.py``: ``IBVP1D``
       through ``Solver2D``, the default FCNN 2-32-32-1, 32 x 32),
-      ``fit(3000)``: exactly 5 ``taylor_mlp`` launches per epoch, no
+      ``fit(1500)``: exactly 5 ``taylor_mlp`` launches per epoch, no
       fallback, max error < 5e-2 on 200 random points; then ``fit(200)``
       under ``h1`` (Taylor order 3, layer by layer): no launch, no
       fallback, the loss must fall;
@@ -186,8 +186,25 @@ line each or more:
       derivatives at the Neumann ones within 1e-2 (``BASELINE.md``), no
       launch, ``HEXAGRAM_FALLBACKS`` compose fallbacks, the float32
       deviations reported beside them;
+   r. the data-parallel slice (``neurodiffeq_tpu_torch.parallel``): the
+      flagship (5a's config, FCNN 2-512-1 tanh, 32 x 32) on a mesh over
+      the points, 2 ranks on one card over gloo (one rank per card over
+      NCCL, at most 4, where there are more), started by
+      ``parallel.launch``: from the unsharded run's initialization and
+      generator state the first epoch's loss and every gradient within
+      ``SHARD_GRAD_TOL`` relative of the unsharded run's, each rank
+      ``taylor_mlp_1h`` exactly 5 times per epoch on its block of each
+      batch (N = 512 on 2 ranks) with no fallback, every rank the same
+      history, the loss falling over ``SHARD_EPOCHS`` epochs and the error
+      against the analytic solution below ``SHARD_LIMIT``; one batch of
+      5m's d = 100 ``stde_laplacian`` problem gives every rank its rows of
+      the unsharded probes bit for bit and the unsharded loss and
+      gradients; one NCCL rank equals the unsharded first epoch bit for
+      bit. A line before the check prints each rank's epochs/s, the
+      unsharded rate and the collectives' time per epoch (one card's
+      numbers, not a scaling claim);
 6. timing: device time per call of kernel and twin at every shape of
-   ``TABLE_SHAPES`` and ``REACH_SHAPES`` (``torch.profiler`` over 25 calls;
+   ``TABLE_SHAPES`` and ``REACH_SHAPES`` (``torch.profiler`` over 10 calls;
    the latter only where the tree's kernels take them) beside the kernel's
    bound, the wrapper's host enqueue time per call, and train-only epochs/s
    with the kernel and with the twin swapped in, interleaved in 50-epoch
@@ -195,7 +212,7 @@ line each or more:
    widths; the Lotka-Volterra epoch's rate in 50-epoch windows and the spherical,
    both cavity, the bundle, heat and Burgers epochs' rates from the
    300-epoch windows of their own fits in 5d-5f and 5h-5k, device time
-   split by kernel kind over 3 profiled epochs, and device-busy shares;
+   split by kernel kind over 2 profiled epochs, and device-busy shares;
    the same for 5l-5n, for 5o (its rate from its own fit), and for 5p's two
    problems and 5q's ``solve``, ``solve_system`` and ``solve2D`` (their rates
    from their own runs); and, only
@@ -216,7 +233,20 @@ against 625 s), so the older work was cut in this order: phase 6's own windows a
 profiled epochs and its calls per kernel shape (they check nothing), 5g
 from 1,000 to 700 epochs (5l carries ``GenericSolver`` too), 5d from 4,000
 to 3,500 and 5a from 1,000 to 700, each with its CPU float32 rehearsal's
-error beside its limit (the constants below).
+error beside its limit (the constants below). Phase 5r (the data-parallel
+slice) adds about 55 s: with it the whole run took 688 s on a host where 5a
+ran at 18.3 s per 1,000 epochs (before the phase: 640 s at 20.7 s), about
+925 s scaled to a host whose 5a takes 24.6 s, the host the 900 s were set
+for, so the work was cut again, in this order: phase 6's
+profiled epochs per path (3 to 2) and calls per kernel shape (25 to 10);
+not 5g, 5d or 5a, whose errors at a shallower cut come too near their
+limits (5g's CPU float32 run at 500 epochs: 4.397e-2 of 5e-2; 5d's card
+2.856e-2 of 0.03 at 3,500; 5a's card 6.622e-3 of 1e-2 at 700); then 5i, the
+path with the widest margin, from 3,000 to 1,500 epochs; and 5r's own
+unsharded rate window from 299 to 100 epochs. The cut tree took 739 s on a
+slower host (5a at 22.1 s per 1,000 epochs: about 821 s scaled), 5r 66 s
+of it, over its 60 s; so 5r's single NCCL rank now starts beside the mesh's
+ranks instead of after them.
 
 Any failure ends the run with a non-zero exit code and no result line. The
 card's name and power limit and the kernel record come before the last
@@ -230,6 +260,7 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -279,13 +310,15 @@ HYPER_EPOCHS, HYPER_STEPS, HYPER_LIMIT = 1000, 50, 2e-2
 # 8.6e-3 and 1.1e-2; a corrector that does nothing or the wrong thing fails both
 HYPER_SOL_LIMIT, HYPER_GAIN = 1e-3, 10
 # examples/heat_equation.py: u_t = K u_xx on [0, L] x [0, T], Generator2D 32 x 32, Solver2D's
-# default FCNN 2-32-32-1 tanh. 5i runs the Dirichlet variant for the example's 3,000 epochs
-# with tests/test_ibvp_training.py's limit (that test trains 1,500 epochs on 16 x 16), then
+# default FCNN 2-32-32-1 tanh. 5i runs the Dirichlet variant for 1,500 of the example's 3,000
+# epochs, the depth at which tests/test_ibvp_training.py holds it to the limit used here (on 16 x
+# 16; cut from 3,000 when the script with phase 5r passed its budget, the module docstring: the
+# card read 6.070e-4 at 3,000, the port's CPU float32 run 2.755e-3 at 1,500), then
 # 200 epochs under the h1 loss (Taylor order 3); 5j runs the Neumann variant (pin anchors, the
 # compose path) for 1,000 of its 3,000 epochs, its limit about twice the port's CPU float32
 # run of this phase at that cut (1.888e-3)
 HEAT_K, HEAT_L, HEAT_T = 0.3, 2.0, 1.5
-HEAT_EPOCHS, HEAT_LIMIT, HEAT_H1_EPOCHS = 3000, 5e-2, 200
+HEAT_EPOCHS, HEAT_LIMIT, HEAT_H1_EPOCHS = 1500, 5e-2, 200
 NEUMANN_EPOCHS, NEUMANN_LIMIT = 1000, 4e-3
 # examples/burgers.py 'adaptive': FCNN 2-(20x8)-1 tanh, Generator1D(2048) * Generator1D(2048)
 # uniform, ResidualAdaptiveGenerator(oversample=8, 'power', alpha=1, c=1), validation on
@@ -357,9 +390,18 @@ TCAV_HIDDEN, TCAV_BATCH, TCAV_STRICTNESS, TCAV_DROP, TCAV_LAUNCHES = (256,), 102
 LEGACY_ODE_EPOCHS, LEGACY_2D_EPOCHS, LEGACY_SPH_EPOCHS, LEGACY_LAUNCHES, LEGACY_SEED = 1000, 500, 300, 5, 0
 LEGACY_ODE_LIMIT, LEGACY_SYSTEM_LIMIT, LEGACY_2D_LIMIT, LEGACY_SPH_LAUNCHES = 4.4e-3, 2.1e-2, 5.5e-2, 2
 HEXAGRAM_HIDDEN, HEXAGRAM_DIRICHLET, HEXAGRAM_NEUMANN, HEXAGRAM_FALLBACKS = (100, 100), 1e-4, 1e-2, 25
+# the data-parallel slice (5r): the flagship (5a's config at full width) on a mesh over the points, 2 ranks on one
+# card over gloo (one rank per card over NCCL where there are more), each rank's block of every batch of 1,024 points
+# (N = 512 each on 2 ranks); 300 epochs from seed 0, the last 20 with every collective timed, and the unsharded rate
+# over 100 epochs after the unsharded first epoch (cut from 299 with the cuts of the module docstring). The first epoch's loss and
+# gradients against the unsharded run: float32, relative. SHARD_LIMIT is about twice the largest error of the CPU
+# float32 rehearsal of this phase over seeds 0-2 (cpu_rehearsal.py 5r: 1.4901e-2, 1.5154e-2, 1.4915e-2; the JAX
+# package's run on its mesh of 2 CPU devices, 5r-jax: 1.4700e-2, 1.5194e-2, 1.5182e-2)
+SHARD_RANKS, SHARD_EPOCHS, SHARD_COLL_EPOCHS, SHARD_SEED, SHARD_GRAD_TOL = 2, 300, 20, 0, 1e-5
+SHARD_LIMIT, SHARD_TIMEOUT, SHARD_CPU_THREADS, SHARD_RATE_EPOCHS = 0.03, 240, 2, 100
 WIDE_INPUTS = (9, 32, 32, 1)  # more inputs than one direction chunk: two chunks in one launch
 PHASES = ('3', '3c', '3d', '4', '5a', '5b', '5c', '5d', '5e', '5f', '5g', '5h', '5i', '5j', '5k', '5l', '5m', '5n',
-          '5o', '5p', '5q', '6')
+          '5o', '5p', '5q', '5r', '6')
 EXTRA_PHASES = ('6b',)  # run only when named: a baseline that PERF.md records, too slow for every run
 WINDOW = 300  # epochs per timing window of a path's own fit
 # phase 6's own work, which checks nothing, cut when the whole run with the high-dimensional
@@ -368,12 +410,15 @@ WINDOW = 300  # epochs per timing window of a path's own fit
 # and the profiled epochs per path cut from 20 to 5; cut again when the committed tree
 # took 654 s against 625 s on a host slower for every older path than 5a's rate says: the
 # windows from 3 to 2 (LV) and 6 to 4 (the flagship), 3 profiled epochs per path, and the
-# calls timed per kernel shape from 100 to 25
-OWN_WINDOW, PROFILED, SHAPE_CALLS = 50, 3, 25
+# calls timed per kernel shape from 100 to 25; and when the script with phase 5r took 688 s against
+# its budget (about 925 s scaled by 5a's rate; the module docstring): 2 profiled epochs
+# per path and 10 calls per kernel shape
+OWN_WINDOW, PROFILED, SHAPE_CALLS = 50, 2, 10
 IDENTITY_EPS = 1e-4  # tests/test_operators.py, BASELINE.md:17
 F32, F64 = torch.float32, torch.float64
 CHECK_SHAPES = [  # (layer widths, activation, order, N)
     ((2, 512, 1), 'tanh', 2, 1024),
+    ((2, 512, 1), 'tanh', 2, 512),  # one rank's block of the flagship's batch on 2 ranks, phase 5r
     ((2, 64, 64, 1), 'tanh', 2, 1000),
     ((1, 32, 32, 1), 'sin', 1, 37),
     ((1, 32, 32, 1), 'sin', 2, 37),
@@ -420,6 +465,7 @@ TABLE_SHAPES = [  # (layer widths, activation, order, N, dtype timed in phase 6)
     ((2, 256, 3), 'tanh', 2, 1024, F32),     # the temporal cavity system, one pass for its 3 columns, phase 5p
     ((1, 32, 32, 1), 'tanh', 1, 32, F32),    # ode.solve's default net, phase 5q
     ((1, 32, 32, 2), 'tanh', 1, 32, F32),    # ode.solve_system's shared default net, phase 5q
+    ((2, 512, 1), 'tanh', 2, 512, F32),      # one rank's block of the flagship's batch on 2 ranks, phase 5r
 ]
 # the result line times taylor_mlp_1h at the flagship's shape and taylor_mlp at
 # the primitive cavity's, its heaviest path
@@ -1293,7 +1339,7 @@ def stacked_sum_sin(F, xs):
     return F.sin(np.pi * F.cat(xs)).sum(axis=1)
 
 
-def highdim_solver(d, arm, seed=0):
+def highdim_solver(d, arm, seed=0, **kwargs):
     """``benchmarks/stde_ab.py``'s ``build_solver(d, arm, bc='exact')`` on the
     port's defaults (cuda, float32): -lap u = (pi^2 / d) sum_i sin(pi x_i) on
     [0, 1]^d through ``GenericSolver``, ``DirichletBoxND(d)`` ('auto' mask:
@@ -1301,7 +1347,8 @@ def highdim_solver(d, arm, seed=0):
     g = u* + mask * cos(pi x_1) cos(pi x_2), FCNN d-64-64-1 sin,
     ``GeneratorHypercube(768, d)`` (512 + 256 points, all interior under the
     exact condition), no validation; ``arm`` 'exact' (``laplacian``) or
-    'stde' (``stde_laplacian(n_est=16)``); ``seed`` for ``set_seed``."""
+    'stde' (``stde_laplacian(n_est=16)``); ``seed`` for ``set_seed``;
+    ``kwargs`` go to ``GenericSolver``."""
     from neurodiffeq_tpu_torch import fields as F
     from neurodiffeq_tpu_torch.conditions import DirichletBoxND
     from neurodiffeq_tpu_torch.generators import GeneratorHypercube
@@ -1323,7 +1370,7 @@ def highdim_solver(d, arm, seed=0):
     return GenericSolver(diff_eqs=pde, conditions=[DirichletBoxND(d, boundary_fn=extension)],
                          nets=[FCNN(n_input_units=d, n_output_units=1, hidden_units=HD_HIDDEN, actv=SinActv)],
                          train_generator=GeneratorHypercube(HD_POINTS, dim=d),
-                         valid_generator=GeneratorHypercube(512, dim=d), n_batches_valid=0)
+                         valid_generator=GeneratorHypercube(512, dim=d), n_batches_valid=0, **kwargs)
 
 
 def plate_solver(d=PLATE_DIM):
@@ -2637,6 +2684,194 @@ def run_legacy(F, taylor_mlp):
     return total, timed
 
 
+def shard_rank(backend, devices, init, rng_state, epochs, hd):
+    """Phase 5r, one rank of the mesh (``neurodiffeq_tpu_torch.parallel.launch``
+    runs it): the flagship on ``make_mesh(devices=devices, backend=backend)``
+    from the parameters ``init`` and the generator state ``rng_state``,
+    ``fit(1)`` and then ``fit(epochs - 1)``, the last ``SHARD_COLL_EPOCHS``
+    of them with every collective synchronized and timed; and, with ``hd =
+    (points, parameters)``, one batch of 5m's d = 100 problem. Returns what
+    the parent checks."""
+    from neurodiffeq_tpu_torch import fields as F, operators as O
+    from neurodiffeq_tpu_torch.ops import taylor_mlp
+    from neurodiffeq_tpu_torch.parallel import make_mesh
+    from neurodiffeq_tpu_torch.parallel.sharding import RowShard
+    from neurodiffeq_tpu_torch.utils import full_precision_matmuls, get_default_device
+
+    mesh = make_mesh(devices=devices, backend=backend)
+    dev = get_default_device()
+    sync = torch.cuda.synchronize if dev.type == 'cuda' else (lambda: None)
+    if dev.type == 'cuda':
+        full_precision_matmuls()
+    else:  # the CPU rehearsal: each twin call counted as the launch it is on the card
+        import cpu_rehearsal
+        cpu_rehearsal.counted(taylor_mlp)
+    out = {'rank': mesh.get_local_rank(), 'world': mesh.size(), 'device': str(dev),
+           'imports JAX': any(m in sys.modules for m in ('jax', 'neurodiffeq_tpu'))}
+    gen = torch.Generator(device=dev)
+    gen.set_state(rng_state)
+    solver = flagship_solver(mesh=mesh, generator=gen)
+    solver.nets[0].load_state_dict(init)
+    F.reset_taylor_fallback_count()
+    taylor_mlp.reset_launches()
+    solver.fit(1, tqdm_file=None)
+    out['first'] = (solver.metrics_history['train_loss'][0],
+                    [p.grad.detach().cpu().numpy() for p in solver._parameters()])
+    main = max(epochs - 1 - SHARD_COLL_EPOCHS, 0)
+    sync()
+    t0 = time.perf_counter()
+    solver.fit(main, tqdm_file=None)
+    sync()
+    out['rate'] = main / (time.perf_counter() - t0) if main else float('nan')
+    spent = [0.0, 0]
+
+    def timed(op):
+        def run(*args, **kwargs):
+            sync()
+            t1 = time.perf_counter()
+            result = op(*args, **kwargs)
+            sync()
+            spent[0] += time.perf_counter() - t1
+            spent[1] += 1
+            return result
+        return run
+
+    coll = epochs - 1 - main
+    originals = torch.distributed.all_reduce, torch.distributed.broadcast
+    torch.distributed.all_reduce, torch.distributed.broadcast = map(timed, originals)
+    try:
+        solver.fit(coll, tqdm_file=None)
+    finally:
+        torch.distributed.all_reduce, torch.distributed.broadcast = originals
+    out['collectives'] = (spent[0] / max(coll, 1) * 1e3, spent[1] / max(coll, 1))
+    out['launches'], out['fallbacks'] = dict(taylor_mlp.LAUNCHES), F.taylor_fallback_count()
+    out['history'] = list(solver.metrics_history['train_loss'])
+    xs, ys = np.meshgrid(np.linspace(0, 1, 101), np.linspace(0, 1, 101))
+    exact = np.sin(np.pi * xs) * np.sinh(np.pi * (1 - ys)) / np.sinh(np.pi)
+    out['error'] = float(np.abs(solver.get_solution()(xs, ys, to_numpy=True) - exact).max())
+    if hd is not None:
+        points, params = hd
+        hd_solver = highdim_solver(100, 'stde', mesh=mesh)
+        hd_solver.nets[0].load_state_dict(params)
+        pts = torch.as_tensor(points, device=dev)
+        share, _ = hd_solver._loss_and_metrics([pts[:, i:i + 1] for i in range(100)])
+        hd_solver._backward(share)
+        loss = float(hd_solver._reduce_grads(share))
+        shard = RowShard(mesh, pts.shape[0])
+        probes = O._stde_probes(pts[shard.lo:shard.hi], range(100), HD_N_EST, 0, 2,
+                                (shard.hi - shard.lo, HD_N_EST, 100), shard)
+        out['hd'] = (loss, [p.grad.detach().cpu().numpy() for p in hd_solver._parameters()], shard.lo, shard.hi,
+                     probes.cpu().numpy())
+    return out
+
+
+def run_sharded(F, taylor_mlp, card='the CPU'):
+    """Phase 5r: the data-parallel slice. The flagship (5a's config, FCNN
+    2-512-1 tanh on 32 x 32 points) on a mesh over the points: 2 ranks on
+    one card over gloo, or one rank per card over NCCL (at most 4) where
+    there are more; on the CPU (the rehearsal) 2 gloo ranks. From one
+    initialization and one generator state the first epoch's loss and
+    every gradient must equal the unsharded run's to ``SHARD_GRAD_TOL``,
+    each rank must launch ``taylor_mlp_1h`` 5 times per epoch (its block of
+    each of 5 batches) with no fallback, the histories of all ranks must be
+    equal, the loss must fall over ``SHARD_EPOCHS`` and the error against
+    the analytic solution stay below ``SHARD_LIMIT``; 5m's d = 100 batch
+    gives every rank its rows of the unsharded probes bit for bit and the
+    unsharded loss and gradients; one NCCL rank must equal the unsharded
+    first epoch bitwise. Returns the launches summed over the ranks."""
+    from neurodiffeq_tpu_torch import operators as O
+    from neurodiffeq_tpu_torch.parallel import launch
+    from neurodiffeq_tpu_torch.utils import get_default_device, set_seed
+
+    dev = get_default_device()
+    cards = torch.cuda.device_count() if dev.type == 'cuda' else 0
+    if dev.type == 'cpu':
+        backend, world, devices = 'gloo', SHARD_RANKS, 'cpu'
+    elif cards >= 2:
+        backend, world, devices = 'nccl', min(cards, 4), None
+    else:
+        backend, world, devices = 'gloo', SHARD_RANKS, 'cuda:0'
+    sync = torch.cuda.synchronize if dev.type == 'cuda' else (lambda: None)
+    set_seed(SHARD_SEED)
+    ref = flagship_solver()
+    init = {k: v.detach().cpu().clone() for k, v in ref.nets[0].state_dict().items()}
+    rng_state = ref.rng.get_state()
+    hd_ref = highdim_solver(100, 'stde')
+    hd_init = {k: v.detach().cpu().clone() for k, v in hd_ref.nets[0].state_dict().items()}
+    points = torch.rand(HD_POINTS, 100, generator=torch.Generator().manual_seed(SHARD_SEED), dtype=F32)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        # on the card, one NCCL rank (the unsharded path bit for bit) starts beside the mesh's ranks: its
+        # start-up, most of its time, overlaps theirs
+        single = pool.submit(launch, shard_rank, 1, backend='nccl', device_type='cuda', timeout=SHARD_TIMEOUT,
+                             args=('nccl', None, init, rng_state, 1, None)) if dev.type == 'cuda' else None
+        outs = launch(shard_rank, world, backend=backend, device_type=dev.type, timeout=SHARD_TIMEOUT,
+                      args=(backend, devices, init, rng_state, SHARD_EPOCHS, (points.numpy(), hd_init)),
+                      num_threads=SHARD_CPU_THREADS if dev.type == 'cpu' else None)
+        one = single.result()[0] if single is not None else None
+    launch_s = time.perf_counter() - t0
+    # the unsharded run from the same state
+    ref.fit(1, tqdm_file=None)
+    first = (ref.metrics_history['train_loss'][0], [p.grad.detach().cpu().numpy() for p in ref._parameters()])
+    sync()
+    t0 = time.perf_counter()
+    ref.fit(SHARD_RATE_EPOCHS, tqdm_file=None)
+    sync()
+    ref_rate = SHARD_RATE_EPOCHS / (time.perf_counter() - t0)
+    pts = points.to(dev)
+    share, _ = hd_ref._loss_and_metrics([pts[:, i:i + 1] for i in range(100)])
+    hd_ref._backward(share)
+    hd_first = (share.item(), [p.grad.detach().cpu().numpy() for p in hd_ref._parameters()])
+    probes = O._stde_probes(pts, range(100), HD_N_EST, 0, 2, (HD_POINTS, HD_N_EST, 100)).cpu().numpy()
+
+    def rel(a, b):
+        return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max()
+                     / max(np.abs(np.asarray(b, np.float64)).max(), 1e-300))
+
+    first_err = max([rel(o['first'][0], first[0]) for o in outs]
+                    + [rel(g, h) for o in outs for g, h in zip(o['first'][1], first[1])])
+    hd_err = max([rel(o['hd'][0], hd_first[0]) for o in outs]
+                 + [rel(g, h) for o in outs for g, h in zip(o['hd'][1], hd_first[1])])
+    per_epoch = [o['launches']['taylor_mlp_1h'] / SHARD_EPOCHS for o in outs]
+    hist = outs[0]['history']
+    early, late = float(np.mean(hist[:10])), float(np.mean(hist[-10:]))
+    total = {k: sum(o['launches'][k] for o in outs) for k in taylor_mlp.LAUNCHES}
+    checks = {
+        f'{world} ranks over {backend}': [o['world'] for o in outs] == [world] * world,
+        'no rank imported JAX': not any(o['imports JAX'] for o in outs),
+        f'first-epoch loss and gradients within {SHARD_GRAD_TOL} of unsharded': first_err < SHARD_GRAD_TOL,
+        'taylor_mlp_1h 5 per epoch per rank': all(o['launches']['taylor_mlp_1h'] == 5 * SHARD_EPOCHS
+                                                 and o['launches']['taylor_mlp'] == 0 for o in outs),
+        'no Taylor fallback': all(o['fallbacks'] == 0 for o in outs),
+        'every rank the same history': all(o['history'] == hist for o in outs),
+        'loss fell': late < early,
+        f'max error < {SHARD_LIMIT}': all(np.isfinite(o['error']) and o['error'] < SHARD_LIMIT for o in outs),
+        'd = 100 probes bit for bit': all(np.array_equal(o['hd'][4], probes[o['hd'][2]:o['hd'][3]]) for o in outs),
+        f'd = 100 loss and gradients within {SHARD_GRAD_TOL}': hd_err < SHARD_GRAD_TOL,
+    }
+    note = ''
+    if one is not None:
+        checks['one NCCL rank bitwise unsharded'] = (one['first'][0] == first[0] and all(
+            np.array_equal(g, h) for g, h in zip(one['first'][1], first[1])))
+        checks['one NCCL rank: taylor_mlp_1h 5 launches'] = one['launches']['taylor_mlp_1h'] == 5
+        total = {k: total[k] + one['launches'][k] for k in total}
+        note = f"; one NCCL rank: first-epoch loss {one['first'][0]!r} against {first[0]!r}"
+    rates = ', '.join(f"rank {o['rank']} {o['rate']:.2f} epochs/s, collectives {o['collectives'][0]:.3f} ms per "
+                      f"epoch in {o['collectives'][1]:.0f} calls" for o in outs)
+    scope = "one card's numbers, not a scaling claim" if dev.type == 'cuda' else 'a CPU rehearsal, no device time'
+    phase('5r rates', f"{card}: flagship 2-512-1 N = {GRID[0] * GRID[1]} per batch over {world} {backend} ranks "
+                      f"({devices or 'one card each'}; each rank's compute and collectives on its own device): "
+                      f"{rates}; unsharded {ref_rate:.2f} epochs/s in one process ({scope})")
+    beside = ' (one NCCL rank beside them on the card)' if one is not None else ''
+    report('5r sharded', f"{world} ranks over {backend} in {launch_s:.1f} s{beside}: launches per epoch per rank "
+                         f"{' '.join(f'{r:.2f}' for r in per_epoch)} (taylor_mlp_1h), fallbacks "
+                         f"{[o['fallbacks'] for o in outs]}, first epoch's loss and gradients against unsharded "
+                         f"{first_err:.2e} (relative), d = 100 stde batch {hd_err:.2e}; {SHARD_EPOCHS} epochs: train "
+                         f"loss mean {early:.3e} (first 10) -> {late:.3e} (last 10), max |u - exact| on 101x101 "
+                         f"{outs[0]['error']:.4e}{note}", checks, "sharded flagship check failed")
+    return total
+
+
 def main():
     args = sys.argv[1:]
     chosen = set(args[1].split(',')) if len(args) == 2 and args[0] == '--phases' else set()
@@ -2724,6 +2959,8 @@ def main():
             paths[name] = out if name == '5g' else out[0]
             if name in labels:
                 timed[labels[name]] = out
+    if '5r' in chosen:
+        paths['5r'] = run_sharded(F, taylor_mlp, card)
 
     # ---- 6. timing
     if '6' in chosen:

@@ -23,7 +23,9 @@ through ``torch.export``, the hypersolver, the penalty-boundary
 ``solve_system``), ``pde`` (``solve2D``, ``solve2D_system``,
 ``make_animation`` and MacFall's thin-plate-spline boundaries on irregular
 domains, ``CustomBoundaryCondition``) and ``pde_spherical``
-(``solve_spherical``, ``solve_spherical_system``). The fused
+(``solve_spherical``, ``solve_spherical_system``); and data parallelism
+over the collocation points (``parallel``: ``make_mesh`` and ``mesh=`` on
+every solver, one process per rank). The fused
 Taylor-mode FCNN runs as a hand-written CUDA kernel for Hopper
 (``csrc/taylor_mlp.cu``) on CUDA tensors and as its plain PyTorch twin on
 CPU tensors. The package imports ``torch`` and never ``jax``; matplotlib,
@@ -52,6 +54,7 @@ from . import temporal
 from . import ode
 from . import pde
 from . import pde_spherical
+from . import parallel
 
 from .fields import diff, safe_diff, unsafe_diff
 
@@ -63,4 +66,5 @@ neurodiffeq = fields
 __version__ = '0.1.0'
 
 __all__ = ['diff', 'safe_diff', 'unsafe_diff', 'neurodiffeq', 'utils', 'fields', 'networks', 'generators', 'conditions', 'operators',
-           'function_basis', 'losses', 'solvers', 'solvers_utils', 'monitors', 'callbacks', 'hypersolver', 'temporal', 'ode', 'pde', 'pde_spherical']
+           'function_basis', 'losses', 'solvers', 'solvers_utils', 'monitors', 'callbacks', 'hypersolver', 'temporal', 'ode', 'pde', 'pde_spherical',
+           'parallel']

@@ -12,6 +12,11 @@ into one device program) have no counterpart. Checkpoints come in two
 formats: ``'internals'`` (dill, as in the JAX package) and ``'state_dict'``
 (``torch.save`` of the solver's tensor part, where the JAX package writes
 orbax). matplotlib, dill and tensorboard are imported at first use.
+
+Under a mesh every rank calls the callbacks with the same global histories;
+the ones that write (monitors, checkpoints, TensorBoard) write from rank 0
+only, and ``AutoResidualWeightCallback`` sums its gradients over the ranks,
+so that every rank gets the unsharded run's weights.
 """
 import json
 import logging
@@ -56,6 +61,13 @@ class _LoggerMixin:
             self.logger = logging.getLogger(logger)
         else:
             self.logger = logger
+
+
+def _writes(solver):
+    """Whether this process writes for ``solver``: always without a mesh,
+    on rank 0 under one."""
+    mesh = getattr(solver, 'mesh', None)
+    return mesh is None or mesh.get_local_rank() == 0
 
 
 class BaseCallback(ABC, _LoggerMixin):
@@ -121,6 +133,8 @@ class MonitorCallback(ActionCallback):
             _safe_mkdir(fig_dir)
 
     def __call__(self, solver):
+        if not _writes(solver):
+            return
         is_last = solver.local_epoch >= getattr(solver, '_max_local_epoch', 0)
         background = self.background and not is_last
         if background and not getattr(self.monitor, 'using_non_gui_backend', False):
@@ -210,6 +224,8 @@ class CheckpointCallback(ActionCallback):
         _safe_mkdir(ckpt_dir)
 
     def __call__(self, solver):
+        if not _writes(solver):
+            return
         if self.format == 'state_dict':
             return self._save_state_dict(solver)
         import dill
@@ -347,17 +363,28 @@ class AutoResidualWeightCallback(ActionCallback):
     def _grad_norms(solver, cols):
         """The L2 norm over the solver's parameters of the gradient of each
         equation's mean squared unweighted residual on ``cols``: one forward,
-        one ``torch.autograd.grad`` per equation."""
+        one ``torch.autograd.grad`` per equation. Under a mesh each rank
+        differentiates its block's share of each term, and the gradients
+        are summed over the ranks (one ``all_reduce``) before the norms."""
         params = solver._parameters()
         with torch.enable_grad(), solver._eval_scope():
             funcs, coords = solver._forward(cols)
             res = solver._residuals(funcs, coords, weighted=False).value
+            shard = coords[0].coords.shard
             coords[0].coords.release()
-            norms = []
+            norms, flat = [], []
             for k in range(res.shape[1]):
-                grads = torch.autograd.grad((res[:, k] ** 2).mean(), params, retain_graph=k + 1 < res.shape[1],
-                                            allow_unused=True)
-                norms.append(torch.sqrt(sum((g * g).sum() for g in grads if g is not None)))
+                term = (res[:, k] ** 2).mean()
+                grads = torch.autograd.grad(term if shard is None else shard.weight * term, params,
+                                            retain_graph=k + 1 < res.shape[1], allow_unused=True)
+                if shard is None:
+                    norms.append(torch.sqrt(sum((g * g).sum() for g in grads if g is not None)))
+                else:
+                    flat.append(torch.cat([(g if g is not None else torch.zeros_like(p)).reshape(-1)
+                                           for g, p in zip(grads, params)]))
+        if shard is not None:
+            summed = shard.all_reduce(torch.stack(flat))
+            norms = list(torch.sqrt((summed * summed).sum(dim=1)))
         return np.asarray(torch.stack(norms).tolist(), dtype=float)
 
     def __call__(self, solver):
@@ -400,17 +427,21 @@ class SimpleTensorboardCallback(ActionCallback):
 
     def __init__(self, writer=None, logger=None):
         super().__init__(logger=logger)
+        self.writer = writer or None
         if writer:
-            self.writer = writer
             return
-        self.logger.info('No writer specified, creating a SummaryWriter automatically.')
         try:
-            from torch.utils.tensorboard import SummaryWriter
+            from torch.utils.tensorboard import SummaryWriter  # noqa: F401 -- made at the first write
         except ImportError as e:  # pragma: no cover
             raise ImportError(f"TensorBoard doesn't seem to be installed. See the following\n{e}")
-        self.writer = SummaryWriter()
 
     def __call__(self, solver):
+        if not _writes(solver):
+            return
+        if self.writer is None:  # made where it writes: one event file under a mesh
+            from torch.utils.tensorboard import SummaryWriter
+            self.logger.info('No writer specified, creating a SummaryWriter automatically.')
+            self.writer = SummaryWriter()
         for name, values in solver.metrics_history.items():
             self.writer.add_scalar(tag=name, scalar_value=values[-1] if values else np.nan,
                                    global_step=solver.global_epoch)

@@ -110,14 +110,18 @@ class eval_mode:
 class CoordSet:
     """The shared ``(N, d)`` batch of collocation points underlying a family
     of Fields; owns the memoized Taylor-evaluation context and the compose
-    path's first gradients (:func:`_first_grads`)."""
+    path's first gradients (:func:`_first_grads`). Under a mesh the points
+    are this rank's block of a global batch, and ``shard``
+    (:class:`~neurodiffeq_tpu_torch.parallel.sharding.RowShard`) says which;
+    None otherwise."""
 
-    __slots__ = ('points', '_tctx', '_grads')
+    __slots__ = ('points', 'shard', '_tctx', '_grads')
 
-    def __init__(self, points):
+    def __init__(self, points, shard=None):
         if points.ndim != 2:
             raise ValueError(f"points must be (N, d), got shape {tuple(points.shape)}")
         self.points = points
+        self.shard = shard
         self._tctx = None
         self._grads = {}
 
@@ -189,9 +193,10 @@ def coordinates(*arrays, dtype=None, device=None):
     return CoordSet(torch.stack(cols, dim=1)).coord_fields()
 
 
-def coords_from_points(points):
-    """Build coordinate Fields from a single ``(N, d)`` tensor."""
-    return CoordSet(points).coord_fields()
+def coords_from_points(points, shard=None):
+    """Build coordinate Fields from a single ``(N, d)`` tensor (this rank's
+    block of a global batch where ``shard`` says so)."""
+    return CoordSet(points, shard).coord_fields()
 
 
 class Field:

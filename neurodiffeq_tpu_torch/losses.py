@@ -11,6 +11,19 @@ total order 2, and H1 of a second-order residual order 3.
 Losses that are linear in the residual columns declare
 ``residual_power = 1``; solvers then scale equation k by ``w_k`` instead of
 ``sqrt(w_k)`` under ``residual_weights``.
+
+Under a mesh (:mod:`~neurodiffeq_tpu_torch.parallel`) each rank holds one
+block of the batch's rows, and a loss declares how it combines, as
+``shard_form``:
+
+- ``'mean'``: a mean over the points, so the sum over the ranks of each
+  block's loss times its share of the rows is the global loss, exactly;
+- ``'global'``: the loss needs the whole batch at once (``causal`` sorts it
+  by time). The solver hands it the values of the global batch (tensors,
+  gathered from every rank), and each rank's gradient flows through its
+  own rows.
+
+A loss that declares neither raises under a mesh.
 """
 import torch
 
@@ -28,10 +41,14 @@ def _l1_norm(residual, funcs, coords):
 
 
 _l1_norm.residual_power = 1
+_l1_norm.shard_form = 'mean'
 
 
 def _l2_norm(residual, funcs, coords):
     return (_value(residual) ** 2).mean()
+
+
+_l2_norm.shard_form = 'mean'
 
 
 def _infinity_norm(residual, funcs, coords):
@@ -40,6 +57,7 @@ def _infinity_norm(residual, funcs, coords):
 
 # also degree-1: scaling column k by w_k weights it inside the per-point max
 _infinity_norm.residual_power = 1
+_infinity_norm.shard_form = 'mean'
 
 
 def _residual_grads(residual, coords):
@@ -60,6 +78,9 @@ def _h1_norm(residual, funcs, coords):
 def _h1_semi_norm(residual, funcs, coords):
     g = _residual_grads(residual, coords)
     return (torch.cat([gi.value for gi in g], dim=1) ** 2).mean()
+
+
+_h1_norm.shard_form = _h1_semi_norm.shard_form = 'mean'
 
 
 def causal(epsilon=1.0, n_bins=32, t_index=-1):
@@ -91,6 +112,7 @@ def causal(epsilon=1.0, n_bins=32, t_index=-1):
         w = torch.exp(-epsilon * cum).detach()
         return (w * L).mean()
 
+    loss.shard_form = 'global'  # the sort by time spans the whole batch
     return loss
 
 
@@ -104,6 +126,7 @@ def variational(residual, funcs, coords):
 
 
 variational.residual_power = 1
+variational.shard_form = 'mean'
 
 
 _losses = {

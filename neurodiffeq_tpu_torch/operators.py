@@ -183,7 +183,7 @@ def _mix32(x):
     return x ^ (x >> 15)
 
 
-def _stde_probes(points, indices, n_est, salt, tag, shape):
+def _stde_probes(points, indices, n_est, salt, tag, shape, shard=None):
     r"""Rademacher probes of ``shape`` (rows first), a pure function of the
     seed value (:func:`~neurodiffeq_tpu_torch.utils.seed_value`), the
     coordinate indices, ``n_est``, ``salt``, the estimator's ``tag`` and the
@@ -191,15 +191,20 @@ def _stde_probes(points, indices, n_est, salt, tag, shape):
     contract of the JAX package (whose threefry streams torch cannot
     reproduce). Everything after the static key is integer arithmetic on
     the points' device: no value is read back to the host, and the CPU and
-    the card give the same probes."""
+    the card give the same probes. Where ``points`` are one rank's block of
+    a global batch (``shard``), the bits are summed over every rank and the
+    elements numbered from the block's first row: each rank draws its rows
+    of the unsharded run's probes, bit for bit."""
     from .utils import seed_value
 
     stable = np.asarray(list(indices) + [n_est, salt, tag], dtype=np.int64)
     folded = zlib.crc32(stable.tobytes()) & 0x7FFFFFFF
     static = _mix32(_mix32(int(seed_value()) & _MASK32) ^ folded)
     bits = points.to(torch.float32).contiguous().view(torch.int32).to(torch.int64) & _MASK32
-    key = _mix32((bits.sum() & _MASK32) ^ static)
-    element = torch.arange(int(np.prod(shape)), device=points.device)
+    total = bits.sum() if shard is None else shard.all_reduce(bits.sum())
+    key = _mix32((total & _MASK32) ^ static)
+    start = 0 if shard is None else shard.lo * int(np.prod(shape[1:]))
+    element = torch.arange(start, start + int(np.prod(shape)), device=points.device)
     h = _mix32((_mix32(element ^ key) + static) & _MASK32)
     return (1 - 2 * (h >> 31)).to(points.dtype).reshape(shape)
 
@@ -232,7 +237,8 @@ def stde_laplacian(u, *xs, n_est=16, salt=0):
     """
     _check_operands('stde_laplacian', u, xs)
     pts = u.coords.points
-    probes = _stde_probes(pts, [x.index for x in xs], n_est, salt, 2, (pts.shape[0], n_est, len(xs)))
+    probes = _stde_probes(pts, [x.index for x in xs], n_est, salt, 2, (pts.shape[0], n_est, len(xs)),
+                          u.coords.shard)
     return _stde_laplacian_with(u, xs, probes)
 
 
@@ -269,7 +275,8 @@ def stde_biharmonic(u, *xs, n_est=16, salt=0):
     """
     _check_operands('stde_biharmonic', u, xs)
     pts = u.coords.points
-    probes = _stde_probes(pts, [x.index for x in xs], n_est, salt, 4, (pts.shape[0], n_est, 2, len(xs)))
+    probes = _stde_probes(pts, [x.index for x in xs], n_est, salt, 4, (pts.shape[0], n_est, 2, len(xs)),
+                          u.coords.shard)
     return _stde_biharmonic_with(u, xs, probes)
 
 

@@ -1,0 +1,25 @@
+r"""Data parallelism over the collocation points (counterpart of
+``neurodiffeq_tpu/parallel/``).
+
+The scaling axis of a PINN workload is the number of collocation points per
+batch. The JAX package shards that axis over a ``jax.sharding.Mesh`` from one
+controller; PyTorch runs one process per rank. Every solver accepts
+``mesh=`` (:func:`make_mesh`): each rank draws the same global batch from the
+same generator state, evaluates its own contiguous block of rows, and the
+solver combines the loss exactly and sums the parameter gradients over the
+ranks in one ``all_reduce`` per optimizer step, so that every loss, metric
+and gradient is the one the unsharded run computes.
+
+Start the ranks with ``torchrun --nproc_per_node=N script.py`` (one per card
+under NCCL) or from Python with :func:`launch`.
+
+The JAX package's second, ``'model'`` axis (Megatron tensor parallelism over
+hidden units) is not ported: ``make_mesh(model_axis_size > 1)`` and
+:func:`megatron_param_shardings` raise ``NotImplementedError``.
+"""
+from .launch import launch
+from .sharding import (make_mesh, points_sharding, replicated_sharding, shard_points,
+                       megatron_param_shardings, shard_params)
+
+__all__ = ['make_mesh', 'points_sharding', 'replicated_sharding', 'shard_points',
+           'megatron_param_shardings', 'shard_params', 'launch']

@@ -20,7 +20,16 @@ seed-keyed compile cache, scanned fit chunks, speculative dispatch) has no
 counterpart here: PyTorch runs eagerly, so a generator whose batches change
 size (``FilterGenerator``, ``BatchGenerator``) trains through the same
 ``fit``, and ``fit(pipeline=...)`` is accepted and changes nothing.
-``fit(profile_dir=...)`` traces the run with ``torch.profiler``. Solvers
+``fit(profile_dir=...)`` traces the run with ``torch.profiler``.
+
+Every solver takes ``mesh=`` (:func:`~neurodiffeq_tpu_torch.parallel.make_mesh`):
+one process per rank, all drawing the same global batch from one generator
+state (broadcast from rank 0 with the parameters when the solver is built),
+each evaluating its own block of rows. The loss is combined as the global
+one (each loss's ``shard_form``), metrics see the gathered batch, the
+gradients are summed over the ranks in one ``all_reduce`` per optimizer
+step (and per closure call), and the epoch's records in one more: every
+rank then holds the unsharded run's losses, metrics and parameters. Solvers
 save, load and resume through
 :class:`~neurodiffeq_tpu_torch.solvers_utils.PretrainedSolver`; a solution
 exports its evaluator as a ``torch.export`` program
@@ -45,6 +54,7 @@ from .fields import Field, cat as field_cat, coords_from_points
 from .generators import Generator1D, Generator2D, GeneratorSpherical, _as_tuple, contains_buried_adaptive
 from .losses import _losses
 from .networks import FCNN, Tanh
+from .parallel.sharding import RowShard, all_reduce_, broadcast_, shard_params, _check_mesh
 from .solvers_utils import PretrainedSolver
 from .utils import full_precision_matmuls, get_generator, resolve
 
@@ -114,6 +124,12 @@ class BaseSolver(ABC, PretrainedSolver):
     :param eval_mode: None, or 'taylor' or 'compose': the Field evaluation
         strategy (:func:`~neurodiffeq_tpu_torch.fields.eval_mode`) under
         which the loss and the adaptive-sampling scores are computed.
+    :param mesh: None, or a mesh over the points
+        (:func:`~neurodiffeq_tpu_torch.parallel.make_mesh`): this rank
+        trains on its block of each batch's rows, with the unsharded run's
+        losses, gradients and parameters (module docstring). Every rank
+        builds the solver alike. ``get_solution`` and ``get_residuals``
+        stay local and unsharded.
 
     A :class:`~neurodiffeq_tpu_torch.generators.ResidualAdaptiveGenerator`
     as the train generator draws its candidates each batch and keeps them by
@@ -125,7 +141,7 @@ class BaseSolver(ABC, PretrainedSolver):
                  analytic_solutions=None, optimizer=None, loss_fn=None, n_batches_train=1,
                  n_batches_valid=4, metrics=None, n_input_units=None, n_output_units=None,
                  residual_weights=None, device=None, dtype=None, generator=None,
-                 shuffle=None, batch_size=None, eval_mode=None):
+                 shuffle=None, batch_size=None, eval_mode=None, mesh=None):
         if shuffle:
             warnings.warn("param `shuffle` is deprecated and ignored; shuffling should be performed by generators",
                           FutureWarning)
@@ -189,6 +205,11 @@ class BaseSolver(ABC, PretrainedSolver):
         self.metrics_history = {'train_loss': [], 'valid_loss': []}
         self.metrics_history.update({'train__' + name: [] for name in self.metrics_fn})
         self.metrics_history.update({'valid__' + name: [] for name in self.metrics_fn})
+        self.mesh = mesh
+        if mesh is not None:  # every rank starts from rank 0's parameters and generator state
+            _check_mesh(mesh)
+            shard_params(self._unique_nets, mesh)
+            self.rng.set_state(broadcast_(self.rng.get_state(), mesh.get_group()))
 
         self.set_optimizer(optimizer if optimizer is not None else torch.optim.Adam(self._parameters(), lr=1e-3))
         self._set_loss_fn(loss_fn)
@@ -271,11 +292,17 @@ class BaseSolver(ABC, PretrainedSolver):
         r"""Enforce the condition on the network over the coordinates -> Field."""
         return cond.enforce(net, *coordinates)
 
-    def _forward(self, cols, nets=None):
+    def _forward(self, cols, nets=None, sharded=True):
         """Sampled columns -> (funcs, coord_fields); shared by loss and residuals.
-        The per-condition nets run one after another."""
+        The per-condition nets run one after another. Under a mesh and
+        ``sharded``, on this rank's block of the rows only (the coordinate
+        set's ``shard`` says which)."""
         points = torch.cat([c.reshape(-1, 1) for c in cols], dim=1)
-        coord_fields = coords_from_points(points)
+        shard = None
+        if sharded and self.mesh is not None:
+            shard = RowShard(self.mesh, points.shape[0])
+            points = points[shard.lo:shard.hi]
+        coord_fields = coords_from_points(points, shard)
         funcs = [self.compute_func_val(net, cond, *coord_fields)
                  for net, cond in zip(nets or self.nets, self.conditions)]
         return funcs, coord_fields
@@ -312,12 +339,48 @@ class BaseSolver(ABC, PretrainedSolver):
     def _loss_and_metrics_inner(self, cols):
         funcs, coord_fields = self._forward(cols)
         residual = self._residuals(funcs, coord_fields, weighted=True)
-        loss = self.loss_fn(residual, funcs, coord_fields)
-        loss = loss + self.additional_loss(residual, funcs, coord_fields)
-        metrics = {name: torch.as_tensor(fn(*[f.value for f in funcs], *[c.value for c in coord_fields]))
-                   for name, fn in self.metrics_fn.items()}
+        shard = coord_fields[0].coords.shard
+        if shard is None:
+            loss = self.loss_fn(residual, funcs, coord_fields)
+            loss = loss + self.additional_loss(residual, funcs, coord_fields)
+            metrics = {name: torch.as_tensor(fn(*[f.value for f in funcs], *[c.value for c in coord_fields]))
+                       for name, fn in self.metrics_fn.items()}
+        else:
+            loss, metrics = self._sharded_loss_and_metrics(shard, residual, funcs, coord_fields)
         coord_fields[0].coords.release()
         return loss, metrics
+
+    def _sharded_loss_and_metrics(self, shard, residual, funcs, coord_fields):
+        """This rank's share of the global loss, and the metrics of the
+        global batch. The shares' values and gradients sum over the ranks
+        to the global loss's: a ``'mean'`` loss (and ``additional_loss``)
+        is weighted by the block's share of the rows; a ``'global'`` loss
+        is computed on the gathered batch on every rank and counted once,
+        on rank 0, while each rank keeps its gradient through its rows."""
+        form = getattr(self.loss_fn, 'shard_form', None)
+        if form not in ('mean', 'global'):
+            raise ValueError(f"loss function {self.loss_fn!r} declares no shard_form: under a mesh set its "
+                             f"attribute shard_form = 'mean' (a mean over the points) or 'global' (it takes the "
+                             f"gathered batch)")
+        extra = shard.weight * self.additional_loss(residual, funcs, coord_fields)
+        if form == 'mean':
+            share = shard.weight * self.loss_fn(residual, funcs, coord_fields)
+        else:
+            fields_ = [residual] + list(funcs) + list(coord_fields)
+            widths = [f.value.shape[1] for f in fields_]
+            parts = torch.split(shard.gather_rows(torch.cat([f.value for f in fields_], dim=1)), widths, dim=1)
+            full = self.loss_fn(parts[0], list(parts[1:1 + len(funcs)]), list(parts[1 + len(funcs):]))
+            share = full if shard.rank == 0 else full - full.detach()
+        return share + extra, self._global_metrics(shard, funcs, coord_fields)
+
+    def _global_metrics(self, shard, funcs, coord_fields):
+        """The metrics of the global batch, gathered once, on every rank."""
+        if not self.metrics_fn:
+            return {}
+        with torch.no_grad():
+            values = [f.value for f in list(funcs) + list(coord_fields)]
+            parts = torch.split(shard.gather_rows(torch.cat(values, dim=1)), [v.shape[1] for v in values], dim=1)
+            return {name: torch.as_tensor(fn(*parts)) for name, fn in self.metrics_fn.items()}
 
     def additional_loss(self, residual, funcs, coords):
         r"""Additional loss terms; override in subclasses. Must return a
@@ -333,8 +396,10 @@ class BaseSolver(ABC, PretrainedSolver):
         with self._eval_scope():
             funcs, coord_fields = self._forward(cols)
             r = self._residuals(funcs, coord_fields, weighted=True).value
+            shard = coord_fields[0].coords.shard
             coord_fields[0].coords.release()
-        return torch.sqrt((r * r).sum(dim=1))
+        scores = torch.sqrt((r * r).sum(dim=1))
+        return scores if shard is None else shard.gather_rows(scores)  # every rank scores its block
 
     def _generate_batch(self, phase):
         gen = self.generator[phase]
@@ -346,13 +411,15 @@ class BaseSolver(ABC, PretrainedSolver):
         return self._batch[phase]
 
     # ---------------------------------------------------------------- epochs
+    def _trained_parameters(self):
+        return [p for group in self.optimizer.param_groups for p in group['params'] if p.requires_grad]
+
     def _backward(self, loss):
         """``loss.backward()`` into the optimizer's parameters only: the
         backward then skips the graph that leads only to the points (the
         compose path differentiates with respect to copies of them), whose
         gradients nothing reads."""
-        loss.backward(inputs=[p for group in self.optimizer.param_groups for p in group['params']
-                              if p.requires_grad])
+        loss.backward(inputs=self._trained_parameters())
 
     def _closure_step(self, cols):
         """One closure-style optimizer step on one batch; returns the loss
@@ -365,10 +432,35 @@ class BaseSolver(ABC, PretrainedSolver):
             self._backward(loss)
             if not first:
                 first.append((loss.detach(), metrics))
-            return loss
+            return loss if self.mesh is None else self._reduce_grads(loss)
 
         self.optimizer.step(closure)
         return first[0]
+
+    @torch.no_grad()
+    def _reduce_grads(self, loss=None):
+        """Under a mesh: sum every trained parameter's gradient over the
+        ranks in one ``all_reduce``, with a flag per parameter (a gradient
+        that is None on every rank stays None; one that is None on some
+        counts as zeros there) and, if given, ``loss``'s share. Returns the
+        global loss, or None."""
+        params = self._trained_parameters()
+        dtype, device = params[0].dtype, params[0].device
+        flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1).to(dtype)
+                          for p in params]
+                         + [torch.tensor([float(p.grad is not None) for p in params], dtype=dtype, device=device)]
+                         + ([loss.detach().reshape(1).to(dtype)] if loss is not None else []))
+        all_reduce_(flat, self.mesh.get_group())
+        sizes = [p.numel() for p in params]
+        flags = flat[sum(sizes):sum(sizes) + len(params)].tolist()
+        for p, g, flag in zip(params, torch.split(flat[:sum(sizes)], sizes), flags):
+            if flag > 0:
+                g = g.view_as(p).to(p.dtype)
+                if p.grad is None:
+                    p.grad = g.clone()
+                else:
+                    p.grad.copy_(g)
+        return flat[-1] if loss is not None else None
 
     def _run_epoch(self, phase):
         """One epoch of ``phase``; returns the mean loss and metrics as tensors."""
@@ -391,6 +483,8 @@ class BaseSolver(ABC, PretrainedSolver):
                 for name in self.metrics_fn:
                     metric_sums[name] = metric_sums[name] + metrics[name].detach()
         if train and not closure:
+            if self.mesh is not None:
+                self._reduce_grads()
             self.optimizer.step()
         return total / n_batches, {k: v / n_batches for k, v in metric_sums.items()}
 
@@ -414,22 +508,33 @@ class BaseSolver(ABC, PretrainedSolver):
         r"""Run a validation epoch, update history and the best parameters."""
         if self.n_batches['valid'] <= 0:
             return
-        loss, metrics = self._run_epoch('valid')
-        self._record('valid', float(loss), {k: float(v) for k, v in metrics.items()})
+        self._record_epochs([self._run_epoch('valid')], ('valid',))
         self._update_best('valid')
+
+    def _record_epochs(self, out, phases):
+        """Record each phase's ``(loss, metrics)`` of ``out`` with one
+        device-to-host read. Under a mesh the losses are this rank's shares
+        and the metrics global: one ``all_reduce`` sums the shares (and
+        rank 0's metrics), so every rank records the global values."""
+        names = list(self.metrics_fn)
+        flat = torch.stack([torch.as_tensor(x, dtype=torch.float64, device=self.device)
+                            for loss, m in out for x in [loss, *[m[k] for k in names]]])
+        per_phase = len(names) + 1
+        if self.mesh is not None:
+            keep = torch.zeros_like(flat, dtype=torch.bool)
+            keep[::per_phase] = True
+            keep |= self.mesh.get_local_rank() == 0
+            flat = all_reduce_(torch.where(keep, flat, torch.zeros_like(flat)), self.mesh.get_group())
+        values = flat.tolist()
+        for phase, i in zip(phases, range(0, len(values), per_phase)):
+            self._record(phase, values[i], dict(zip(names, values[i + 1:i + per_phase])))
 
     def run_epochs(self, valid=True):
         """One training epoch and, if ``valid`` and there are validation
         batches, one validation epoch, with one device-to-host read."""
         has_valid = valid and self.n_batches['valid'] > 0
         out = [self._run_epoch('train')] + ([self._run_epoch('valid')] if has_valid else [])
-        names = list(self.metrics_fn)
-        flat = torch.stack([torch.as_tensor(x, dtype=torch.float64, device=self.device)
-                            for loss, m in out for x in [loss, *[m[k] for k in names]]])
-        values = flat.tolist()
-        per_phase = len(names) + 1
-        for phase, i in zip(('train', 'valid'), range(0, len(values), per_phase)):
-            self._record(phase, values[i], dict(zip(names, values[i + 1:i + per_phase])))
+        self._record_epochs(out, ('train', 'valid'))
         if has_valid:
             self._update_best('valid')
         elif self.n_batches['valid'] == 0:
@@ -468,6 +573,8 @@ class BaseSolver(ABC, PretrainedSolver):
         self._max_local_epoch = max_epochs
         self.local_epoch = 0
         pbar = None
+        if self.mesh is not None and self.mesh.get_local_rank() != 0:
+            tqdm_file = None  # one progress bar, rank 0's
         if tqdm is not None and tqdm_file is not None:
             pbar = tqdm(total=max_epochs, desc='Training Progress', colour='blue', file=tqdm_file,
                         dynamic_ncols=True)
@@ -580,7 +687,7 @@ class BaseSolver(ABC, PretrainedSolver):
         """
         shape, cols = self._as_cols(coords)
         with torch.no_grad():
-            funcs, coord_fields = self._forward(cols, nets=self._nets_for(best))
+            funcs, coord_fields = self._forward(cols, nets=self._nets_for(best), sharded=False)
             residuals = self.diff_eqs(*funcs, *coord_fields)
             if isinstance(residuals, Field):
                 residuals = [residuals]
@@ -752,7 +859,7 @@ class Solver1D(BaseSolver):
                  train_generator=None, valid_generator=None, analytic_solutions=None, optimizer=None,
                  loss_fn=None, n_batches_train=1, n_batches_valid=4, metrics=None, n_output_units=1,
                  residual_weights=None, device=None, dtype=None, generator=None, shuffle=None, batch_size=None,
-                 eval_mode=None):
+                 eval_mode=None, mesh=None):
         if train_generator is None or valid_generator is None:
             if t_min is None or t_max is None:
                 raise ValueError(
@@ -774,7 +881,7 @@ class Solver1D(BaseSolver):
             n_batches_train=n_batches_train, n_batches_valid=n_batches_valid, metrics=metrics,
             n_input_units=1, n_output_units=n_output_units, residual_weights=residual_weights,
             device=device, dtype=dtype, generator=generator, shuffle=shuffle, batch_size=batch_size,
-            eval_mode=eval_mode)
+            eval_mode=eval_mode, mesh=mesh)
 
     def get_solution(self, copy=True, best=True):
         r"""A callable solution evaluated as ``solution(ts)``.
@@ -822,7 +929,7 @@ class BundleSolver1D(BaseSolver):
                  nets=None, train_generator=None, valid_generator=None, analytic_solutions=None, optimizer=None,
                  loss_fn=None, n_batches_train=1, n_batches_valid=4, metrics=None, n_output_units=1,
                  residual_weights=None, device=None, dtype=None, generator=None, batch_size=None, shuffle=None,
-                 eval_mode=None):
+                 eval_mode=None, mesh=None):
         if train_generator is None or valid_generator is None:
             if t_min is None or t_max is None:
                 raise ValueError(
@@ -837,7 +944,7 @@ class BundleSolver1D(BaseSolver):
         self.r_min, self.r_max = (t_min,) + theta_min, (t_max,) + theta_max
         device, dtype = resolve(device, dtype)
 
-        def mesh(method):
+        def grid(method):
             gen = None
             for lo, hi in zip(self.r_min, self.r_max):
                 axis = Generator1D(32, t_min=lo, t_max=hi, method=method, device=device, dtype=dtype)
@@ -845,9 +952,9 @@ class BundleSolver1D(BaseSolver):
             return gen
 
         if train_generator is None:
-            train_generator = mesh('equally-spaced-noisy')
+            train_generator = grid('equally-spaced-noisy')
         if valid_generator is None:
-            valid_generator = mesh('equally-spaced')
+            valid_generator = grid('equally-spaced')
 
         # the thetas follow the functions and t among the equation wrapper's arguments
         n_leading = len(conditions) + 1
@@ -864,7 +971,7 @@ class BundleSolver1D(BaseSolver):
             n_batches_train=n_batches_train, n_batches_valid=n_batches_valid, metrics=metrics,
             n_input_units=len(self.r_min), n_output_units=n_output_units, residual_weights=residual_weights,
             device=device, dtype=dtype, generator=generator, shuffle=shuffle, batch_size=batch_size,
-            eval_mode=eval_mode)
+            eval_mode=eval_mode, mesh=mesh)
 
     def get_solution(self, copy=True, best=True):
         r"""A callable solution evaluated as ``solution(ts, theta_1, ..., theta_n)``.
@@ -908,7 +1015,7 @@ class Solver2D(BaseSolver):
                  train_generator=None, valid_generator=None, analytic_solutions=None, optimizer=None,
                  loss_fn=None, n_batches_train=1, n_batches_valid=4, metrics=None, n_output_units=1,
                  residual_weights=None, device=None, dtype=None, generator=None, shuffle=None, batch_size=None,
-                 eval_mode=None):
+                 eval_mode=None, mesh=None):
         if train_generator is None or valid_generator is None:
             if xy_min is None or xy_max is None:
                 raise ValueError(
@@ -930,7 +1037,7 @@ class Solver2D(BaseSolver):
             n_batches_train=n_batches_train, n_batches_valid=n_batches_valid, metrics=metrics,
             n_input_units=2, n_output_units=n_output_units, residual_weights=residual_weights,
             device=device, dtype=dtype, generator=generator, shuffle=shuffle, batch_size=batch_size,
-            eval_mode=eval_mode)
+            eval_mode=eval_mode, mesh=mesh)
 
     def get_solution(self, copy=True, best=True):
         r"""A callable solution evaluated as ``solution(xs, ys)``.
@@ -1000,7 +1107,7 @@ class SolverSpherical(BaseSolver):
                  train_generator=None, valid_generator=None, analytic_solutions=None, optimizer=None,
                  loss_fn=None, n_batches_train=1, n_batches_valid=4, metrics=None, enforcer=None,
                  n_output_units=1, residual_weights=None, device=None, dtype=None, generator=None,
-                 shuffle=None, batch_size=None, eval_mode=None):
+                 shuffle=None, batch_size=None, eval_mode=None, mesh=None):
         if train_generator is None or valid_generator is None:
             if r_min is None or r_max is None:
                 raise ValueError(
@@ -1023,7 +1130,7 @@ class SolverSpherical(BaseSolver):
             n_batches_train=n_batches_train, n_batches_valid=n_batches_valid, metrics=metrics,
             n_input_units=3, n_output_units=n_output_units, residual_weights=residual_weights,
             device=device, dtype=dtype, generator=generator, shuffle=shuffle, batch_size=batch_size,
-            eval_mode=eval_mode)
+            eval_mode=eval_mode, mesh=mesh)
 
     def _auto_enforce(self, net, cond, *coordinates):
         r"""Enforce the condition with as many coordinates as its

@@ -499,15 +499,24 @@ class PretrainedSolver:
         :param name: solution name for the hub.
         :param save_to_hub: POST the saved bytes to the configured hub
             (``kwargs`` may give a ``description``).
+
+        Under a mesh rank 0 writes (every rank holds the same state), and
+        every rank returns once the file is written. The file holds no
+        mesh: it loads with or without one (``load(..., mesh=...)``).
         """
         if path is None and not save_to_hub:
             raise ValueError("Either `path` must be given or `save_to_hub` must be True")
-        blob = self._serialize()
-        if path is not None:
-            with open(path, 'wb') as f:
-                f.write(blob)
-        if save_to_hub:
-            self._upload_to_hub(blob, name=name, **kwargs)
+        mesh = getattr(self, 'mesh', None)
+        if mesh is None or mesh.get_local_rank() == 0:
+            blob = self._serialize()
+            if path is not None:
+                with open(path, 'wb') as f:
+                    f.write(blob)
+            if save_to_hub:
+                self._upload_to_hub(blob, name=name, **kwargs)
+        if mesh is not None:  # a barrier: no rank reads the file before it is written
+            from .parallel.sharding import all_reduce_
+            all_reduce_(torch.zeros(1, device=self.device), mesh.get_group())
         return path
 
     def _upload_to_hub(self, blob, name=None, description=""):
@@ -548,7 +557,8 @@ class PretrainedSolver:
         :param config: a :class:`SolverConfig`. Where the file holds no
             callables (saved without dill) or dill is not installed here, it
             must give them; a ``RuntimeError`` names each missing one.
-        :param kwargs: more constructor arguments (``device``, ...).
+        :param kwargs: more constructor arguments (``device``, ``mesh``, ...).
+            With a ``mesh`` every rank loads the same state.
         """
         from . import solvers as _solvers
         from .utils import resolve

@@ -20,6 +20,9 @@ _DEFAULT_DTYPE = torch.float32
 # the card: a caller without one asks for the CPU. Kept as a str, so that
 # importing the port makes no torch.device and touches no CUDA.
 _DEFAULT_DEVICE = 'cuda'
+# this rank's card once make_mesh has placed it (cuda:<local rank> under NCCL,
+# the named card under gloo): what the default 'cuda' resolves to
+_RANK_DEVICE = None
 _SEED = 0
 # device -> torch.Generator seeded from _SEED; emptied by set_seed
 _GENERATORS = {}
@@ -57,15 +60,24 @@ def get_default_dtype():
 
 def get_default_device():
     """The port's default device for new points and networks (``cuda``
-    unless :func:`set_tensor_type` changed it)."""
+    unless :func:`set_tensor_type` changed it; in a rank of a mesh, the
+    rank's card)."""
+    if _DEFAULT_DEVICE == 'cuda' and _RANK_DEVICE is not None:
+        return _RANK_DEVICE
     return torch.device(_DEFAULT_DEVICE)
+
+
+def _set_rank_device(device):
+    """Record this rank's device (:func:`~neurodiffeq_tpu_torch.parallel.make_mesh`)."""
+    global _RANK_DEVICE
+    _RANK_DEVICE = torch.device(device) if torch.device(device).type == 'cuda' else None
 
 
 def resolve(device=None, dtype=None):
     """``(device, dtype)`` with the port's defaults filled in: the device
     is ``cuda`` unless :func:`set_tensor_type` changed it, with no fallback
     to the CPU."""
-    device = torch.device(device if device is not None else _DEFAULT_DEVICE)
+    device = torch.device(device) if device is not None else get_default_device()
     return device, (dtype if dtype is not None else _DEFAULT_DTYPE)
 
 

@@ -29,6 +29,7 @@ def _on_cpu():
     """The port defaults to the card; these tests ask for the CPU."""
     device, dtype = get_default_device(), get_default_dtype()
     set_tensor_type('cpu', 64)
+    F.reset_taylor_fallback_count()  # the counter is global to the process: each test starts at 0
     yield
     set_tensor_type(str(device), 64 if dtype == torch.float64 else 32)
 
