@@ -115,7 +115,7 @@ line each or more:
       grid; neither launches a kernel (plain forwards);
    i. heat with Dirichlet ends (``examples/heat_equation.py``: ``IBVP1D``
       through ``Solver2D``, the default FCNN 2-32-32-1, 32 x 32),
-      ``fit(1500)``: exactly 5 ``taylor_mlp`` launches per epoch, no
+      ``fit(3000)``: exactly 5 ``taylor_mlp`` launches per epoch, no
       fallback, max error < 5e-2 on 200 random points; then ``fit(200)``
       under ``h1`` (Taylor order 3, layer by layer): no launch, no
       fallback, the loss must fall;
@@ -237,16 +237,14 @@ error beside its limit (the constants below). Phase 5r (the data-parallel
 slice) adds about 55 s: with it the whole run took 688 s on a host where 5a
 ran at 18.3 s per 1,000 epochs (before the phase: 640 s at 20.7 s), about
 925 s scaled to a host whose 5a takes 24.6 s, the host the 900 s were set
-for, so the work was cut again, in this order: phase 6's
-profiled epochs per path (3 to 2) and calls per kernel shape (25 to 10);
-not 5g, 5d or 5a, whose errors at a shallower cut come too near their
-limits (5g's CPU float32 run at 500 epochs: 4.397e-2 of 5e-2; 5d's card
-2.856e-2 of 0.03 at 3,500; 5a's card 6.622e-3 of 1e-2 at 700); then 5i, the
-path with the widest margin, from 3,000 to 1,500 epochs; and 5r's own
-unsharded rate window from 299 to 100 epochs. The cut tree took 739 s on a
-slower host (5a at 22.1 s per 1,000 epochs: about 821 s scaled), 5r 66 s
-of it, over its 60 s; so 5r's single NCCL rank now starts beside the mesh's
-ranks instead of after them.
+for, so the work was cut again, in the order above: phase 6's profiled
+epochs per path (3 to 2) and calls per kernel shape (25 to 10); not 5g, 5d
+or 5a, whose errors at a shallower cut come too near their limits (5g's CPU
+float32 run at 500 epochs: 4.397e-2 of 5e-2; 5d's card 2.856e-2 of 0.03 at
+3,500; 5a's card 6.622e-3 of 1e-2 at 700); and inside 5r, its unsharded
+rate window from 299 to 100 epochs and its NCCL world of one, which now
+runs in this process instead of a spawned rank (whose start-up took about
+20 s).
 
 Any failure ends the run with a non-zero exit code and no result line. The
 card's name and power limit and the kernel record come before the last
@@ -260,7 +258,6 @@ import re
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -310,15 +307,13 @@ HYPER_EPOCHS, HYPER_STEPS, HYPER_LIMIT = 1000, 50, 2e-2
 # 8.6e-3 and 1.1e-2; a corrector that does nothing or the wrong thing fails both
 HYPER_SOL_LIMIT, HYPER_GAIN = 1e-3, 10
 # examples/heat_equation.py: u_t = K u_xx on [0, L] x [0, T], Generator2D 32 x 32, Solver2D's
-# default FCNN 2-32-32-1 tanh. 5i runs the Dirichlet variant for 1,500 of the example's 3,000
-# epochs, the depth at which tests/test_ibvp_training.py holds it to the limit used here (on 16 x
-# 16; cut from 3,000 when the script with phase 5r passed its budget, the module docstring: the
-# card read 6.070e-4 at 3,000, the port's CPU float32 run 2.755e-3 at 1,500), then
+# default FCNN 2-32-32-1 tanh. 5i runs the Dirichlet variant for the example's 3,000 epochs
+# with tests/test_ibvp_training.py's limit (that test trains 1,500 epochs on 16 x 16), then
 # 200 epochs under the h1 loss (Taylor order 3); 5j runs the Neumann variant (pin anchors, the
 # compose path) for 1,000 of its 3,000 epochs, its limit about twice the port's CPU float32
 # run of this phase at that cut (1.888e-3)
 HEAT_K, HEAT_L, HEAT_T = 0.3, 2.0, 1.5
-HEAT_EPOCHS, HEAT_LIMIT, HEAT_H1_EPOCHS = 1500, 5e-2, 200
+HEAT_EPOCHS, HEAT_LIMIT, HEAT_H1_EPOCHS = 3000, 5e-2, 200
 NEUMANN_EPOCHS, NEUMANN_LIMIT = 1000, 4e-3
 # examples/burgers.py 'adaptive': FCNN 2-(20x8)-1 tanh, Generator1D(2048) * Generator1D(2048)
 # uniform, ResidualAdaptiveGenerator(oversample=8, 'power', alpha=1, c=1), validation on
@@ -2765,6 +2760,28 @@ def shard_rank(backend, devices, init, rng_state, epochs, hd):
     return out
 
 
+def one_nccl_rank(init, rng_state):
+    """Phase 5r's world of one: this process as the only rank of an NCCL
+    process group (a file rendezvous), running ``shard_rank`` for one epoch;
+    a spawned rank would spend most of its time starting. The group is
+    destroyed after, and the default device is the card again."""
+    import datetime
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from neurodiffeq_tpu_torch.utils import _set_rank_device
+
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_nccl_')
+    dist.init_process_group('nccl', init_method=Path(tmp, 'rendezvous').as_uri(), rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=SHARD_TIMEOUT))
+    try:
+        return shard_rank('nccl', None, init, rng_state, 1, None)
+    finally:
+        dist.destroy_process_group()
+        _set_rank_device(None)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def run_sharded(F, taylor_mlp, card='the CPU'):
     """Phase 5r: the data-parallel slice. The flagship (5a's config, FCNN
     2-512-1 tanh on 32 x 32 points) on a mesh over the points: 2 ranks on
@@ -2800,15 +2817,10 @@ def run_sharded(F, taylor_mlp, card='the CPU'):
     hd_init = {k: v.detach().cpu().clone() for k, v in hd_ref.nets[0].state_dict().items()}
     points = torch.rand(HD_POINTS, 100, generator=torch.Generator().manual_seed(SHARD_SEED), dtype=F32)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=1) as pool:
-        # on the card, one NCCL rank (the unsharded path bit for bit) starts beside the mesh's ranks: its
-        # start-up, most of its time, overlaps theirs
-        single = pool.submit(launch, shard_rank, 1, backend='nccl', device_type='cuda', timeout=SHARD_TIMEOUT,
-                             args=('nccl', None, init, rng_state, 1, None)) if dev.type == 'cuda' else None
-        outs = launch(shard_rank, world, backend=backend, device_type=dev.type, timeout=SHARD_TIMEOUT,
-                      args=(backend, devices, init, rng_state, SHARD_EPOCHS, (points.numpy(), hd_init)),
-                      num_threads=SHARD_CPU_THREADS if dev.type == 'cpu' else None)
-        one = single.result()[0] if single is not None else None
+    # the mesh's ranks alone on the card: the rates they report are theirs
+    outs = launch(shard_rank, world, backend=backend, device_type=dev.type, timeout=SHARD_TIMEOUT,
+                  args=(backend, devices, init, rng_state, SHARD_EPOCHS, (points.numpy(), hd_init)),
+                  num_threads=SHARD_CPU_THREADS if dev.type == 'cpu' else None)
     launch_s = time.perf_counter() - t0
     # the unsharded run from the same state
     ref.fit(1, tqdm_file=None)
@@ -2818,6 +2830,7 @@ def run_sharded(F, taylor_mlp, card='the CPU'):
     ref.fit(SHARD_RATE_EPOCHS, tqdm_file=None)
     sync()
     ref_rate = SHARD_RATE_EPOCHS / (time.perf_counter() - t0)
+    one = one_nccl_rank(init, rng_state) if dev.type == 'cuda' else None
     pts = points.to(dev)
     share, _ = hd_ref._loss_and_metrics([pts[:, i:i + 1] for i in range(100)])
     hd_ref._backward(share)
@@ -2862,8 +2875,7 @@ def run_sharded(F, taylor_mlp, card='the CPU'):
     phase('5r rates', f"{card}: flagship 2-512-1 N = {GRID[0] * GRID[1]} per batch over {world} {backend} ranks "
                       f"({devices or 'one card each'}; each rank's compute and collectives on its own device): "
                       f"{rates}; unsharded {ref_rate:.2f} epochs/s in one process ({scope})")
-    beside = ' (one NCCL rank beside them on the card)' if one is not None else ''
-    report('5r sharded', f"{world} ranks over {backend} in {launch_s:.1f} s{beside}: launches per epoch per rank "
+    report('5r sharded', f"{world} ranks over {backend} in {launch_s:.1f} s: launches per epoch per rank "
                          f"{' '.join(f'{r:.2f}' for r in per_epoch)} (taylor_mlp_1h), fallbacks "
                          f"{[o['fallbacks'] for o in outs]}, first epoch's loss and gradients against unsharded "
                          f"{first_err:.2e} (relative), d = 100 stde batch {hd_err:.2e}; {SHARD_EPOCHS} epochs: train "

@@ -63,6 +63,12 @@ class _LoggerMixin:
             self.logger = logger
 
 
+def _other_rank():
+    """Whether this process is a rank other than 0 of a process group."""
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_initialized() and dist.get_rank() != 0
+
+
 def _writes(solver):
     """Whether this process writes for ``solver``: always without a mesh,
     on rank 0 under one."""
@@ -427,21 +433,27 @@ class SimpleTensorboardCallback(ActionCallback):
 
     def __init__(self, writer=None, logger=None):
         super().__init__(logger=logger)
-        self.writer = writer or None
         if writer:
+            self.writer = writer
             return
         try:
-            from torch.utils.tensorboard import SummaryWriter  # noqa: F401 -- made at the first write
+            from torch.utils.tensorboard import SummaryWriter  # noqa: F401 -- made by _make_writer
         except ImportError as e:  # pragma: no cover
             raise ImportError(f"TensorBoard doesn't seem to be installed. See the following\n{e}")
+        # a rank other than 0 of a process group makes its writer only if it
+        # writes (a solver without a mesh): one event file under a mesh
+        self.writer = None if _other_rank() else self._make_writer()
+
+    def _make_writer(self):
+        from torch.utils.tensorboard import SummaryWriter
+        self.logger.info('No writer specified, creating a SummaryWriter automatically.')
+        return SummaryWriter()
 
     def __call__(self, solver):
         if not _writes(solver):
             return
-        if self.writer is None:  # made where it writes: one event file under a mesh
-            from torch.utils.tensorboard import SummaryWriter
-            self.logger.info('No writer specified, creating a SummaryWriter automatically.')
-            self.writer = SummaryWriter()
+        if self.writer is None:
+            self.writer = self._make_writer()
         for name, values in solver.metrics_history.items():
             self.writer.add_scalar(tag=name, scalar_value=values[-1] if values else np.nan,
                                    global_step=solver.global_epoch)

@@ -19,6 +19,8 @@ import traceback
 
 import torch
 
+from ..utils import get_default_device
+
 __all__ = ['launch']
 
 
@@ -72,7 +74,7 @@ def _stop(procs):
         p.join(10)
 
 
-def launch(fn, nprocs, backend=None, device_type='cpu', timeout=300.0, args=(), num_threads=None,
+def launch(fn, nprocs, backend=None, device_type=None, timeout=300.0, args=(), num_threads=None,
            rendezvous=None):
     """Run ``fn(*args)`` on ``nprocs`` ranks of one process group and return
     the results, one per rank, in rank order.
@@ -83,8 +85,9 @@ def launch(fn, nprocs, backend=None, device_type='cpu', timeout=300.0, args=(), 
     :param backend: ``'gloo'`` or ``'nccl'``; defaults to NCCL on the card
         (one card per rank, rank r on ``cuda:r``) and gloo on the CPU. Under
         gloo on the card ``fn`` chooses the card (``make_mesh(devices=...)``).
-    :param device_type: ``'cpu'`` (each rank's default device is then the
-        CPU) or ``'cuda'``.
+    :param device_type: ``'cuda'`` or ``'cpu'`` (each rank's default device
+        is then the CPU); defaults to the port's default device's type:
+        ``'cuda'`` unless ``set_tensor_type('cpu')`` asked for the CPU.
     :param timeout: seconds for the whole run; also every collective's
         limit. On expiry the ranks are killed and ``TimeoutError`` raised.
     :param args: arguments of ``fn``.
@@ -93,6 +96,8 @@ def launch(fn, nprocs, backend=None, device_type='cpu', timeout=300.0, args=(), 
         or a ``tcp://host:port`` URL; defaults to a fresh file in a
         temporary directory.
     """
+    if device_type is None:
+        device_type = get_default_device().type
     if backend is None:
         backend = 'nccl' if device_type == 'cuda' else 'gloo'
     if device_type not in ('cpu', 'cuda'):

@@ -86,6 +86,17 @@ def _requires_closure(optimizer):
     return p is not None and p.default is inspect.Parameter.empty
 
 
+def _shard_form(fn, name):
+    """``fn``'s declared ``shard_form`` ('mean' or 'global'); raises under a
+    mesh for a term that declares neither, which would be silently wrong."""
+    form = getattr(fn, 'shard_form', None)
+    if form not in ('mean', 'global'):
+        raise ValueError(f"{name} declares no shard_form: under a mesh set its attribute shard_form = 'mean' "
+                         f"(a mean over the points, or independent of them) or 'global' (it takes the gathered "
+                         f"batch)")
+    return form
+
+
 class BaseSolver(ABC, PretrainedSolver):
     r"""A class for solving ODE/PDE systems.
 
@@ -353,25 +364,27 @@ class BaseSolver(ABC, PretrainedSolver):
     def _sharded_loss_and_metrics(self, shard, residual, funcs, coord_fields):
         """This rank's share of the global loss, and the metrics of the
         global batch. The shares' values and gradients sum over the ranks
-        to the global loss's: a ``'mean'`` loss (and ``additional_loss``)
-        is weighted by the block's share of the rows; a ``'global'`` loss
-        is computed on the gathered batch on every rank and counted once,
-        on rank 0, while each rank keeps its gradient through its rows."""
-        form = getattr(self.loss_fn, 'shard_form', None)
-        if form not in ('mean', 'global'):
-            raise ValueError(f"loss function {self.loss_fn!r} declares no shard_form: under a mesh set its "
-                             f"attribute shard_form = 'mean' (a mean over the points) or 'global' (it takes the "
-                             f"gathered batch)")
-        extra = shard.weight * self.additional_loss(residual, funcs, coord_fields)
-        if form == 'mean':
-            share = shard.weight * self.loss_fn(residual, funcs, coord_fields)
-        else:
-            fields_ = [residual] + list(funcs) + list(coord_fields)
-            widths = [f.value.shape[1] for f in fields_]
-            parts = torch.split(shard.gather_rows(torch.cat([f.value for f in fields_], dim=1)), widths, dim=1)
-            full = self.loss_fn(parts[0], list(parts[1:1 + len(funcs)]), list(parts[1 + len(funcs):]))
-            share = full if shard.rank == 0 else full - full.detach()
-        return share + extra, self._global_metrics(shard, funcs, coord_fields)
+        to the global loss's. The loss function and ``additional_loss``
+        each declare a ``shard_form``: a ``'mean'`` term (a mean over the
+        points, or one that does not depend on them) is weighted by the
+        block's share of the rows; a ``'global'`` term is computed on the
+        gathered batch (plain tensors) on every rank and counted once, on
+        rank 0, while each rank keeps its gradient through its rows."""
+        terms = [(self.loss_fn, _shard_form(self.loss_fn, f"loss function {self.loss_fn!r}")),
+                 (self.additional_loss, _shard_form(self.additional_loss, f"{type(self).__name__}.additional_loss"))]
+        gathered, share = None, 0.0
+        for fn, form in terms:
+            if form == 'mean':
+                share = share + shard.weight * fn(residual, funcs, coord_fields)
+                continue
+            if gathered is None:
+                fields_ = [residual] + list(funcs) + list(coord_fields)
+                parts = torch.split(shard.gather_rows(torch.cat([f.value for f in fields_], dim=1)),
+                                    [f.value.shape[1] for f in fields_], dim=1)
+                gathered = (parts[0], list(parts[1:1 + len(funcs)]), list(parts[1 + len(funcs):]))
+            full = torch.as_tensor(fn(*gathered), dtype=residual.value.dtype, device=residual.value.device)
+            share = share + (full if shard.rank == 0 else full - full.detach())
+        return share, self._global_metrics(shard, funcs, coord_fields)
 
     def _global_metrics(self, shard, funcs, coord_fields):
         """The metrics of the global batch, gathered once, on every rank."""
@@ -384,8 +397,13 @@ class BaseSolver(ABC, PretrainedSolver):
 
     def additional_loss(self, residual, funcs, coords):
         r"""Additional loss terms; override in subclasses. Must return a
-        scalar. Under ``residual_weights``, ``residual`` is the weighted one."""
+        scalar. Under ``residual_weights``, ``residual`` is the weighted one.
+        Under a mesh an override declares its ``shard_form``
+        (``additional_loss.shard_form = 'mean'`` or ``'global'``, as a loss
+        function does; :meth:`_sharded_loss_and_metrics`)."""
         return 0.0
+
+    additional_loss.shard_form = 'mean'  # zero on every block
 
     @torch.no_grad()
     def _residual_scores(self, cols):
@@ -439,27 +457,21 @@ class BaseSolver(ABC, PretrainedSolver):
 
     @torch.no_grad()
     def _reduce_grads(self, loss=None):
-        """Under a mesh: sum every trained parameter's gradient over the
-        ranks in one ``all_reduce``, with a flag per parameter (a gradient
-        that is None on every rank stays None; one that is None on some
-        counts as zeros there) and, if given, ``loss``'s share. Returns the
-        global loss, or None."""
-        params = self._trained_parameters()
-        dtype, device = params[0].dtype, params[0].device
-        flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1).to(dtype)
-                          for p in params]
-                         + [torch.tensor([float(p.grad is not None) for p in params], dtype=dtype, device=device)]
-                         + ([loss.detach().reshape(1).to(dtype)] if loss is not None else []))
+        """Under a mesh: sum the trained parameters' gradients over the
+        ranks in one ``all_reduce``, with ``loss``'s share if given. Every
+        rank runs the same graph on its block, so the parameters with a
+        gradient are the same on every rank. Returns the global loss, or
+        None."""
+        params = [p for p in self._trained_parameters() if p.grad is not None]
+        parts = [p.grad.reshape(-1) for p in params] + ([loss.detach().reshape(1)] if loss is not None else [])
+        if not parts:
+            return None
+        dtype = parts[0].dtype
+        flat = torch.cat([t.to(dtype) for t in parts])
         all_reduce_(flat, self.mesh.get_group())
         sizes = [p.numel() for p in params]
-        flags = flat[sum(sizes):sum(sizes) + len(params)].tolist()
-        for p, g, flag in zip(params, torch.split(flat[:sum(sizes)], sizes), flags):
-            if flag > 0:
-                g = g.view_as(p).to(p.dtype)
-                if p.grad is None:
-                    p.grad = g.clone()
-                else:
-                    p.grad.copy_(g)
+        for p, g in zip(params, torch.split(flat[:sum(sizes)], sizes)):
+            p.grad.copy_(g.view_as(p))
         return flat[-1] if loss is not None else None
 
     def _run_epoch(self, phase):

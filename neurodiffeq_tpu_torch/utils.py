@@ -68,9 +68,10 @@ def get_default_device():
 
 
 def _set_rank_device(device):
-    """Record this rank's device (:func:`~neurodiffeq_tpu_torch.parallel.make_mesh`)."""
+    """Record this rank's device (:func:`~neurodiffeq_tpu_torch.parallel.make_mesh`);
+    None forgets it, once the process group is gone."""
     global _RANK_DEVICE
-    _RANK_DEVICE = torch.device(device) if torch.device(device).type == 'cuda' else None
+    _RANK_DEVICE = torch.device(device) if device is not None and torch.device(device).type == 'cuda' else None
 
 
 def resolve(device=None, dtype=None):

@@ -58,6 +58,15 @@ def _on_cpu():
 
 
 # ------------------------------------------------------------ the JAX side
+def _jax_extra_loss(form):
+    """``R.extra_loss(form)`` for the JAX package, which computes it on the
+    whole batch, on its mesh too."""
+    def additional_loss(self, residual, funcs, coords):
+        u = funcs[0].value
+        return 0.1 * jnp.mean(u ** 2) if form == 'mean' else 0.1 * jnp.max(jnp.abs(u))
+    return additional_loss
+
+
 def _jax_solver(spec, mesh=None):
     """The JAX package's counterpart of ``R.build(**spec)`` (key 7)."""
     problem, net = spec.get('problem', 'first'), spec.get('net', (16, 16))
@@ -80,11 +89,14 @@ def _jax_solver(spec, mesh=None):
         from neurodiffeq_tpu import fields as JF
         eqs = lambda u, t: [0.5 * jdiff(u, t) ** 2 - (np.pi ** 2) * JF.sin(np.pi * t) * u]  # noqa: E731
         conditions = [JC.DirichletBVP(t_0=0.0, u_0=0.0, t_1=1.0, u_1=0.0)]
-    return JS.Solver1D(ode_system=eqs, conditions=conditions, t_min=0.0, t_max=t1, nets=nets,
-                       train_generator=JG.Generator1D(n, 0.0, t1, method='equally-spaced'),
-                       valid_generator=JG.Generator1D(n, 0.0, t1, method='equally-spaced'),
-                       loss_fn=jcausal(epsilon=2.0, n_bins=4) if loss == 'causal' else loss,
-                       residual_weights=spec.get('residual_weights'), key=jax.random.PRNGKey(7), mesh=mesh)
+    solver_class = JS.Solver1D
+    if spec.get('extra') is not None:
+        solver_class = type('ExtraLossSolver1D', (JS.Solver1D,), {'additional_loss': _jax_extra_loss(spec['extra'])})
+    return solver_class(ode_system=eqs, conditions=conditions, t_min=0.0, t_max=t1, nets=nets,
+                        train_generator=JG.Generator1D(n, 0.0, t1, method='equally-spaced'),
+                        valid_generator=JG.Generator1D(n, 0.0, t1, method='equally-spaced'),
+                        loss_fn=jcausal(epsilon=2.0, n_bins=4) if loss == 'causal' else loss,
+                        residual_weights=spec.get('residual_weights'), key=jax.random.PRNGKey(7), mesh=mesh)
 
 
 def _numpy(tree):
@@ -125,13 +137,16 @@ def _loss_specs():
              for loss in LOSSES}
     specs.update({'order:first': dict(problem='first'), 'order:second': dict(problem='second'),
                   'residual_weights': dict(problem='weighted', residual_weights=[0.25, 1.0]),
+                  'extra:mean': dict(problem='first', extra='mean'),
+                  'extra:global': dict(problem='first', extra='global'),
                   'net:siren': dict(net='siren'), 'net:fourier': dict(net='fourier')})
     return specs
 
 
 def _uneven_specs():
     return {'uneven:first': dict(problem='first', n=N_UNEVEN), 'uneven:second': dict(problem='second', n=N_UNEVEN),
-            'uneven:causal': dict(problem='first', loss='causal', n=N_UNEVEN)}
+            'uneven:causal': dict(problem='first', loss='causal', n=N_UNEVEN),
+            'uneven:extra_global': dict(problem='first', extra='global', n=N_UNEVEN)}
 
 
 def _case_cols(key, spec):
@@ -176,14 +191,15 @@ def runs(tmp_path_factory):
     two['save'] = ('save', dict(spec=dict(problem='first', method='equally-spaced-noisy'), epochs=3,
                                 path=str(tmp / 'mesh.pt'), load_path=str(tmp / 'plain.pt')))
     two['mesh'] = ('mesh', {})
-    two['undeclared_loss'] = ('undeclared_loss', {})
+    two['undeclared_loss'] = ('undeclared', dict(what='loss'))
+    two['undeclared_extra'] = ('undeclared', dict(what='extra'))
     three = {key: _loss_case(key, spec) for key, spec in _uneven_specs().items()}
     three['mesh'] = ('mesh', {})
     one = {'fit:one': ('fit', dict(spec=dict(problem='second', method='equally-spaced-noisy', n_batches_valid=2,
                                              metric=True), epochs=3)), 'mesh': ('mesh', {})}
     out = {}
     for name, world, cases in (('two', 2, two), ('three', 3, three), ('one', 1, one)):
-        ranks = launch(R.run_cases, world, timeout=TIMEOUT, args=(cases,), num_threads=1,
+        ranks = launch(R.run_cases, world, device_type='cpu', timeout=TIMEOUT, args=(cases,), num_threads=1,
                        rendezvous=str(tmp / f'rendezvous_{name}'))
         out[name] = {key: [r[key] for r in ranks] for key in list(cases) + ['imports']}
     plain_cases = {k: v for k, v in {**two, **one}.items() if v[0] in ('probes', 'fit', 'weights')}
@@ -236,6 +252,13 @@ def test_a_loss_without_shard_form_raises_under_a_mesh(runs):
         assert message is not None and "shard_form = 'mean'" in message
 
 
+def test_an_additional_loss_without_shard_form_raises_under_a_mesh(runs):
+    """A max over the batch, say, is not the sum of the blocks' maxima: an
+    ``additional_loss`` override must declare its form, as a loss does."""
+    for message in runs['two']['undeclared_extra']:
+        assert message is not None and 'ExtraLossSolver1D.additional_loss' in message and "'global'" in message
+
+
 def test_model_axis_raises_naming_the_roadmap_item():
     for call in (lambda: torch_make_mesh(model_axis_size=2), lambda: megatron_param_shardings([], None)):
         with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 23b"):
@@ -244,9 +267,10 @@ def test_model_axis_raises_naming_the_roadmap_item():
 
 @pytest.mark.parametrize('key', list(_loss_specs()))
 def test_loss_and_gradients_match_jax_on_two_ranks(runs, key):
-    """Per loss, static residual weights, first and second order, SIREN and
-    FourierFCNN: every rank holds the JAX package's loss and gradients,
-    unsharded and on its mesh."""
+    """Per loss, static residual weights, an ``additional_loss`` of each
+    form (a mean, and a max over the whole batch), first and second order,
+    SIREN and FourierFCNN: every rank holds the JAX package's loss and
+    gradients, unsharded and on its mesh."""
     spec = _loss_specs()[key]
     cols = _case_cols(key, spec)
     want = [_jax_loss_grads(spec, cols, None), _jax_loss_grads(spec, cols, jax_make_mesh())]
@@ -376,12 +400,12 @@ def test_no_rank_imports_jax(runs):
 
 def test_launch_raises_a_rank_exception_and_stops_the_others(tmp_path):
     with pytest.raises(RuntimeError, match='rank 1 fails on purpose'):
-        launch(R.fail_on, 2, timeout=60, args=(1,), rendezvous=str(tmp_path / 'rendezvous'))
+        launch(R.fail_on, 2, device_type='cpu', timeout=60, args=(1,), rendezvous=str(tmp_path / 'rendezvous'))
 
 
 def test_launch_ends_a_hung_collective_at_its_time_limit(tmp_path):
     import time
     t0 = time.monotonic()
     with pytest.raises((TimeoutError, RuntimeError)):
-        launch(R.hang, 2, timeout=5, args=(1,), rendezvous=str(tmp_path / 'rendezvous'))
+        launch(R.hang, 2, device_type='cpu', timeout=5, args=(1,), rendezvous=str(tmp_path / 'rendezvous'))
     assert time.monotonic() - t0 < 30

@@ -26,8 +26,23 @@ def _nets(kind, n_in=1, n_out=1):
     return FCNN(n_input_units=n_in, n_output_units=n_out, hidden_units=kind, dtype=F64)
 
 
+def extra_loss(form):
+    """An ``additional_loss`` override: ``'mean'`` 0.1 mean(u^2), or
+    ``'global'`` 0.1 max |u| over the batch, a term the blocks cannot sum;
+    ``'undeclared'``, the max with no ``shard_form``. Under a mesh a
+    ``'global'`` term receives the gathered batch as plain tensors."""
+    def additional_loss(self, residual, funcs, coords):
+        u = funcs[0] if torch.is_tensor(funcs[0]) else funcs[0].value
+        return 0.1 * (u ** 2).mean() if form == 'mean' else 0.1 * u.abs().max()
+
+    if form != 'undeclared':
+        additional_loss.shard_form = form
+    return additional_loss
+
+
 def build(mesh=None, problem='first', n=64, loss='l2', net=(16, 16), residual_weights=None, method='equally-spaced',
-          n_batches_train=1, n_batches_valid=0, optimizer=None, seed=7, adaptive=None, oversample=4, metric=False):
+          n_batches_train=1, n_batches_valid=0, optimizer=None, seed=7, adaptive=None, oversample=4, metric=False,
+          extra=None):
     """A port solver of ``problem`` on ``mesh`` (None: unsharded), seeded
     by ``seed``, float64 on the CPU. The problems are
     ``tests/test_parallel.py``'s: 'first' du/dt + u = 0 and 'second' its
@@ -37,7 +52,8 @@ def build(mesh=None, problem='first', n=64, loss='l2', net=(16, 16), residual_we
     nets), 'stde_laplacian' and 'stde_biharmonic' in d = 3 and 'halton' a
     d = 2 Poisson problem on scrambled Halton points (``GenericSolver``),
     and 'flagship' the 2-D Laplace problem on an 8 x 8 grid. ``metric``
-    adds max |u| over the batch, a metric that needs the whole batch."""
+    adds max |u| over the batch, a metric that needs the whole batch;
+    ``extra``, an ``additional_loss`` of that form (:func:`extra_loss`)."""
     from neurodiffeq_tpu_torch import conditions as C, diff, fields as F
     from neurodiffeq_tpu_torch import generators as G, solvers as S
     from neurodiffeq_tpu_torch.losses import causal
@@ -93,8 +109,11 @@ def build(mesh=None, problem='first', n=64, loss='l2', net=(16, 16), residual_we
     train = G.Generator1D(n, 0.0, t1, method=method, dtype=F64)
     if adaptive is not None:
         train = G.ResidualAdaptiveGenerator(train, oversample=oversample, strategy=adaptive)
-    return S.Solver1D(ode_system=eqs, conditions=conditions, nets=nets, train_generator=train,
-                      valid_generator=G.Generator1D(n, 0.0, t1, method='equally-spaced', dtype=F64), **common)
+    solver_class = S.Solver1D
+    if extra is not None:
+        solver_class = type('ExtraLossSolver1D', (S.Solver1D,), {'additional_loss': extra_loss(extra)})
+    return solver_class(ode_system=eqs, conditions=conditions, nets=nets, train_generator=train,
+                        valid_generator=G.Generator1D(n, 0.0, t1, method='equally-spaced', dtype=F64), **common)
 
 
 def grads(solver):
@@ -204,9 +223,13 @@ def case_save(mesh, spec, epochs, path, load_path):
     return params(solver), solver.metrics_history, params(loaded), loaded.metrics_history, loaded.mesh is mesh
 
 
-def case_undeclared_loss(mesh):
-    """A loss with no ``shard_form``: the message it raises under the mesh."""
-    solver = build(mesh, loss=lambda residual, funcs, coords: (residual.value ** 2).mean())
+def case_undeclared(mesh, what):
+    """A loss (``what='loss'``) or an ``additional_loss`` (``'extra'``) with
+    no ``shard_form``: the message it raises under the mesh."""
+    if what == 'loss':
+        solver = build(mesh, loss=lambda residual, funcs, coords: (residual.value ** 2).mean())
+    else:
+        solver = build(mesh, extra='undeclared')
     try:
         solver._loss_and_metrics([torch.linspace(0.0, 2.0, 64, dtype=F64).reshape(-1, 1)])
     except ValueError as e:
@@ -214,8 +237,8 @@ def case_undeclared_loss(mesh):
     return None
 
 
-CASES = {'mesh': case_mesh, 'undeclared_loss': case_undeclared_loss, 'loss_grads': case_loss_grads, 'probes': case_probes, 'fit': case_fit,
-         'weights': case_weights, 'save': case_save}
+CASES = {'mesh': case_mesh, 'undeclared': case_undeclared, 'loss_grads': case_loss_grads, 'probes': case_probes,
+         'fit': case_fit, 'weights': case_weights, 'save': case_save}
 
 
 def run_cases(cases):
