@@ -1,9 +1,10 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
-Drives the port's paths through its two hand-written CUDA kernels
+Drives the port's paths through its hand-written CUDA kernels
 (``neurodiffeq_tpu_torch/csrc/taylor_mlp.cu``): ``taylor_mlp_1h`` for nets
-with one hidden layer, ``taylor_mlp`` for every other depth. Phases, one
-line each or more:
+with one hidden layer, ``taylor_mlp`` for every other depth, and
+``taylor_mlp_streams`` for the layer pairs after the first of a net split
+over a ``'model'`` mesh axis. Phases, one line each or more:
 
 1. device: a CUDA device must be present (no CPU fallback); prints
    ``nvidia-smi --query-gpu=name,power.limit``;
@@ -15,6 +16,11 @@ line each or more:
    order than cuBLAS). Then SIREN (w0 = 30, ``SIREN_SHAPES``, order 2),
    whose Taylor path folds w0 into its layers and launches the kernel,
    against the plain layer-by-layer engine, with the same limits.
+   ``taylor_mlp_streams`` against its twin at every shape of
+   ``STREAM_SHAPES`` with the same limits and repeatability: one model
+   rank's slices of the cavity's pairs 1 and 2, the default FCNN's
+   trailing layer, order 1, d = 10 (direction chunks), a width past shared
+   memory (the global scratch) and no input activation.
    ``CHECK_SHAPES`` include nets at the edges of the kernels' reach:
    more than 8 inputs (direction chunks), 20 layers, hidden
    widths whose streams overflow shared memory (a global scratch) and a
@@ -203,10 +209,25 @@ line each or more:
       bit. A line before the check prints each rank's epochs/s, the
       unsharded rate and the collectives' time per epoch (one card's
       numbers, not a scaling claim);
+   s. the model axis (``make_mesh(model_axis_size=2)``, a (1, 2)
+      ``(points, model)`` mesh over the same ranks as 5r, in the same
+      spawn): the flagship at full width from 5r's initialization and
+      generator state for ``SHARD_EPOCHS`` epochs, each model rank on its
+      256 columns (``taylor_mlp_1h`` exactly 5 times per epoch), and the
+      primitive cavity (5e's config at full width, 16,384 points, from 5e's
+      seed) for ``MODEL_CAV_EPOCHS`` epochs, each model rank on its slices
+      of the three layer pairs (exactly 1 ``taylor_mlp_1h`` and 2
+      ``taylor_mlp_streams`` per epoch): first-epoch loss and every
+      gradient within ``SHARD_GRAD_TOL`` relative of the unsharded runs', no
+      fallback, every rank the same histories, falling losses, the
+      flagship's error below ``SHARD_LIMIT`` and the cavity's walls exact
+      as 5e holds them; the model group's ``all_reduce`` time per epoch is
+      reported;
 6. timing: device time per call of kernel and twin at every shape of
    ``TABLE_SHAPES`` and ``REACH_SHAPES`` (``torch.profiler`` over 10 calls;
    the latter only where the tree's kernels take them) beside the kernel's
-   bound, the wrapper's host enqueue time per call, and train-only epochs/s
+   bound (``taylor_mlp_streams`` at the first ``STREAM_TIMED`` shapes of
+   ``STREAM_SHAPES``), the wrapper's host enqueue time per call, and train-only epochs/s
    with the kernel and with the twin swapped in, interleaved in 50-epoch
    windows; the backward of the kernel's autograd function at both cavity
    widths; the Lotka-Volterra epoch's rate in 50-epoch windows and the spherical,
@@ -244,7 +265,9 @@ float32 run at 500 epochs: 4.397e-2 of 5e-2; 5d's card 2.856e-2 of 0.03 at
 3,500; 5a's card 6.622e-3 of 1e-2 at 700); and inside 5r, its unsharded
 rate window from 299 to 100 epochs and its NCCL world of one, which now
 runs in this process instead of a spawned rank (whose start-up took about
-20 s).
+20 s). Phase 5s runs in 5r's spawn of ranks, so that it pays no start-up of
+its own; should the whole run pass its budget again, the cavity's epochs
+in 5s are cut first.
 
 Any failure ends the run with a non-zero exit code and no result line. The
 card's name and power limit and the kernel record come before the last
@@ -395,8 +418,16 @@ HEXAGRAM_HIDDEN, HEXAGRAM_DIRICHLET, HEXAGRAM_NEUMANN, HEXAGRAM_FALLBACKS = (100
 SHARD_RANKS, SHARD_EPOCHS, SHARD_COLL_EPOCHS, SHARD_SEED, SHARD_GRAD_TOL = 2, 300, 20, 0, 1e-5
 SHARD_LIMIT, SHARD_TIMEOUT, SHARD_CPU_THREADS, SHARD_RATE_EPOCHS = 0.03, 240, 2, 100
 WIDE_INPUTS = (9, 32, 32, 1)  # more inputs than one direction chunk: two chunks in one launch
+# the model axis (5s): the flagship (5r's config) and the primitive cavity (5e's config at full width, 16,384 points,
+# its anneal) on a (points, model) mesh of 2 model ranks, 2 gloo ranks on one card; the flagship over SHARD_EPOCHS
+# epochs from 5r's initialization and generator state, the cavity over MODEL_CAV_EPOCHS from 5e's seed. Per epoch
+# and rank the CPU rehearsal (cpu_rehearsal.py 5s) counts 5 taylor_mlp_1h launches for the flagship (one layer
+# pair, its 256 columns on each rank) and 1 taylor_mlp_1h and 2 taylor_mlp_streams for the cavity (three pairs);
+# the flagship's error limit is 5r's SHARD_LIMIT, about twice that rehearsal's errors over seeds 0-2 (1.4901e-2,
+# 1.5154e-2, 1.4915e-2, 5r's own; the JAX package on its (1, 2) mesh, 5s-jax: 1.4700e-2, 1.5194e-2, 1.5182e-2)
+MODEL_AXIS, MODEL_CAV_EPOCHS, MODEL_CAV_COLL_EPOCHS = 2, 20, 5
 PHASES = ('3', '3c', '3d', '4', '5a', '5b', '5c', '5d', '5e', '5f', '5g', '5h', '5i', '5j', '5k', '5l', '5m', '5n',
-          '5o', '5p', '5q', '5r', '6')
+          '5o', '5p', '5q', '5r', '5s', '6')
 EXTRA_PHASES = ('6b',)  # run only when named: a baseline that PERF.md records, too slow for every run
 WINDOW = 300  # epochs per timing window of a path's own fit
 # phase 6's own work, which checks nothing, cut when the whole run with the high-dimensional
@@ -414,6 +445,8 @@ F32, F64 = torch.float32, torch.float64
 CHECK_SHAPES = [  # (layer widths, activation, order, N)
     ((2, 512, 1), 'tanh', 2, 1024),
     ((2, 512, 1), 'tanh', 2, 512),  # one rank's block of the flagship's batch on 2 ranks, phase 5r
+    ((2, 256, 1), 'tanh', 2, 1024),  # one model rank's slice of the flagship on 2 model ranks, phase 5s
+    ((2, 64, 128), 'tanh', 2, 16384),  # one model rank's slice of the cavity's pair 0, phase 5s
     ((2, 64, 64, 1), 'tanh', 2, 1000),
     ((1, 32, 32, 1), 'sin', 1, 37),
     ((1, 32, 32, 1), 'sin', 2, 37),
@@ -461,9 +494,23 @@ TABLE_SHAPES = [  # (layer widths, activation, order, N, dtype timed in phase 6)
     ((1, 32, 32, 1), 'tanh', 1, 32, F32),    # ode.solve's default net, phase 5q
     ((1, 32, 32, 2), 'tanh', 1, 32, F32),    # ode.solve_system's shared default net, phase 5q
     ((2, 512, 1), 'tanh', 2, 512, F32),      # one rank's block of the flagship's batch on 2 ranks, phase 5r
+    ((2, 256, 1), 'tanh', 2, 1024, F32),     # one model rank's slice of the flagship on 2 model ranks, phase 5s
+    ((2, 64, 128), 'tanh', 2, 16384, F32),   # one model rank's slice of the cavity's pair 0, phase 5s
 ]
+# taylor_mlp_streams, phase 3 against its twin and phase 6 timed (the first three, float32): (stream width and
+# layer widths, directions d, activation, input activation, order, N)
+STREAM_SHAPES = [
+    ((128, 64, 128), 2, 'tanh', 'tanh', 2, 16384),  # one model rank's slice of the cavity's pair 1, phase 5s
+    ((128, 64, 3), 2, 'tanh', 'tanh', 2, 16384),    # its pair 2
+    ((32, 1), 2, 'tanh', 'tanh', 2, 1024),          # the default FCNN's trailing layer, whole on each model rank
+    ((128, 64, 128), 2, 'sin', 'sin', 1, 1024),     # order 1
+    ((32, 16, 32), 10, 'tanh', 'tanh', 2, 1000),    # d > 8: two direction chunks, the last shifted back
+    ((2800, 64, 1), 2, 'tanh', 'tanh', 2, 300),     # streams past shared memory: the global scratch
+    ((16, 16, 2), 3, 'sin', None, 2, 37),           # no input activation; ragged N
+]
+STREAM_TIMED = 3
 # the result line times taylor_mlp_1h at the flagship's shape and taylor_mlp at
-# the primitive cavity's, its heaviest path
+# the primitive cavity's, its heaviest path (taylor_mlp_streams at STREAM_SHAPES[0])
 RECORD_SHAPES = {'taylor_mlp_1h': ((2, 512, 1), 'tanh', 2, 1024, F32),
                  'taylor_mlp': ((2, 128, 128, 128, 128, 128, 3), 'tanh', 2, 16384, F32)}
 # nets at the edges of the kernels' reach, timed too: two and three direction
@@ -537,11 +584,43 @@ def taylor_cost(dims, actv, order, n, esize):
     return n * flops, nbytes
 
 
-def bound_ms(dims, actv, order, n, dtype):
-    """(least milliseconds the card could take, 'operations' or 'bytes')."""
-    flops, nbytes = taylor_cost(dims, actv, order, n, torch.finfo(dtype).bits // 8)
+def stream_cost(dims, d, actv, input_actv, order, n, esize):
+    """(floating-point operations, bytes) of one ``taylor_mlp_streams`` call
+    on ``(1 + order d, n, dims[0])`` input streams, as ``taylor_cost``
+    counts them: the input activation and every hidden unit's activation and
+    chain rule per point, 2 S h_in h_out per layer (S = 1 + order*d). Bytes:
+    the input streams, the parameters and the S outputs, each once."""
+    s = 1 + order * d
+    act = (1 + 4) if actv == 'tanh' else (2 + 1)
+    chain = 5 * d if order == 2 else d
+    params = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+    flops = dims[0] * (act + chain) if input_actv else 0
+    for h_in, h_out in zip(dims[:-2], dims[1:-1]):
+        flops += 2 * s * h_in * h_out + h_out * (act + chain)
+    flops += 2 * s * dims[-2] * dims[-1]
+    return n * flops, esize * (n * s * (dims[0] + dims[-1]) + params)
+
+
+def bound_ms(dims, actv, order, n, dtype, cost=None):
+    """(least milliseconds the card could take, 'operations' or 'bytes');
+    ``cost``: (operations, bytes) given, else ``taylor_cost``'s."""
+    flops, nbytes = cost or taylor_cost(dims, actv, order, n, torch.finfo(dtype).bits // 8)
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
+
+
+def stream_inputs(dims, d, order, n, dtype, seed):
+    """Input streams ``(1 + order d, n, dims[0])`` in [-1, 1) and layers on
+    the card, as ``inputs`` makes them."""
+    g = torch.Generator().manual_seed(200 + seed)
+    streams = (torch.rand(1 + order * d, n, dims[0], generator=g, dtype=F64) * 2 - 1).to('cuda', dtype)
+    return streams, [(W.t().contiguous().to('cuda', dtype).t(), b.to('cuda', dtype))
+                     for W, b in random_layers(dims, seed)]
+
+
+def stream_name(dims, d, actv, input_actv, order, n, dtype=None):
+    dt = f"{str(dtype)[6:]} " if dtype is not None else ''
+    return f"{dt}streams d={d} {'-'.join(map(str, dims))} {actv} (input {input_actv}) order {order} N={n}"
 
 
 def flagship_solver(**kwargs):
@@ -738,13 +817,14 @@ def cavity_problem(form):
     return conds, equations, weights
 
 
-def cavity_solver(form, anneal):
+def cavity_solver(form, anneal, **kwargs):
     """The deep cavity of ``form`` through ``Solver2D`` on the port's defaults
     (cuda, float32): one FCNN 2-(128x5)-n shared by the conditions,
     ``Generator1D(16384, 'uniform') * Generator1D(16384, 'uniform')``, no
     validation batches, Adam under the cosine anneal 1e-3 -> 1e-5 over
-    ``anneal`` epochs as a ``LambdaLR``. Returns the solver and a callback
-    that steps the schedule once per epoch."""
+    ``anneal`` epochs as a ``LambdaLR``; ``kwargs`` go to ``Solver2D``.
+    Returns the solver and a callback that steps the schedule once per
+    epoch."""
     from neurodiffeq_tpu_torch.generators import Generator1D, Generator2D
     from neurodiffeq_tpu_torch.networks import FCNN
     from neurodiffeq_tpu_torch.solvers import Solver2D
@@ -756,7 +836,7 @@ def cavity_solver(form, anneal):
         train_generator=Generator1D(CAV_POINTS, 0.0, 1.0, method='uniform') * Generator1D(
             CAV_POINTS, 0.0, 1.0, method='uniform'),
         valid_generator=Generator2D((32, 32), (0, 0), (1, 1), method='equally-spaced'),
-        n_batches_valid=0, residual_weights=weights)
+        n_batches_valid=0, residual_weights=weights, **kwargs)
     alpha = 1e-2
     sched = torch.optim.lr_scheduler.LambdaLR(
         solver.optimizer, lambda k: alpha + (1 - alpha) * 0.5 * (1 + math.cos(math.pi * min(k, anneal) / anneal)))
@@ -811,21 +891,9 @@ def run_cavity(F, taylor_mlp):
     fit_s, launches, fallbacks, rates = fit_path(F, taylor_mlp, solver, CAV_EPOCHS, [step_schedule], windowed=True)
     hist = solver.metrics_history['train_loss']
     early, late = float(np.mean(hist[:100])), float(np.mean(hist[-100:]))
-    s = np.linspace(0, 1, 101).astype(np.float32).astype(np.float64)  # the float32 points, exactly
-    zeros, ones = np.zeros_like(s), np.ones_like(s)
-    sol = solver.get_solution()
-    walls = [sol(xs, ys, to_numpy=True) for xs, ys in ((zeros, s), (ones, s), (s, zeros), (s, ones))]
-    wall_err = max(float(np.abs(w[k]).max()) for w in walls[:3] for k in (0, 1))
-    lid_want = (1 - np.exp(-50.0 * s)) * (1 - np.exp(50.0 * (s - 1)))
-    lid_err = max(float(np.abs(walls[3][0] - lid_want).max()), float(np.abs(walls[3][1]).max()))
-    gauge_err = max(float(np.abs(walls[0][2]).max()), float(np.abs(walls[2][2]).max()))
+    wall_err, lid_err, gauge_err = cavity_walls(solver)
     checks = launch_checks(launches, fallbacks, 1, CAV_EPOCHS)
-    checks.update({
-        'loss fell': late < early,
-        'u = v = 0 on the walls to 1e-6': wall_err <= 1e-6,
-        'u = u_lid, v = 0 on the lid to 2e-6': lid_err <= 2e-6,
-        'p(0, y) = p(x, 0) = 0 to 1e-6': gauge_err <= 1e-6,
-    })
+    checks.update({'loss fell': late < early, **wall_checks(wall_err, lid_err, gauge_err)})
     report('5e primitive cavity',
            f"Solver2D FCNN 2-(128x5)-3 shared by 3 conditions, {CAV_POINTS} uniform points, fit({CAV_EPOCHS}) of "
            f"the {CAV_ANNEAL}-epoch anneal, float32, in {fit_s:.1f} s ({CAV_EPOCHS / fit_s:.1f} epochs/s, no "
@@ -834,6 +902,26 @@ def run_cavity(F, taylor_mlp):
            f"net: max |u|, |v| on the walls {wall_err:.2e}, lid error {lid_err:.2e}, max |p| on x = 0 and y = 0 "
            f"{gauge_err:.2e}", checks, "primitive cavity check failed")
     return launches, solver, step_schedule, rates
+
+
+def cavity_walls(solver):
+    """The primitive cavity's trained solution on its boundary: (max |u|,
+    |v| on the walls, the lid's error in u and max |v| there, max |p| on x
+    = 0 and y = 0)."""
+    s = np.linspace(0, 1, 101).astype(np.float32).astype(np.float64)  # the float32 points, exactly
+    zeros, ones = np.zeros_like(s), np.ones_like(s)
+    sol = solver.get_solution()
+    walls = [sol(xs, ys, to_numpy=True) for xs, ys in ((zeros, s), (ones, s), (s, zeros), (s, ones))]
+    wall_err = max(float(np.abs(w[k]).max()) for w in walls[:3] for k in (0, 1))
+    lid_want = (1 - np.exp(-50.0 * s)) * (1 - np.exp(50.0 * (s - 1)))
+    lid_err = max(float(np.abs(walls[3][0] - lid_want).max()), float(np.abs(walls[3][1]).max()))
+    gauge_err = max(float(np.abs(walls[0][2]).max()), float(np.abs(walls[2][2]).max()))
+    return wall_err, lid_err, gauge_err
+
+
+def wall_checks(wall_err, lid_err, gauge_err):
+    return {'u = v = 0 on the walls to 1e-6': wall_err <= 1e-6, 'u = u_lid, v = 0 on the lid to 2e-6': lid_err <= 2e-6,
+            'p(0, y) = p(x, 0) = 0 to 1e-6': gauge_err <= 1e-6}
 
 
 def psi_velocities(solver, xs, ys):
@@ -959,7 +1047,7 @@ def check_wide_inputs(F, taylor_mlp):
         want = torch.stack([torch.autograd.grad(g[:, i].sum(), leaf, retain_graph=True)[0][:, i]
                             for i in range(d)] + [g[:, i] for i in range(d)]).detach()
         err = rel_err(got, want)
-        ok = (launched == {'taylor_mlp_1h': 0, 'taylor_mlp': 1}
+        ok = (launched == {'taylor_mlp_1h': 0, 'taylor_mlp': 1, 'taylor_mlp_streams': 0}
               and F.taylor_fallback_count() == 0 and err <= TOL[dtype])
         phase('3 kernel', f"{str(dtype)[6:]} FCNN {'-'.join(map(str, WIDE_INPUTS))} tanh order 2 N=1000 through "
                           f"GenericSolver._forward: launches {launched}, u_xx and u_x on the {d} axes against "
@@ -1605,7 +1693,8 @@ def check_highdim_laplacian(F, taylor_mlp):
             (u,), xs = solver._forward(cols)
             want = O.laplacian(u, *xs).value
         err = rel_err(got, want)
-        ok = launched == {'taylor_mlp_1h': 0, 'taylor_mlp': 1} and fallbacks == 0 and err <= TOL[dtype]
+        ok = (launched == {'taylor_mlp_1h': 0, 'taylor_mlp': 1, 'taylor_mlp_streams': 0} and fallbacks == 0
+              and err <= TOL[dtype])
         phase('3d high-dimensional', f"{str(dtype)[6:]} exact laplacian of FCNN 100-64-64-1 sin under DirichletBoxND "
                                      f"(sat) through GenericSolver._forward, N={HD_POINTS}: launches {launched}, "
                                      f"{fallbacks} fallbacks, against double backward rel err {err:.2e} (limit "
@@ -1995,6 +2084,57 @@ def check_kernels(fcnn_taylor, fcnn_taylor_reference):
                 errors[(dims, actv, order, n, dtype)] = max(
                     (a - b).abs().max().item() for a, b in zip(got, want))
     return errors
+
+
+def check_streams(taylor_mlp):
+    """Phase 3: ``taylor_mlp_streams`` against its twin at every shape of
+    ``STREAM_SHAPES``, float64 and float32, two launches bitwise equal;
+    {(shape, dtype): max abs error}, or SystemExit at the first
+    disagreement."""
+    errors = {}
+    with torch.no_grad():
+        for dtype in (F64, F32):
+            for i, shape in enumerate(STREAM_SHAPES):
+                dims, d, actv, input_actv, order, n = shape
+                streams, layers = stream_inputs(dims, d, order, n, dtype, seed=i)
+                got = taylor_mlp.fcnn_taylor_streams(streams, layers, order, actv, input_actv)
+                again = taylor_mlp.fcnn_taylor_streams(streams, layers, order, actv, input_actv)
+                torch.cuda.synchronize()
+                want = taylor_mlp.fcnn_taylor_streams_reference(streams, layers, order, actv, input_actv)
+                torch.cuda.synchronize()
+                errs = [rel_err(a, b) for a, b in zip(got, want)]
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                ok = len(got) == order + 1 and all(a.shape == b.shape for a, b in zip(got, want))
+                ok = ok and same and all(e <= TOL[dtype] for e in errs)
+                phase('3 kernel', f"{stream_name(*shape, dtype)}: rel err {' '.join(f'{e:.2e}' for e in errs)} "
+                                  f"(limit {TOL[dtype]:.0e}), two launches {'bitwise equal' if same else 'DIFFER'} "
+                                  f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit("chip_smoke: taylor_mlp_streams disagrees with its twin or with itself")
+                errors[(shape, dtype)] = max((a - b).abs().max().item() for a, b in zip(got, want))
+    return errors
+
+
+def time_streams(card, taylor_mlp):
+    """Phase 6: {shape: (kernel us, twin us, bound ms, bound_by)} of
+    ``taylor_mlp_streams`` at the first ``STREAM_TIMED`` shapes of
+    ``STREAM_SHAPES`` in float32."""
+    out = {}
+    with torch.no_grad():
+        for i, shape in enumerate(STREAM_SHAPES[:STREAM_TIMED]):
+            dims, d, actv, input_actv, order, n = shape
+            streams, layers = stream_inputs(dims, d, order, n, F32, seed=50 + i)
+            k_us, k_launches = device_us(lambda: taylor_mlp.fcnn_taylor_streams(streams, layers, order, actv,
+                                                                                input_actv), calls=SHAPE_CALLS)
+            t_us, t_launches = device_us(lambda: taylor_mlp.fcnn_taylor_streams_reference(
+                streams, layers, order, actv, input_actv), calls=SHAPE_CALLS)
+            b_ms, b_by = bound_ms(dims, actv, order, n, F32, stream_cost(dims, d, actv, input_actv, order, n, 4))
+            out[shape] = (k_us, t_us, b_ms, b_by)
+            phase('6 timing', f"{card}: {stream_name(*shape, F32)}: device time per call (profiler) kernel "
+                              f"{k_us:.2f} us in {k_launches:.0f} launches, twin {t_us:.2f} us in {t_launches:.0f} "
+                              f"launches; bound {b_ms * 1e3:.3f} us ({b_by}), kernel at {b_ms * 1e3 / k_us:.1%} of "
+                              f"the bound")
+    return out
 
 
 def time_shapes(card, taylor_mlp):
@@ -2679,13 +2819,87 @@ def run_legacy(F, taylor_mlp):
     return total, timed
 
 
-def shard_rank(backend, devices, init, rng_state, epochs, hd):
-    """Phase 5r, one rank of the mesh (``neurodiffeq_tpu_torch.parallel.launch``
-    runs it): the flagship on ``make_mesh(devices=devices, backend=backend)``
+def timed_collective(name, sync, spent, group=None):
+    """Replace ``torch.distributed.<name>`` by a version that synchronizes
+    and adds its seconds and one call to ``spent`` (of the calls on
+    ``group`` only, if given); returns a function that restores it."""
+    original = getattr(torch.distributed, name)
+
+    def run(*args, **kwargs):
+        if group is not None and kwargs.get('group') is not group:
+            return original(*args, **kwargs)
+        sync()
+        t1 = time.perf_counter()
+        result = original(*args, **kwargs)
+        sync()
+        spent[0] += time.perf_counter() - t1
+        spent[1] += 1
+        return result
+
+    setattr(torch.distributed, name, run)
+    return lambda: setattr(torch.distributed, name, original)
+
+
+def model_rank(backend, devices, flagship, cavity, sync):
+    """Phase 5s in one rank: ``make_mesh(model_axis_size=MODEL_AXIS)`` over
+    the ranks, and on it the flagship from ``flagship = (parameters,
+    generator state, epochs)`` and the primitive cavity from ``cavity``
+    (the same for it): each one's first epoch (loss
+    and gradients), launches and fallbacks, history, and the seconds of the
+    model group's ``all_reduce`` calls over its last epochs (synchronized);
+    the flagship's error and the cavity's walls."""
+    from neurodiffeq_tpu_torch import fields as F
+    from neurodiffeq_tpu_torch.ops import taylor_mlp
+    from neurodiffeq_tpu_torch.parallel import make_mesh
+    from neurodiffeq_tpu_torch.parallel.sharding import mesh_axes
+    from neurodiffeq_tpu_torch.utils import get_default_device
+
+    mesh = make_mesh(devices=devices, backend=backend, model_axis_size=MODEL_AXIS)
+    axes, dev = mesh_axes(mesh), get_default_device()
+    out = {'index': (tuple(mesh.mesh_dim_names), axes.points.get_local_rank(), axes.model.get_local_rank())}
+    runs = (('flagship', lambda **kw: (flagship_solver(**kw), []), flagship, SHARD_COLL_EPOCHS),
+            ('cavity', lambda **kw: (lambda s, step: (s, [step]))(*cavity_solver('primitive', CAV_ANNEAL, **kw)),
+             cavity, MODEL_CAV_COLL_EPOCHS))
+    for name, build, (init, rng_state, epochs), coll in runs:
+        gen = torch.Generator(device=dev)
+        gen.set_state(rng_state)
+        solver, callbacks = build(mesh=mesh, generator=gen)
+        solver.nets[0].load_state_dict(init)
+        F.reset_taylor_fallback_count()
+        taylor_mlp.reset_launches()
+        solver.fit(1, callbacks=callbacks, tqdm_file=None)
+        first = (solver.metrics_history['train_loss'][0],
+                 [p.grad.detach().cpu().numpy() for p in solver._parameters()])
+        coll = min(coll, epochs - 1)
+        solver.fit(epochs - 1 - coll, callbacks=callbacks, tqdm_file=None)
+        spent = [0.0, 0]
+        restore = timed_collective('all_reduce', sync, spent, axes.model.get_group())
+        try:
+            solver.fit(coll, callbacks=callbacks, tqdm_file=None)
+        finally:
+            restore()
+        run = {'first': first, 'launches': dict(taylor_mlp.LAUNCHES), 'fallbacks': F.taylor_fallback_count(),
+               'history': list(solver.metrics_history['train_loss']),
+               'model_ms': (spent[0] / max(coll, 1) * 1e3, spent[1] / max(coll, 1))}
+        if name == 'flagship':
+            xs, ys = np.meshgrid(np.linspace(0, 1, 101), np.linspace(0, 1, 101))
+            exact = np.sin(np.pi * xs) * np.sinh(np.pi * (1 - ys)) / np.sinh(np.pi)
+            run['error'] = float(np.abs(solver.get_solution()(xs, ys, to_numpy=True) - exact).max())
+        else:
+            run['walls'] = cavity_walls(solver)
+        out[name] = run
+    return out
+
+
+def shard_rank(backend, devices, init, rng_state, epochs, hd, model=None):
+    """Phases 5r and 5s, one rank of the mesh (``neurodiffeq_tpu_torch.parallel.launch``
+    runs it). With ``epochs`` (5r): the flagship on ``make_mesh(devices=devices, backend=backend)``
     from the parameters ``init`` and the generator state ``rng_state``,
     ``fit(1)`` and then ``fit(epochs - 1)``, the last ``SHARD_COLL_EPOCHS``
     of them with every collective synchronized and timed; and, with ``hd =
-    (points, parameters)``, one batch of 5m's d = 100 problem. Returns what
+    (points, parameters)``, one batch of 5m's d = 100 problem. With
+    ``model = (flagship epochs, cavity parameters, cavity generator state,
+    cavity epochs)`` (5s): ``model_rank`` over the same ranks. Returns what
     the parent checks."""
     from neurodiffeq_tpu_torch import fields as F, operators as O
     from neurodiffeq_tpu_torch.ops import taylor_mlp
@@ -2703,47 +2917,36 @@ def shard_rank(backend, devices, init, rng_state, epochs, hd):
         cpu_rehearsal.counted(taylor_mlp)
     out = {'rank': mesh.get_local_rank(), 'world': mesh.size(), 'device': str(dev),
            'imports JAX': any(m in sys.modules for m in ('jax', 'neurodiffeq_tpu'))}
-    gen = torch.Generator(device=dev)
-    gen.set_state(rng_state)
-    solver = flagship_solver(mesh=mesh, generator=gen)
-    solver.nets[0].load_state_dict(init)
-    F.reset_taylor_fallback_count()
-    taylor_mlp.reset_launches()
-    solver.fit(1, tqdm_file=None)
-    out['first'] = (solver.metrics_history['train_loss'][0],
-                    [p.grad.detach().cpu().numpy() for p in solver._parameters()])
-    main = max(epochs - 1 - SHARD_COLL_EPOCHS, 0)
-    sync()
-    t0 = time.perf_counter()
-    solver.fit(main, tqdm_file=None)
-    sync()
-    out['rate'] = main / (time.perf_counter() - t0) if main else float('nan')
-    spent = [0.0, 0]
-
-    def timed(op):
-        def run(*args, **kwargs):
-            sync()
-            t1 = time.perf_counter()
-            result = op(*args, **kwargs)
-            sync()
-            spent[0] += time.perf_counter() - t1
-            spent[1] += 1
-            return result
-        return run
-
-    coll = epochs - 1 - main
-    originals = torch.distributed.all_reduce, torch.distributed.broadcast
-    torch.distributed.all_reduce, torch.distributed.broadcast = map(timed, originals)
-    try:
-        solver.fit(coll, tqdm_file=None)
-    finally:
-        torch.distributed.all_reduce, torch.distributed.broadcast = originals
-    out['collectives'] = (spent[0] / max(coll, 1) * 1e3, spent[1] / max(coll, 1))
-    out['launches'], out['fallbacks'] = dict(taylor_mlp.LAUNCHES), F.taylor_fallback_count()
-    out['history'] = list(solver.metrics_history['train_loss'])
-    xs, ys = np.meshgrid(np.linspace(0, 1, 101), np.linspace(0, 1, 101))
-    exact = np.sin(np.pi * xs) * np.sinh(np.pi * (1 - ys)) / np.sinh(np.pi)
-    out['error'] = float(np.abs(solver.get_solution()(xs, ys, to_numpy=True) - exact).max())
+    if epochs:
+        gen = torch.Generator(device=dev)
+        gen.set_state(rng_state)
+        solver = flagship_solver(mesh=mesh, generator=gen)
+        solver.nets[0].load_state_dict(init)
+        F.reset_taylor_fallback_count()
+        taylor_mlp.reset_launches()
+        solver.fit(1, tqdm_file=None)
+        out['first'] = (solver.metrics_history['train_loss'][0],
+                        [p.grad.detach().cpu().numpy() for p in solver._parameters()])
+        main = max(epochs - 1 - SHARD_COLL_EPOCHS, 0)
+        sync()
+        t0 = time.perf_counter()
+        solver.fit(main, tqdm_file=None)
+        sync()
+        out['rate'] = main / (time.perf_counter() - t0) if main else float('nan')
+        spent = [0.0, 0]
+        coll = epochs - 1 - main
+        restore = [timed_collective(name, sync, spent) for name in ('all_reduce', 'broadcast')]
+        try:
+            solver.fit(coll, tqdm_file=None)
+        finally:
+            for undo in restore:
+                undo()
+        out['collectives'] = (spent[0] / max(coll, 1) * 1e3, spent[1] / max(coll, 1))
+        out['launches'], out['fallbacks'] = dict(taylor_mlp.LAUNCHES), F.taylor_fallback_count()
+        out['history'] = list(solver.metrics_history['train_loss'])
+        xs, ys = np.meshgrid(np.linspace(0, 1, 101), np.linspace(0, 1, 101))
+        exact = np.sin(np.pi * xs) * np.sinh(np.pi * (1 - ys)) / np.sinh(np.pi)
+        out['error'] = float(np.abs(solver.get_solution()(xs, ys, to_numpy=True) - exact).max())
     if hd is not None:
         points, params = hd
         hd_solver = highdim_solver(100, 'stde', mesh=mesh)
@@ -2757,6 +2960,8 @@ def shard_rank(backend, devices, init, rng_state, epochs, hd):
                                 (shard.hi - shard.lo, HD_N_EST, 100), shard)
         out['hd'] = (loss, [p.grad.detach().cpu().numpy() for p in hd_solver._parameters()], shard.lo, shard.hi,
                      probes.cpu().numpy())
+    if model is not None:
+        out['model'] = model_rank(backend, devices, (init, rng_state, model[0]), model[1:], sync)
     return out
 
 
@@ -2782,20 +2987,22 @@ def one_nccl_rank(init, rng_state):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def run_sharded(F, taylor_mlp, card='the CPU'):
-    """Phase 5r: the data-parallel slice. The flagship (5a's config, FCNN
-    2-512-1 tanh on 32 x 32 points) on a mesh over the points: 2 ranks on
-    one card over gloo, or one rank per card over NCCL (at most 4) where
-    there are more; on the CPU (the rehearsal) 2 gloo ranks. From one
-    initialization and one generator state the first epoch's loss and
-    every gradient must equal the unsharded run's to ``SHARD_GRAD_TOL``,
-    each rank must launch ``taylor_mlp_1h`` 5 times per epoch (its block of
-    each of 5 batches) with no fallback, the histories of all ranks must be
-    equal, the loss must fall over ``SHARD_EPOCHS`` and the error against
-    the analytic solution stay below ``SHARD_LIMIT``; 5m's d = 100 batch
-    gives every rank its rows of the unsharded probes bit for bit and the
-    unsharded loss and gradients; one NCCL rank must equal the unsharded
-    first epoch bitwise. Returns the launches summed over the ranks."""
+def run_sharded(F, taylor_mlp, card='the CPU', chosen=('5r', '5s')):
+    """Phases 5r and 5s in one spawn of ranks. 5r, the data-parallel slice:
+    the flagship (5a's config, FCNN 2-512-1 tanh on 32 x 32 points) on a
+    mesh over the points: 2 ranks on one card over gloo, or one rank per
+    card over NCCL (2 or 4) where there are more; on the CPU (the
+    rehearsal) 2 gloo ranks. From one initialization and one generator
+    state the first epoch's loss and every gradient must equal the
+    unsharded run's to ``SHARD_GRAD_TOL``, each rank must launch
+    ``taylor_mlp_1h`` 5 times per epoch (its block of each of 5 batches)
+    with no fallback, the histories of all ranks must be equal, the loss
+    must fall over ``SHARD_EPOCHS`` and the error against the analytic
+    solution stay below ``SHARD_LIMIT``; 5m's d = 100 batch gives every rank
+    its rows of the unsharded probes bit for bit and the unsharded loss and
+    gradients; one NCCL rank must equal the unsharded first epoch bitwise.
+    5s, the model axis (:func:`run_model_axis`), over the same ranks.
+    Returns ``{phase: launches summed over the ranks}``."""
     from neurodiffeq_tpu_torch import operators as O
     from neurodiffeq_tpu_torch.parallel import launch
     from neurodiffeq_tpu_torch.utils import get_default_device, set_seed
@@ -2805,26 +3012,46 @@ def run_sharded(F, taylor_mlp, card='the CPU'):
     if dev.type == 'cpu':
         backend, world, devices = 'gloo', SHARD_RANKS, 'cpu'
     elif cards >= 2:
-        backend, world, devices = 'nccl', min(cards, 4), None
+        backend, world, devices = 'nccl', min(cards, 4) // 2 * 2, None
     else:
         backend, world, devices = 'gloo', SHARD_RANKS, 'cuda:0'
     sync = torch.cuda.synchronize if dev.type == 'cuda' else (lambda: None)
+    points_axis, model_axis = '5r' in chosen, '5s' in chosen
+    hd = model = None
+    if model_axis:  # first: the seed set last is the STDE probes' (utils.seed_value), the ranks' SHARD_SEED
+        set_seed(4)  # 5e's
+        cav_ref, cav_step = cavity_solver('primitive', CAV_ANNEAL)
+        model = (SHARD_EPOCHS, {k: v.detach().cpu().clone() for k, v in cav_ref.nets[0].state_dict().items()},
+                 cav_ref.rng.get_state(), MODEL_CAV_EPOCHS)
     set_seed(SHARD_SEED)
     ref = flagship_solver()
     init = {k: v.detach().cpu().clone() for k, v in ref.nets[0].state_dict().items()}
     rng_state = ref.rng.get_state()
-    hd_ref = highdim_solver(100, 'stde')
-    hd_init = {k: v.detach().cpu().clone() for k, v in hd_ref.nets[0].state_dict().items()}
-    points = torch.rand(HD_POINTS, 100, generator=torch.Generator().manual_seed(SHARD_SEED), dtype=F32)
+    if points_axis:
+        hd_ref = highdim_solver(100, 'stde')
+        hd_init = {k: v.detach().cpu().clone() for k, v in hd_ref.nets[0].state_dict().items()}
+        points = torch.rand(HD_POINTS, 100, generator=torch.Generator().manual_seed(SHARD_SEED), dtype=F32)
+        hd = (points.numpy(), hd_init)
     t0 = time.perf_counter()
     # the mesh's ranks alone on the card: the rates they report are theirs
     outs = launch(shard_rank, world, backend=backend, device_type=dev.type, timeout=SHARD_TIMEOUT,
-                  args=(backend, devices, init, rng_state, SHARD_EPOCHS, (points.numpy(), hd_init)),
+                  args=(backend, devices, init, rng_state, SHARD_EPOCHS if points_axis else 0, hd, model),
                   num_threads=SHARD_CPU_THREADS if dev.type == 'cpu' else None)
     launch_s = time.perf_counter() - t0
-    # the unsharded run from the same state
+    # the unsharded runs from the same states
     ref.fit(1, tqdm_file=None)
     first = (ref.metrics_history['train_loss'][0], [p.grad.detach().cpu().numpy() for p in ref._parameters()])
+    checks = {f'{world} ranks over {backend}': [o['world'] for o in outs] == [world] * world,
+              'no rank imported JAX': not any(o['imports JAX'] for o in outs)}
+    totals = {}
+    if model_axis:
+        cav_ref.fit(1, callbacks=[cav_step], tqdm_file=None)
+        cav_first = (cav_ref.metrics_history['train_loss'][0],
+                     [p.grad.detach().cpu().numpy() for p in cav_ref._parameters()])
+        totals['5s'] = run_model_axis(taylor_mlp, card, [o['model'] for o in outs], first, cav_first, backend, world,
+                                      launch_s, checks)
+    if not points_axis:
+        return totals
     sync()
     t0 = time.perf_counter()
     ref.fit(SHARD_RATE_EPOCHS, tqdm_file=None)
@@ -2837,10 +3064,6 @@ def run_sharded(F, taylor_mlp, card='the CPU'):
     hd_first = (share.item(), [p.grad.detach().cpu().numpy() for p in hd_ref._parameters()])
     probes = O._stde_probes(pts, range(100), HD_N_EST, 0, 2, (HD_POINTS, HD_N_EST, 100)).cpu().numpy()
 
-    def rel(a, b):
-        return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max()
-                     / max(np.abs(np.asarray(b, np.float64)).max(), 1e-300))
-
     first_err = max([rel(o['first'][0], first[0]) for o in outs]
                     + [rel(g, h) for o in outs for g, h in zip(o['first'][1], first[1])])
     hd_err = max([rel(o['hd'][0], hd_first[0]) for o in outs]
@@ -2849,9 +3072,7 @@ def run_sharded(F, taylor_mlp, card='the CPU'):
     hist = outs[0]['history']
     early, late = float(np.mean(hist[:10])), float(np.mean(hist[-10:]))
     total = {k: sum(o['launches'][k] for o in outs) for k in taylor_mlp.LAUNCHES}
-    checks = {
-        f'{world} ranks over {backend}': [o['world'] for o in outs] == [world] * world,
-        'no rank imported JAX': not any(o['imports JAX'] for o in outs),
+    checks.update({
         f'first-epoch loss and gradients within {SHARD_GRAD_TOL} of unsharded': first_err < SHARD_GRAD_TOL,
         'taylor_mlp_1h 5 per epoch per rank': all(o['launches']['taylor_mlp_1h'] == 5 * SHARD_EPOCHS
                                                  and o['launches']['taylor_mlp'] == 0 for o in outs),
@@ -2861,7 +3082,7 @@ def run_sharded(F, taylor_mlp, card='the CPU'):
         f'max error < {SHARD_LIMIT}': all(np.isfinite(o['error']) and o['error'] < SHARD_LIMIT for o in outs),
         'd = 100 probes bit for bit': all(np.array_equal(o['hd'][4], probes[o['hd'][2]:o['hd'][3]]) for o in outs),
         f'd = 100 loss and gradients within {SHARD_GRAD_TOL}': hd_err < SHARD_GRAD_TOL,
-    }
+    })
     note = ''
     if one is not None:
         checks['one NCCL rank bitwise unsharded'] = (one['first'][0] == first[0] and all(
@@ -2875,13 +3096,74 @@ def run_sharded(F, taylor_mlp, card='the CPU'):
     phase('5r rates', f"{card}: flagship 2-512-1 N = {GRID[0] * GRID[1]} per batch over {world} {backend} ranks "
                       f"({devices or 'one card each'}; each rank's compute and collectives on its own device): "
                       f"{rates}; unsharded {ref_rate:.2f} epochs/s in one process ({scope})")
-    report('5r sharded', f"{world} ranks over {backend} in {launch_s:.1f} s: launches per epoch per rank "
-                         f"{' '.join(f'{r:.2f}' for r in per_epoch)} (taylor_mlp_1h), fallbacks "
+    report('5r sharded', f"{world} ranks over {backend} in {launch_s:.1f} s (with 5s where it runs): launches per "
+                         f"epoch per rank {' '.join(f'{r:.2f}' for r in per_epoch)} (taylor_mlp_1h), fallbacks "
                          f"{[o['fallbacks'] for o in outs]}, first epoch's loss and gradients against unsharded "
                          f"{first_err:.2e} (relative), d = 100 stde batch {hd_err:.2e}; {SHARD_EPOCHS} epochs: train "
                          f"loss mean {early:.3e} (first 10) -> {late:.3e} (last 10), max |u - exact| on 101x101 "
                          f"{outs[0]['error']:.4e}{note}", checks, "sharded flagship check failed")
-    return total
+    totals['5r'] = total
+    return totals
+
+
+def rel(a, b):
+    """max |a - b| / max |b| of two arrays (or numbers), in float64."""
+    return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max()
+                 / max(np.abs(np.asarray(b, np.float64)).max(), 1e-300))
+
+
+def run_model_axis(taylor_mlp, card, outs, first, cav_first, backend, world, launch_s, checks):
+    """Phase 5s's checks on the ranks' ``model_rank`` results ``outs``: on
+    the ``(world // 2, 2)`` mesh the flagship's and the cavity's first
+    epochs within ``SHARD_GRAD_TOL`` of the unsharded runs' (``first``,
+    ``cav_first``), the rehearsal's launches per epoch and rank with no
+    fallback, every rank the same histories, falling losses, the flagship's
+    error below ``SHARD_LIMIT`` and the cavity's walls exact as 5e holds
+    them. Returns the launches summed over the ranks."""
+    flag, cav, checks = [o['flagship'] for o in outs], [o['cavity'] for o in outs], dict(checks)
+
+    def first_err(runs, want):
+        return max([rel(r['first'][0], want[0]) for r in runs]
+                   + [rel(g, h) for r in runs for g, h in zip(r['first'][1], want[1])])
+
+    def launches(runs, epochs, one_hidden, streams):
+        return all(r['launches'] == {'taylor_mlp_1h': one_hidden * epochs, 'taylor_mlp': 0,
+                                     'taylor_mlp_streams': streams * epochs} for r in runs)
+
+    def fell(hist, k):
+        return float(np.mean(hist[-k:])) < float(np.mean(hist[:k]))
+
+    flag_err, cav_err = first_err(flag, first), first_err(cav, cav_first)
+    walls = [max(w) for w in zip(*[r['walls'] for r in cav])]
+    checks.update({
+        f"a ({world // MODEL_AXIS}, {MODEL_AXIS}) mesh": sorted(o['index'] for o in outs) == sorted(
+            (('points', 'model'), p, q) for p in range(world // MODEL_AXIS) for q in range(MODEL_AXIS)),
+        f'flagship first epoch within {SHARD_GRAD_TOL} of unsharded': flag_err < SHARD_GRAD_TOL,
+        'flagship: taylor_mlp_1h 5 per epoch per rank': launches(flag, SHARD_EPOCHS, 5, 0),
+        f'cavity first epoch within {SHARD_GRAD_TOL} of unsharded': cav_err < SHARD_GRAD_TOL,
+        'cavity: 1 taylor_mlp_1h and 2 taylor_mlp_streams per epoch per rank': launches(cav, MODEL_CAV_EPOCHS, 1, 2),
+        'no Taylor fallback': all(r['fallbacks'] == 0 for r in flag + cav),
+        'every rank the same histories': all(r['history'] == flag[0]['history'] for r in flag)
+        and all(r['history'] == cav[0]['history'] for r in cav),
+        'losses fell': fell(flag[0]['history'], 10) and fell(cav[0]['history'], 5),
+        f'flagship max error < {SHARD_LIMIT}': all(np.isfinite(r['error']) and r['error'] < SHARD_LIMIT for r in flag),
+        **wall_checks(*walls),
+    })
+    hist, chist = flag[0]['history'], cav[0]['history']
+    coll = '; '.join(name + ' ' + ' '.join(f"{r['model_ms'][0]:.3f}" for r in runs) + f" ms in "
+                     f"{runs[0]['model_ms'][1]:.0f} calls" for name, runs in (('flagship', flag), ('cavity', cav)))
+    report('5s model axis', f"{card}: {world} {backend} ranks, mesh ({world // MODEL_AXIS}, {MODEL_AXIS}), in "
+                            f"{launch_s:.1f} s (with 5r where it runs): first epoch's loss and gradients against "
+                            f"unsharded: flagship 2-512-1 {flag_err:.2e}, cavity 2-(128x5)-3 {cav_err:.2e} "
+                            f"(relative); launches per rank {flag[0]['launches']} in {SHARD_EPOCHS} flagship epochs, "
+                            f"{cav[0]['launches']} in {MODEL_CAV_EPOCHS} cavity epochs; fallbacks "
+                            f"{[r['fallbacks'] for r in flag + cav]}; train loss mean {np.mean(hist[:10]):.3e} (first "
+                            f"10) -> {np.mean(hist[-10:]):.3e} (last 10), flagship max |u - exact| on 101x101 "
+                            f"{flag[0]['error']:.4e}; cavity {np.mean(chist[:5]):.4e} (first 5) -> "
+                            f"{np.mean(chist[-5:]):.4e} (last 5), walls {walls[0]:.2e}, lid {walls[1]:.2e}, p "
+                            f"{walls[2]:.2e}; the model group's all_reduce per epoch, each rank (synchronized): {coll}",
+           checks, "model-axis check failed")
+    return {k: sum(r['launches'][k] for r in flag + cav) for k in taylor_mlp.LAUNCHES}
 
 
 def main():
@@ -2924,6 +3206,7 @@ def main():
     # ---- 3. kernels against the twin; SIREN against the plain engine; a wide input; mixed partials
     if '3' in chosen:
         errors = check_kernels(fcnn_taylor, fcnn_taylor_reference)
+        stream_errors = check_streams(taylor_mlp)
         check_siren()
         check_wide_inputs(F, taylor_mlp)
         check_mixed()
@@ -2971,12 +3254,13 @@ def main():
             paths[name] = out if name == '5g' else out[0]
             if name in labels:
                 timed[labels[name]] = out
-    if '5r' in chosen:
-        paths['5r'] = run_sharded(F, taylor_mlp, card)
+    if chosen & {'5r', '5s'}:  # one spawn of ranks for both
+        paths.update(run_sharded(F, taylor_mlp, card, chosen & {'5r', '5s'}))
 
     # ---- 6. timing
     if '6' in chosen:
         times = time_shapes(card, taylor_mlp)
+        stream_times = time_streams(card, taylor_mlp)
         time_end_to_end(card, taylor_mlp)
         time_epochs(card, 'Lotka-Volterra (train + 4 validation batches, 2 nets)', lv_solver())
         for dims in ((2,) + CAV_HIDDEN + (3,), (2,) + CAV_HIDDEN + (2,)):
@@ -2993,12 +3277,12 @@ def main():
     # ---- 7. result: launches summed over the paths of phase 5
     phase('7 result', f"launches per path: {paths}")
     record = {'kernels': []}
-    for name, key in RECORD_SHAPES.items():
-        launches = sum(p[name] for p in paths.values())
-        k_us, t_us, b_ms, b_by = times[key]
+    recorded = [(name, times[key], errors[key]) for name, key in RECORD_SHAPES.items()]
+    recorded.append(('taylor_mlp_streams', stream_times[STREAM_SHAPES[0]], stream_errors[(STREAM_SHAPES[0], F32)]))
+    for name, (k_us, t_us, b_ms, b_by), err in recorded:
         record['kernels'].append({
             'name': name, 'route': 'cuda', 'source': KERNEL_SOURCE, 'replaces': REPLACES,
-            'launches': launches, 'max_abs_err': errors[key], 'ms': k_us / 1e3,
+            'launches': sum(p.get(name, 0) for p in paths.values()), 'max_abs_err': err, 'ms': k_us / 1e3,
             'plain_ms': t_us / 1e3, 'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None})
     print(card)
     print(json.dumps(record))

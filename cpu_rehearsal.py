@@ -1,6 +1,6 @@
 """CPU rehearsal of ``chip_smoke.py``'s training phases.
 
-``python3 cpu_rehearsal.py [5l] [5m] [5n] [5a] [5g] [5d] [5i] [5o] [5o-jax] [5p] [5p-jax] [5q] [5q-jax] [5r] [5r-jax] [--epochs N] [--seed S]``
+``python3 cpu_rehearsal.py [5l] [5m] [5n] [5a] [5g] [5d] [5i] [5o] [5o-jax] [5p] [5p-jax] [5q] [5q-jax] [5r] [5r-jax] [5s] [5s-jax] [--epochs N] [--seed S]``
 trains the problems of phases 5l (d = 10 Poisson, exact laplacian), 5m
 (d = 100 Poisson, ``stde_laplacian``), 5n (d = 4 clamped plate, exact
 ``biharmonic``), 5a (the flagship, with its save, load, resume and
@@ -10,20 +10,23 @@ Dirichlet ends, then under ``h1``) and 5o
 callbacks), 5p (the temporal subsystem: heat, and the RE100 cavity
 through one FCNN 2-256-3) and 5q (the legacy ``ode``, ``pde`` and
 ``pde_spherical`` functions and the irregular-domain hexagram) and 5r (the
-flagship on a mesh of 2 gloo ranks, against the unsharded run), built by
+flagship on a mesh of 2 gloo ranks, against the unsharded run) and 5s (the
+flagship and the primitive cavity on a (1, 2) ``(points, model)`` mesh of
+2 gloo ranks, against the unsharded runs), built by
 the same functions of ``chip_smoke.py``, on the CPU in float32. ``5o-jax``
 runs the same arm through the JAX package (``benchmarks/balancing_ab.py``'s
 ``run_arm`` with its ``AutoResidualWeightCallback``, seed 11) for
 comparison, ``5p-jax`` and ``5q-jax`` the problems of 5p and of 5q (a)-(c)
 through the JAX package's ``temporal`` and legacy functions, ``5r-jax``
-the flagship on the JAX package's mesh of 2 virtual devices; only the
+the flagship on the JAX package's mesh of 2 virtual devices, ``5s-jax`` on
+its ``make_mesh(n_devices=2, model_axis_size=2)``; only the
 ``-jax`` arms import JAX. The Taylor-MLP entry point (``ops.taylor_mlp.fcnn_taylor``) is
 wrapped with a counter, each call counted as the kernel launch it is on the
-card. For 5l-5n it prints per phase the calls and the compose fallbacks per
+card (``fcnn_taylor_streams`` too). For 5l-5n it prints per phase the calls and the compose fallbacks per
 epoch, the first and last 100-epoch mean train loss, the relative L2 error
 against the analytic solution on 4,096 points, the boundary defect and the
-seconds (``--seed`` picks the seed of 5l, 5m, 5o, 5r and 5r-jax; 5o's default is its
-phase's 11); 5a, 5g, 5d, 5i, 5o, 5p, 5q and 5r run ``chip_smoke.py``'s own phase
+seconds (``--seed`` picks the seed of 5l, 5m, 5o, 5r, 5r-jax, 5s and 5s-jax; 5o's default is its
+phase's 11); 5a, 5g, 5d, 5i, 5o, 5p, 5q, 5r and 5s run ``chip_smoke.py``'s own phase
 function, which prints its lines of errors and checks. ``chip_smoke.py``'s limits on those errors are about twice what
 this gives at the same epochs, and its launch checks use the counts per
 epoch. Needs no GPU; the epochs default to the chip phases'.
@@ -40,15 +43,20 @@ import chip_smoke as cs
 def counted(taylor_mlp):
     """Wrap ``fcnn_taylor`` so that every call counts one launch of the kernel
     the card would run: ``taylor_mlp_1h`` for one hidden layer of at most
-    65,535 outputs, ``taylor_mlp`` otherwise."""
-    inner = taylor_mlp.fcnn_taylor
+    65,535 outputs, ``taylor_mlp`` otherwise; and ``fcnn_taylor_streams``,
+    ``taylor_mlp_streams``."""
+    inner, streams = taylor_mlp.fcnn_taylor, taylor_mlp.fcnn_taylor_streams
 
     def counting(points, layers, *args, **kwargs):
         one_hidden = len(layers) == 2 and layers[-1][1].shape[0] <= 65535
         taylor_mlp.LAUNCHES['taylor_mlp_1h' if one_hidden else 'taylor_mlp'] += 1
         return inner(points, layers, *args, **kwargs)
 
-    taylor_mlp.fcnn_taylor = counting
+    def counting_streams(*args, **kwargs):
+        taylor_mlp.LAUNCHES['taylor_mlp_streams'] += 1
+        return streams(*args, **kwargs)
+
+    taylor_mlp.fcnn_taylor, taylor_mlp.fcnn_taylor_streams = counting, counting_streams
     return inner
 
 
@@ -140,10 +148,12 @@ def rehearse_jax_legacy(epochs):
         print(f"5q-jax: {label}, {epochs or n} epochs on the CPU in {time.perf_counter() - t0:.1f} s: max error "
               f"{error(solution):.4e}", flush=True)
 
-def rehearse_jax_sharded(epochs, seed):
+def rehearse_jax_sharded(epochs, seed, model_axis_size=None):
     """5r's problem through the JAX package on its own mesh: the flagship
     (``__graft_entry__._flagship_solver``, FCNN 2-512-1 tanh on 32 x 32) with
-    ``mesh=make_mesh()`` over 2 virtual CPU devices, float32."""
+    ``mesh=make_mesh()`` over 2 virtual CPU devices, float32; 5s's with
+    ``make_mesh(n_devices=2, model_axis_size=2)``, a (1, 2) (points, model)
+    mesh."""
     import os
     os.environ['XLA_FLAGS'] = '--xla_force_host_platform_device_count=2'
     _jax_cpu()
@@ -152,14 +162,15 @@ def rehearse_jax_sharded(epochs, seed):
     from neurodiffeq_tpu.utils import set_seed
 
     set_seed(seed)
-    solver = _flagship_solver(mesh=make_mesh())
+    solver = _flagship_solver(mesh=make_mesh(n_devices=2, model_axis_size=model_axis_size))
     t0 = time.perf_counter()
     solver.fit(max_epochs=epochs, tqdm_file=None)
     xs, ys = np.meshgrid(np.linspace(0, 1, 101), np.linspace(0, 1, 101))
     exact = np.sin(np.pi * xs) * np.sinh(np.pi * (1 - ys)) / np.sinh(np.pi)
     err = float(np.abs(np.asarray(solver.get_solution()(xs, ys)) - exact).max())
     hist = solver.metrics_history['train_loss']
-    print(f"5r-jax: the flagship on a 2-device mesh, {epochs} epochs float32 on the CPU in "
+    name = '5r-jax' if model_axis_size is None else '5s-jax'
+    print(f"{name}: the flagship on a 2-device mesh {dict(solver.mesh.shape)}, {epochs} epochs float32 on the CPU in "
           f"{time.perf_counter() - t0:.1f} s (seed {seed}): train loss mean {np.mean(hist[:10]):.4e} (first 10) -> "
           f"{np.mean(hist[-10:]):.4e} (last 10), max |u - exact| on 101x101 {err:.4e}", flush=True)
 
@@ -190,7 +201,9 @@ def main():
     own = {'5a': (cs.run_flagship, 'EPOCHS'), '5g': (cs.run_generic_3d, 'GEN3D_EPOCHS'),
            '5d': (cs.run_sph, 'SPH_EPOCHS'), '5o': (cs.run_oscillator, 'OSC_EPOCHS'),
            '5p': (cs.run_temporal, 'TEMPORAL_EPOCHS'), '5q': (cs.run_legacy, 'LEGACY_ODE_EPOCHS'),
-           '5r': (cs.run_sharded, 'SHARD_EPOCHS'), '5i': (cs.run_heat, 'HEAT_EPOCHS')}
+           '5r': (lambda F, taylor_mlp: cs.run_sharded(F, taylor_mlp, chosen=('5r',)), 'SHARD_EPOCHS'),
+           '5s': (lambda F, taylor_mlp: cs.run_sharded(F, taylor_mlp, chosen=('5s',)), 'SHARD_EPOCHS'),
+           '5i': (cs.run_heat, 'HEAT_EPOCHS')}
     for name in chosen:
         if name == '5o-jax':
             rehearse_jax_oscillator(epochs or cs.OSC_EPOCHS)
@@ -201,8 +214,8 @@ def main():
         if name == '5q-jax':
             rehearse_jax_legacy(epochs)
             continue
-        if name == '5r-jax':
-            rehearse_jax_sharded(epochs or cs.SHARD_EPOCHS, seed)
+        if name in ('5r-jax', '5s-jax'):
+            rehearse_jax_sharded(epochs or cs.SHARD_EPOCHS, seed, 2 if name == '5s-jax' else None)
             continue
         if name in own:
             run, constant = own[name]

@@ -24,11 +24,13 @@ through ``torch.export``, the hypersolver, the penalty-boundary
 ``make_animation`` and MacFall's thin-plate-spline boundaries on irregular
 domains, ``CustomBoundaryCondition``) and ``pde_spherical``
 (``solve_spherical``, ``solve_spherical_system``); and data parallelism
-over the collocation points (``parallel``: ``make_mesh`` and ``mesh=`` on
-every solver, one process per rank). The fused
-Taylor-mode FCNN runs as a hand-written CUDA kernel for Hopper
-(``csrc/taylor_mlp.cu``) on CUDA tensors and as its plain PyTorch twin on
-CPU tensors. The package imports ``torch`` and never ``jax``; matplotlib,
+over the collocation points with an optional ``'model'`` axis of Megatron
+tensor parallelism over hidden units (``parallel``: ``make_mesh`` and
+``mesh=`` on every solver, one process per rank). The fused Taylor-mode
+FCNN runs as hand-written CUDA kernels for Hopper (``csrc/taylor_mlp.cu``;
+on coordinates, and on the input Taylor streams of a split net's later
+layer pairs) on CUDA tensors and as their plain PyTorch twins on CPU
+tensors. The package imports ``torch`` and never ``jax``; matplotlib,
 dill, requests and tensorboard are imported at first use.
 """
 import sys as _sys

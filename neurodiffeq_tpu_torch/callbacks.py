@@ -73,7 +73,7 @@ def _writes(solver):
     """Whether this process writes for ``solver``: always without a mesh,
     on rank 0 under one."""
     mesh = getattr(solver, 'mesh', None)
-    return mesh is None or mesh.get_local_rank() == 0
+    return mesh is None or mesh.get_rank() == 0
 
 
 class BaseCallback(ABC, _LoggerMixin):
@@ -370,8 +370,10 @@ class AutoResidualWeightCallback(ActionCallback):
         """The L2 norm over the solver's parameters of the gradient of each
         equation's mean squared unweighted residual on ``cols``: one forward,
         one ``torch.autograd.grad`` per equation. Under a mesh each rank
-        differentiates its block's share of each term, and the gradients
-        are summed over the ranks (one ``all_reduce``) before the norms."""
+        differentiates its block's share of each term, and the gradients,
+        each as the solver counts it (``_counted``), are summed over the
+        ranks (one ``all_reduce``) before the norms."""
+        from .parallel.sharding import all_reduce_, world_group
         params = solver._parameters()
         with torch.enable_grad(), solver._eval_scope():
             funcs, coords = solver._forward(cols)
@@ -386,10 +388,10 @@ class AutoResidualWeightCallback(ActionCallback):
                 if shard is None:
                     norms.append(torch.sqrt(sum((g * g).sum() for g in grads if g is not None)))
                 else:
-                    flat.append(torch.cat([(g if g is not None else torch.zeros_like(p)).reshape(-1)
+                    flat.append(torch.cat([solver._counted(p, g if g is not None else torch.zeros_like(p)).reshape(-1)
                                            for g, p in zip(grads, params)]))
         if shard is not None:
-            summed = shard.all_reduce(torch.stack(flat))
+            summed = all_reduce_(torch.stack(flat), world_group(solver.mesh))
             norms = list(torch.sqrt((summed * summed).sum(dim=1)))
         return np.asarray(torch.stack(norms).tolist(), dtype=float)
 

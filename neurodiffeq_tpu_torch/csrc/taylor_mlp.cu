@@ -1,7 +1,8 @@
-// Fused Taylor-mode FCNN forward for Hopper (sm_90a): two kernels.
+// Fused Taylor-mode FCNN forward for Hopper (sm_90a): three kernel entries.
 //
-// Both replace the TPU kernel neurodiffeq_tpu/ops/pallas_mlp.py::_kernel
-// (launched by _pallas_call through fcnn_taylor_pallas). For a tile of
+// taylor_mlp_1h and taylor_mlp replace the TPU kernel
+// neurodiffeq_tpu/ops/pallas_mlp.py::_kernel (launched by _pallas_call
+// through fcnn_taylor_pallas). For a tile of
 // collocation points they evaluate an L-layer FCNN with tanh or sin between
 // layers and return the value c0 (N, out) and the first and second
 // directional derivatives c1, c2 (D, N, out) along the D = d coordinate
@@ -60,6 +61,21 @@
 // global scratch instead (one region per resident block, which then loops
 // over point tiles); the weight tiles stay in shared memory.
 //
+// taylor_mlp_streams (the same function on input Taylor streams): a layer
+// pair of a net split over the ranks of a 'model' mesh axis (Megatron tensor
+// parallelism) starts from the summed streams of the pair before, not from
+// raw coordinates. The input is (1 + order d, N, h_in), the layout the
+// kernels write; an optional input activation is applied to it with the
+// chain rule above, then 1-kMaxLayers affine layers with the activation
+// between them. It is taylor_mlp_kernel with its first layer replaced by a
+// load of the tile's input streams into shared memory (STREAMS): every
+// layer but the output layer then runs on the staged weight tiles. On the
+// TPU this axis ran the plain Taylor path (Pallas is off by default there):
+// this entry replaces no Pallas kernel, and exists so that no layer pair of
+// a split net runs as plain PyTorch on the card. What bounds it is what
+// bounds taylor_mlp's middle layers: FMA work, 2 S h_in h_out per point
+// (S = 1 + order d), fed from shared memory.
+//
 // No integer division by a runtime width in an inner loop: divisors are
 // compile-time constants (D, S, kKTile).
 #include <cuda_runtime.h>
@@ -75,6 +91,7 @@ constexpr int kMaxDevices = 64;
 constexpr int kSmemLimit = 232448; // dynamic shared memory a block may use on sm_90
 constexpr int kActTanh = 0;
 constexpr int kActSin = 1;
+constexpr int kActNone = -1;  // taylor_mlp_streams: no input activation
 constexpr int kKTile = 16;         // rows (k) of one staged weight tile
 constexpr int kUnitsPerLane = 4;
 constexpr int kChunk = 32 * kUnitsPerLane;  // output units of one pass
@@ -375,27 +392,60 @@ __device__ __forceinline__ void first_layer_streams(T* out, int tile, int hstrid
   }
 }
 
+// The tile's input streams (STREAMS): stream s of point t and unit j of
+// the (1 + order d, n, h) input `xs`, for the chunk's directions dir0..,
+// through the input activation (kActNone: as they are) into out.
+template <typename T, int D, int ORDER>
+__device__ __forceinline__ void load_streams(T* out, const T* __restrict__ xs, int n, int d, int dir0, int h,
+                                             int in_actv, int tile, int hstride, int n0) {
+  constexpr int TT = points_per_warp(1 + ORDER * D);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < TT; ++i) {
+    const int t = warp * TT + i, pt = n0 + t;
+    const bool in = pt < n;
+    for (int j = lane; j < h; j += 32) {
+      const T z0 = in ? xs[static_cast<size_t>(pt) * h + j] : T(0);
+      T a = z0, f1 = T(1), f2 = T(0);
+      if (in_actv != kActNone) actv_chain(z0, in_actv, a, f1, f2);
+      out[static_cast<size_t>(t) * hstride + j] = a;
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        const T z1 = in ? xs[(static_cast<size_t>(1 + dir0 + k) * n + pt) * h + j] : T(0);
+        out[(static_cast<size_t>(1 + k) * tile + t) * hstride + j] = f1 * z1;
+        if constexpr (ORDER == 2) {
+          const T z2 = in ? xs[(static_cast<size_t>(1 + d + dir0 + k) * n + pt) * h + j] : T(0);
+          out[(static_cast<size_t>(1 + D + k) * tile + t) * hstride + j] = f1 * z2 + f2 * z1 * z1;
+        }
+      }
+    }
+  }
+}
+
 // Streams live as buf[(s * tile + t) * hstride + j]: s = 0 the value,
 // s = 1..D the first-order tangents of the chunk's directions, s = D+1..2D
 // the second-order ones. Warp w owns points t = w * TT .. w * TT + TT - 1
-// of the tile at n0: every layer of those points, then their outputs.
-template <typename T, int D, int ORDER>
+// of the tile at n0: every layer of those points, then their outputs. With
+// STREAMS, x holds input streams and every layer but the last is a middle
+// layer; otherwise x holds points and layer 0 is the first layer.
+template <typename T, int D, int ORDER, bool STREAMS>
 __device__ __forceinline__ void run_tile(int n0, const T* __restrict__ x, int n, int d, int dir0,
-                                         int n_layers, const MLPParams<T>& p, int actv, int tile,
-                                         int hstride, T* const* buf, T* const* ws, bool store_c0,
+                                         int n_layers, const MLPParams<T>& p, int actv, int in_actv,
+                                         int tile, int hstride, T* const* buf, T* const* ws, bool store_c0,
                                          T* __restrict__ c0, T* __restrict__ c1, T* __restrict__ c2) {
   constexpr int S = 1 + ORDER * D;
   constexpr int TT = points_per_warp(S);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n_out = p.dims[n_layers];
-  // the first weight tile is in flight while the first layer runs
-  WTile cur{1, 0, 0};
-  const bool any_middle = n_layers > 2;
+  // the first weight tile is in flight while the first layer (or the input streams' load) runs
+  WTile cur{STREAMS ? 0 : 1, 0, 0};
+  const bool any_middle = n_layers > (STREAMS ? 1 : 2);
   if (any_middle) load_w_tile(ws[0], p, cur);
   cp_async_commit();
 
-  // ---- first layer: K = d dot per (point, unit); tangents are the chunk's columns of W1
-  {
+  if constexpr (STREAMS) {
+    load_streams<T, D, ORDER>(buf[0], x, n, d, dir0, p.dims[0], in_actv, tile, hstride, n0);
+  } else {  // ---- first layer: K = d dot per (point, unit); tangents are the chunk's columns of W1
     const int h = p.dims[1];
     const T* W = p.W[0];
     const T* b = p.b[0];
@@ -535,11 +585,12 @@ __device__ __forceinline__ void run_tile(int n0, const T* __restrict__ x, int n,
 // of the global scratch `gbuf` (a template flag, so that the shared
 // variant's loads and stores stay shared-memory instructions; with it each
 // block loops over every gridDim.x-th tile). Grid: (point tiles or resident
-// blocks, direction chunks).
-template <typename T, int D, int ORDER, bool GSTREAMS>
+// blocks, direction chunks). STREAMS: taylor_mlp_streams, x the input
+// streams, in_actv their activation (kActNone: none).
+template <typename T, int D, int ORDER, bool GSTREAMS, bool STREAMS>
 __global__ void __launch_bounds__(kMaxThreads)
 taylor_mlp_kernel(const T* __restrict__ x, int n, int d, int n_layers, MLPParams<T> p, int actv,
-                  int tile, int hstride, T* gbuf, T* __restrict__ c0, T* __restrict__ c1,
+                  int in_actv, int tile, int hstride, T* gbuf, T* __restrict__ c0, T* __restrict__ c1,
                   T* __restrict__ c2) {
   constexpr int S = 1 + ORDER * D;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
@@ -551,7 +602,7 @@ taylor_mlp_kernel(const T* __restrict__ x, int n, int d, int n_layers, MLPParams
     if constexpr (ORDER == 2) c2 += static_cast<size_t>(dir0) * n * n_out;
   }
 
-  if (n_layers == 1) {  // a single affine layer: constant tangents, zero curvature
+  if (!STREAMS && n_layers == 1) {  // a single affine layer: constant tangents, zero curvature
     const T* W = p.W[0];
     const int n0 = blockIdx.x * tile;
     for (int t = warp; t < tile; t += nwarps) {
@@ -581,14 +632,15 @@ taylor_mlp_kernel(const T* __restrict__ x, int n, int d, int n_layers, MLPParams
     T* const buf[2] = {region, region + buf_elems};
     T* const ws[2] = {smem, smem + kKTile * kWStride};
     for (int n0 = blockIdx.x * tile; n0 < n; n0 += gridDim.x * tile) {
-      run_tile<T, D, ORDER>(n0, x, n, d, dir0, n_layers, p, actv, tile, hstride, buf, ws, store_c0, c0, c1, c2);
+      run_tile<T, D, ORDER, STREAMS>(n0, x, n, d, dir0, n_layers, p, actv, in_actv, tile, hstride, buf, ws,
+                                     store_c0, c0, c1, c2);
       __syncthreads();  // the next tile's first layer overwrites the streams just read
     }
   } else {
     T* const buf[2] = {smem, smem + buf_elems};
     T* const ws[2] = {smem + 2 * buf_elems, smem + 2 * buf_elems + kKTile * kWStride};
-    run_tile<T, D, ORDER>(blockIdx.x * tile, x, n, d, dir0, n_layers, p, actv, tile, hstride, buf, ws,
-                          store_c0, c0, c1, c2);
+    run_tile<T, D, ORDER, STREAMS>(blockIdx.x * tile, x, n, d, dir0, n_layers, p, actv, in_actv, tile, hstride,
+                                   buf, ws, store_c0, c0, c1, c2);
   }
 }
 
@@ -618,12 +670,12 @@ int launch_1h(const T* x, int n, int d, int h, int n_out, const T* W1, const T* 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D, int ORDER>
-int launch_general(const T* x, int n, int d, int n_layers, const MLPParams<T>& p, int actv, int tile,
-                   int threads, int smem, int hstride, int blocks, T* gbuf, T* c0, T* c1, T* c2,
+template <typename T, int D, int ORDER, bool STREAMS>
+int launch_general(const T* x, int n, int d, int n_layers, const MLPParams<T>& p, int actv, int in_actv,
+                   int tile, int threads, int smem, int hstride, int blocks, T* gbuf, T* c0, T* c1, T* c2,
                    cudaStream_t stream) {
   constexpr int S = 1 + ORDER * D;
-  if (n_layers != 1 && tile != (threads / 32) * points_per_warp(S)) return kInvalid;
+  if ((STREAMS || n_layers != 1) && tile != (threads / 32) * points_per_warp(S)) return kInvalid;
   if (smem < 0 || smem > kSmemLimit || blocks < 1) return kInvalid;
   // raise the kernel's dynamic shared-memory ceiling once per device, to the limit
   static bool ceiling_set[kMaxDevices] = {};
@@ -632,18 +684,18 @@ int launch_general(const T* x, int n, int d, int n_layers, const MLPParams<T>& p
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev < 0 || dev >= kMaxDevices) return kInvalid;
   if (!ceiling_set[dev]) {
-    err = cudaFuncSetAttribute(taylor_mlp_kernel<T, D, ORDER, false>,
+    err = cudaFuncSetAttribute(taylor_mlp_kernel<T, D, ORDER, false, STREAMS>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
     if (err != cudaSuccess) return static_cast<int>(err);
     ceiling_set[dev] = true;
   }
   const dim3 grid(blocks, chunks_of(d));
   if (gbuf == nullptr) {
-    taylor_mlp_kernel<T, D, ORDER, false><<<grid, threads, smem, stream>>>(
-        x, n, d, n_layers, p, actv, tile, hstride, nullptr, c0, c1, c2);
+    taylor_mlp_kernel<T, D, ORDER, false, STREAMS><<<grid, threads, smem, stream>>>(
+        x, n, d, n_layers, p, actv, in_actv, tile, hstride, nullptr, c0, c1, c2);
   } else {  // the scratch variant needs only the weight tiles' shared memory, under the default ceiling
-    taylor_mlp_kernel<T, D, ORDER, true><<<grid, threads, smem, stream>>>(
-        x, n, d, n_layers, p, actv, tile, hstride, gbuf, c0, c1, c2);
+    taylor_mlp_kernel<T, D, ORDER, true, STREAMS><<<grid, threads, smem, stream>>>(
+        x, n, d, n_layers, p, actv, in_actv, tile, hstride, gbuf, c0, c1, c2);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -681,17 +733,18 @@ struct OneHidden {
   };
 };
 
-template <typename T>
+template <typename T, bool STREAMS>
 struct General {
   template <int D, int ORDER>
   struct At {
     static int run(const void* x, int n, int d, int n_layers, const MLPParams<T>* p, int actv,
-                   int tile, int threads, int smem, int hstride, int blocks, void* scratch,
+                   int in_actv, int tile, int threads, int smem, int hstride, int blocks, void* scratch,
                    void* c0, void* c1, void* c2, void* stream) {
-      return launch_general<T, D, ORDER>(static_cast<const T*>(x), n, d, n_layers, *p, actv, tile,
-                                         threads, smem, hstride, blocks, static_cast<T*>(scratch),
-                                         static_cast<T*>(c0), static_cast<T*>(c1),
-                                         static_cast<T*>(c2), static_cast<cudaStream_t>(stream));
+      return launch_general<T, D, ORDER, STREAMS>(static_cast<const T*>(x), n, d, n_layers, *p, actv,
+                                                  in_actv, tile, threads, smem, hstride, blocks,
+                                                  static_cast<T*>(scratch), static_cast<T*>(c0),
+                                                  static_cast<T*>(c1), static_cast<T*>(c2),
+                                                  static_cast<cudaStream_t>(stream));
     }
   };
 };
@@ -705,13 +758,17 @@ int forward_1h(const void* x, int n, int d, int h, int n_out, const void* W1, co
                                              tile, threads, c0, c1, c2, stream);
 }
 
-template <typename T>
+// STREAMS: x is (1 + order d, n, dims[0]) input streams, in_actv their
+// activation; every width but the output's is staged, so each is at most
+// hstride. Otherwise x is (n, d) points, dims[0] == d and in_actv unused.
+template <typename T, bool STREAMS>
 int forward_general(const void* x, int n, int d, int n_layers, const int* dims,
-                    const void* const* W, const void* const* b, int order, int actv, int tile,
-                    int threads, int smem, int hstride, int blocks, void* scratch, void* c0,
+                    const void* const* W, const void* const* b, int order, int actv, int in_actv,
+                    int tile, int threads, int smem, int hstride, int blocks, void* scratch, void* c0,
                     void* c1, void* c2, void* stream) {
   if (n_layers < 1 || n_layers > kMaxLayers || bad_block(threads) || tile < 1 || n < 1 ||
-      dims[0] != d) {
+      (!STREAMS && dims[0] != d) || (STREAMS && in_actv != kActNone && in_actv != kActTanh &&
+                                     in_actv != kActSin)) {
     return kInvalid;
   }
   MLPParams<T> p;
@@ -721,10 +778,11 @@ int forward_general(const void* x, int n, int d, int n_layers, const int* dims,
   }
   for (int l = 0; l <= n_layers; ++l) {
     p.dims[l] = dims[l];
-    if (l > 0 && l < n_layers && dims[l] > hstride) return kInvalid;
+    if ((STREAMS || l > 0) && l < n_layers && (dims[l] > hstride || dims[l] < 1)) return kInvalid;
   }
-  return dispatch<General<T>::template At>(d, order, x, n, d, n_layers, &p, actv, tile, threads,
-                                           smem, hstride, blocks, scratch, c0, c1, c2, stream);
+  return dispatch<General<T, STREAMS>::template At>(d, order, x, n, d, n_layers, &p, actv, in_actv, tile,
+                                                    threads, smem, hstride, blocks, scratch, c0, c1, c2,
+                                                    stream);
 }
 
 }  // namespace
@@ -740,8 +798,12 @@ extern "C" {
 // (streams in shared memory) or holds 2 * (1 + order * min(d, 8)) * tile *
 // hstride elements for each of them.
 //
+// taylor_mlp_streams takes input streams x of (1 + order * d, n, dims[0])
+// elements and in_actv (-1: none, 0: tanh, 1: sin); its `blocks`, `scratch`
+// and `hstride` are the general kernel's, hstride covering dims[0] too.
+//
 // The build compiles this file once per entry point, all at once, with
-// -DNDTORCH_ENTRY=1..4 (the order below), and links the four objects; with
+// -DNDTORCH_ENTRY=1..6 (the order below), and links the six objects; with
 // no NDTORCH_ENTRY one compile holds them all.
 #ifndef NDTORCH_ENTRY
 #define NDTORCH_ENTRY 0
@@ -770,8 +832,8 @@ int taylor_mlp_f32(const void* x, int n, int d, int n_layers, const int* dims,
                    const void* const* W, const void* const* b, int order, int actv, int tile,
                    int threads, int smem, int hstride, int blocks, void* scratch, void* c0,
                    void* c1, void* c2, void* stream) {
-  return forward_general<float>(x, n, d, n_layers, dims, W, b, order, actv, tile, threads, smem,
-                                hstride, blocks, scratch, c0, c1, c2, stream);
+  return forward_general<float, false>(x, n, d, n_layers, dims, W, b, order, actv, 0, tile, threads,
+                                       smem, hstride, blocks, scratch, c0, c1, c2, stream);
 }
 #endif
 
@@ -780,8 +842,28 @@ int taylor_mlp_f64(const void* x, int n, int d, int n_layers, const int* dims,
                    const void* const* W, const void* const* b, int order, int actv, int tile,
                    int threads, int smem, int hstride, int blocks, void* scratch, void* c0,
                    void* c1, void* c2, void* stream) {
-  return forward_general<double>(x, n, d, n_layers, dims, W, b, order, actv, tile, threads, smem,
-                                 hstride, blocks, scratch, c0, c1, c2, stream);
+  return forward_general<double, false>(x, n, d, n_layers, dims, W, b, order, actv, 0, tile, threads,
+                                        smem, hstride, blocks, scratch, c0, c1, c2, stream);
+}
+#endif
+
+#if NDTORCH_ENTRY == 0 || NDTORCH_ENTRY == 5
+int taylor_mlp_streams_f32(const void* x, int n, int d, int n_layers, const int* dims,
+                           const void* const* W, const void* const* b, int order, int actv, int in_actv,
+                           int tile, int threads, int smem, int hstride, int blocks, void* scratch,
+                           void* c0, void* c1, void* c2, void* stream) {
+  return forward_general<float, true>(x, n, d, n_layers, dims, W, b, order, actv, in_actv, tile, threads,
+                                      smem, hstride, blocks, scratch, c0, c1, c2, stream);
+}
+#endif
+
+#if NDTORCH_ENTRY == 0 || NDTORCH_ENTRY == 6
+int taylor_mlp_streams_f64(const void* x, int n, int d, int n_layers, const int* dims,
+                           const void* const* W, const void* const* b, int order, int actv, int in_actv,
+                           int tile, int threads, int smem, int hstride, int blocks, void* scratch,
+                           void* c0, void* c1, void* c2, void* stream) {
+  return forward_general<double, true>(x, n, d, n_layers, dims, W, b, order, actv, in_actv, tile, threads,
+                                       smem, hstride, blocks, scratch, c0, c1, c2, stream);
 }
 #endif
 

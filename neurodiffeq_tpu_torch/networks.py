@@ -20,6 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .parallel.sharding import active_split
 from .utils import resolve
 
 __all__ = ['FCNN', 'Resnet', 'MonomialNN', 'FourierFCNN', 'SIREN',
@@ -163,21 +164,71 @@ def _as_activation(actv):
     raise TypeError(f"Unsupported activation {actv}")
 
 
-def _mlp_taylor(series, ctx, layers, actvs):
+def _split_taylor(points, layers, order, actv, split):
+    """:func:`_mlp_taylor`'s fused call with the layer pairs split over the
+    ``'model'`` axis of ``split`` (Megatron tensor parallelism): pair k is
+    layers 2k and 2k + 1 where their hidden width divides the axis
+    (:func:`~neurodiffeq_tpu_torch.parallel.sharding.divides`). Its slice on
+    this rank (the columns of layer 2k and its bias, the rows of layer 2k +
+    1) runs on raw coordinates through ``fcnn_taylor`` for pair 0, on the
+    summed streams of the pair before through ``fcnn_taylor_streams`` (the
+    activation applied inside) for the others; one ``all_reduce`` per pair
+    sums the partial streams, and the bias of layer 2k + 1 is added after
+    it. Runs of layers that do not split (a trailing layer, widths that do
+    not divide) run whole on every rank of the axis."""
+    from .ops import taylor_mlp
+    from .parallel.sharding import divides
+
+    n_layers, d = len(layers), points.shape[1]
+    segments = []  # [first layer, end, split]
+    for i in range(0, n_layers, 2):
+        split_pair = i + 1 < n_layers and divides(layers[i][0].shape[1], split.size)
+        if segments and not split_pair and not segments[-1][2]:
+            segments[-1][1] = min(i + 2, n_layers)
+        else:
+            segments.append([i, min(i + 2, n_layers), split_pair])
+    stack = None  # the (1 + order d, N, h) streams between segments
+    for lo, hi, split_pair in segments:
+        seg = layers[lo:hi]
+        if split_pair:
+            (W0, b0), (W1, b1) = seg
+            a, b = split.chunk(W0.shape[1])
+            seg = [(W0[:, a:b], b0[a:b]), (W1[a:b], torch.zeros_like(b1))]
+        if lo == 0:
+            parts = taylor_mlp.fcnn_taylor(points, seg, order, actv=actv)
+        else:
+            parts = taylor_mlp.fcnn_taylor_streams(split.enter(stack) if split_pair else stack, seg, order,
+                                                   actv=actv, input_actv=actv)
+        if split_pair:
+            stack = split.reduce(parts, b1)
+        elif hi < n_layers:
+            stack = torch.cat([parts[0][None], *parts[1:]])
+        else:
+            return parts
+    return (stack[0], stack[1:1 + d], stack[1 + d:])[:order + 1]
+
+
+def _mlp_taylor(series, ctx, layers, actvs, split=None):
     """Batched Taylor propagation through ``x -> ... actv(x W + b) ... W + b``.
 
     On raw coordinate inputs at order 1-2 with one activation kind (tanh or
     sin), the propagation is one fused Taylor-MLP call
     (:func:`~neurodiffeq_tpu_torch.ops.taylor_mlp.fcnn_taylor`, the CUDA
-    kernel for CUDA tensors, at any width); otherwise it goes layer by
-    layer, as every order above 2 does (the JAX package's kernel stops at
-    order 2 too)."""
+    kernel for CUDA tensors, at any width), or with ``split`` (a
+    :class:`~neurodiffeq_tpu_torch.parallel.sharding.ModelSplit`) one per
+    layer pair of this rank's slices (:func:`_split_taylor`); otherwise it
+    goes layer by layer, as every order above 2 does (the JAX package's
+    kernel stops at order 2 too), whole on every rank."""
     from .ops.taylor import TSeries, affine_series
     kinds = {getattr(a, 'kernel_kind', None) for a in actvs}
     if series.meta == 'raw_coords' and 1 <= ctx.order <= 2 and len(kinds) <= 1 and None not in kinds:
         from .ops import taylor_mlp
         # a net with no hidden layer has no activation: any kind will do
-        outs = taylor_mlp.fcnn_taylor(series.c0, layers, ctx.order, actv=kinds.pop() if kinds else 'tanh')
+        kind = kinds.pop() if kinds else 'tanh'
+        if split is not None:
+            outs = _split_taylor(series.c0, layers, ctx.order, kind, split)
+        else:
+            outs = taylor_mlp.fcnn_taylor(series.c0, layers, ctx.order, actv=kind)
         return TSeries(outs[0], list(outs[1:]))
     for (W, b), actv in zip(layers[:-1], actvs):
         series = actv.taylor_series(affine_series(series, W, b), ctx)
@@ -244,9 +295,10 @@ class FCNN(nn.Module):
 
     def taylor_apply(self, series, ctx):
         """Batched Taylor propagation of the whole network: one fused
-        Taylor-MLP call where it applies (:func:`_mlp_taylor`), else layer
-        by layer."""
-        return _mlp_taylor(series, ctx, self.layers(), list(self.actvs))
+        Taylor-MLP call where it applies (:func:`_mlp_taylor`; split over
+        the ``'model'`` axis inside a solver's sharded pass), else layer by
+        layer."""
+        return _mlp_taylor(series, ctx, self.layers(), list(self.actvs), active_split(self))
 
     @torch.no_grad()
     def load_jax_params(self, params):
@@ -400,7 +452,7 @@ class SIREN(nn.Module):
         lins = self.linears
         layers = [(self._layer_w0(i) * lin.weight.t(), self._layer_w0(i) * lin.bias)
                   for i, lin in enumerate(lins[:-1])] + [(lins[-1].weight.t(), lins[-1].bias)]
-        return _mlp_taylor(series, ctx, layers, [self._sin] * len(self.hidden_units))
+        return _mlp_taylor(series, ctx, layers, [self._sin] * len(self.hidden_units), active_split(self))
 
     def load_jax_params(self, params):
         """Copy the JAX package's SIREN parameters ``{'layers': [...]}``."""

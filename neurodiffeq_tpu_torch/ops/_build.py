@@ -5,7 +5,7 @@ for ``sm_90a`` into one shared library with a plain C interface, placed in
 ``build/kernels/`` at the root of the checkout and named by a hash of the
 sources and flags, so an unchanged tree reuses it and a changed one
 rebuilds. Each source is compiled once per C entry point
-(``-DNDTORCH_ENTRY=1..4``, the order of ``_ARGTYPES``), all of them at
+(``-DNDTORCH_ENTRY=1..6``, the order of ``_ARGTYPES``), all of them at
 once, and the objects are linked. Importing this module builds nothing;
 :func:`load_library` does, on the first call.
 """
@@ -34,6 +34,9 @@ _ARGTYPES = {  # C entry point -> argument types, as declared in csrc/taylor_mlp
     'taylor_mlp': [_VP, _INT, _INT, _INT, ctypes.POINTER(_INT), ctypes.POINTER(_VP),
                    ctypes.POINTER(_VP), _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VP, _VP, _VP, _VP,
                    _VP],
+    'taylor_mlp_streams': [_VP, _INT, _INT, _INT, ctypes.POINTER(_INT), ctypes.POINTER(_VP),
+                           ctypes.POINTER(_VP), _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VP, _VP,
+                           _VP, _VP, _VP],
 }
 # the C entry points, in the order of NDTORCH_ENTRY = 1, 2, ...
 ENTRY_POINTS = [name + suffix for name in _ARGTYPES for suffix in ('_f32', '_f64')]

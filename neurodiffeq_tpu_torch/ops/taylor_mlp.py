@@ -19,6 +19,14 @@ coordinate axes.
   :class:`_TaylorMLPFn`, whose backward re-runs the twin under autograd, as
   ``_fused_bwd`` re-derives it by ``jax.vjp`` over the pure-JAX twin.
 
+:func:`fcnn_taylor_streams` is the same evaluation on input Taylor streams
+``(1 + order D, N, h_in)`` (the layout the kernels write: the value, then
+the D first and the D second coefficients), after an optional input
+activation: the layer pairs of a net split over a ``'model'`` mesh axis
+(:mod:`~neurodiffeq_tpu_torch.parallel`) after the first. A CUDA tensor
+launches ``taylor_mlp_streams`` or raises; a CPU tensor runs its twin
+:func:`fcnn_taylor_streams_reference`, which is its backward too.
+
 ``LAUNCHES`` counts launches per kernel; :func:`reset_launches` zeroes it.
 """
 import ctypes
@@ -30,11 +38,13 @@ import torch
 
 from ..utils import full_precision_matmuls
 
-__all__ = ['fcnn_taylor', 'fcnn_taylor_reference', 'LAUNCHES', 'reset_launches']
+__all__ = ['fcnn_taylor', 'fcnn_taylor_reference', 'fcnn_taylor_streams', 'fcnn_taylor_streams_reference',
+           'LAUNCHES', 'reset_launches']
 
-LAUNCHES = {'taylor_mlp_1h': 0, 'taylor_mlp': 0}
+LAUNCHES = {'taylor_mlp_1h': 0, 'taylor_mlp': 0, 'taylor_mlp_streams': 0}
 
 _ACTVS = {'tanh': 0, 'sin': 1}
+_IN_ACTVS = {None: -1, **_ACTVS}  # taylor_mlp_streams' input activation
 _SMEM_LIMIT = 232448   # bytes of shared memory one block may use on sm_90
 # the CUDA source's constants
 _MAX_LAYERS, _MAX_DIMS, _MAX_THREADS = 128, 8, 256   # _MAX_DIMS: directions of one chunk
@@ -97,6 +107,60 @@ def fcnn_taylor_reference(points, layers, order, actv='tanh'):
     return tuple(outs)
 
 
+def _stream_dirs(streams, order):
+    """The directions D of ``(1 + order D, N, h)`` input streams."""
+    if order not in (1, 2):
+        raise ValueError(f"the Taylor streams entry supports order 1 or 2, got {order}")
+    if streams.ndim != 3 or streams.shape[0] < 1 + order or (streams.shape[0] - 1) % order:
+        raise ValueError(f"streams must be (1 + order * D, N, h) with D >= 1 at order {order}, "
+                         f"got shape {tuple(streams.shape)}")
+    return (streams.shape[0] - 1) // order
+
+
+def _unstack(out, order, d):
+    """``(c0, c1[, c2])``: views of a ``(1 + order d, N, m)`` stream stack."""
+    return (out[0], out[1:1 + d], out[1 + d:])[:order + 1]
+
+
+def _stream_actv(z, order, d, actv):
+    """Stacked streams through the activation: a = f(z0), u1 = f' z1,
+    u2 = f' z2 + f'' z1^2."""
+    a, f1, f2 = _actv_chain(z[0], actv)
+    z1 = z[1:1 + d]
+    parts = [a[None], f1[None] * z1]
+    if order == 2:
+        parts.append(f1[None] * z[1 + d:] + f2[None] * z1 * z1)
+    return torch.cat(parts)
+
+
+def _streams_stacked_reference(streams, layers, order, actv, input_actv):
+    d = _stream_dirs(streams, order)
+    s = streams if input_actv is None else _stream_actv(streams, order, d, input_actv)
+    for i, (W, b) in enumerate(layers):
+        z = s @ W
+        s = torch.cat([(z[0] + b)[None], z[1:]])
+        if i + 1 < len(layers):
+            s = _stream_actv(s, order, d, actv)
+    return s
+
+
+def fcnn_taylor_streams_reference(streams, layers, order, actv='tanh', input_actv=None):
+    """Plain Taylor propagation of input streams through an FCNN (the
+    ``taylor_mlp_streams`` kernel's twin).
+
+    :param streams: ``(1 + order * D, N, h_in)``: the value, then the D
+        first-order and (order 2) the D second-order coefficients.
+    :param layers: ``[(W, b), ...]`` with ``W`` (n_in, n_out), ``b`` (n_out,).
+    :param order: 1 or 2.
+    :param actv: 'tanh' or 'sin', between the layers.
+    :param input_actv: None, 'tanh' or 'sin': applied to the streams first.
+    :return: ``(c0, c1[, c2])`` with c0 (N, out) and ck (D, N, out): views
+        of one ``(1 + order * D, N, out)`` stack.
+    """
+    out = _streams_stacked_reference(streams, layers, order, actv, input_actv)
+    return _unstack(out, order, _stream_dirs(streams, order))
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device_index):
     return torch.cuda.get_device_properties(device_index).multi_processor_count
@@ -151,15 +215,29 @@ def _plan(n, dims, order, esize, n_sm):
         return Plan('taylor_mlp_1h', tile, 32 * warps, 0, 0, blocks, 0)
     if n_layers == 1:
         return Plan('taylor_mlp', 32, 128, 0, 0, math.ceil(n / 32), 0)
-    hstride, per_warp, w_tiles = max(dims[1:-1]), _points_per_warp(s), _weight_tiles(esize)
+    return _staged_plan('taylor_mlp', n, s, chunks, max(dims[1:-1]), esize, n_sm)
+
+
+def _plan_streams(n, d, dims, order, esize, n_sm):
+    """The launch of ``taylor_mlp_streams`` for ``n`` points with ``d``
+    directions through widths ``dims`` (``dims[0]`` the streams' width):
+    the general kernel's plan, every width but the output's staged."""
+    return _staged_plan('taylor_mlp_streams', n, _streams(d, order), math.ceil(d / _MAX_DIMS), max(dims[:-1]),
+                        esize, n_sm)
+
+
+def _staged_plan(kernel, n, s, chunks, hstride, esize, n_sm):
+    """The general kernel's plan (:func:`_plan`) for ``s`` streams of width
+    at most ``hstride``."""
+    per_warp, w_tiles = _points_per_warp(s), _weight_tiles(esize)
     fits = [w for w in (8, 4, 2, 1) if 2 * s * w * per_warp * hstride * esize + w_tiles <= _SMEM_LIMIT]
     if not fits:
         tile = 8 * per_warp
         blocks = min(math.ceil(n / tile), max(1, math.ceil(n_sm / chunks)))
-        return Plan('taylor_mlp', tile, 256, w_tiles, hstride, blocks, blocks * chunks * 2 * s * tile * hstride)
+        return Plan(kernel, tile, 256, w_tiles, hstride, blocks, blocks * chunks * 2 * s * tile * hstride)
     warps = next((w for w in fits if math.ceil(n / (w * per_warp)) * chunks >= n_sm // 2), fits[-1])
     tile = warps * per_warp
-    return Plan('taylor_mlp', tile, 32 * warps, 2 * s * tile * hstride * esize + w_tiles, hstride,
+    return Plan(kernel, tile, 32 * warps, 2 * s * tile * hstride * esize + w_tiles, hstride,
                 math.ceil(n / tile), 0)
 
 
@@ -168,25 +246,30 @@ def _weight_tiles(esize):
     return 2 * _K_TILE * (_CHUNK + 1) * esize
 
 
-_PLANS = {}  # (dtype, device index, dims, order, n) -> Plan
+_PLANS = {}  # (kernel family, dtype, device index, dims, order, n, d) -> Plan
 
 
-def _check(points, layers, order, actv):
-    """Raise on what the kernels do not take; return the widths."""
+def _check(points, layers, order, actv, d=None):
+    """Raise on what the kernels do not take; return the widths. ``d``
+    given: ``points`` are contiguous ``(1 + order d, N, h)`` input streams
+    (``_stream_dirs`` checked their shape)."""
     dtype, device = points.dtype, points.device
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"fcnn_taylor kernel takes float32 or float64, got {dtype}")
-    if points.ndim != 2 or not points.is_contiguous():
+    if d is None and (points.ndim != 2 or not points.is_contiguous()):
         raise ValueError(f"points must be a contiguous (N, d) tensor, got shape {tuple(points.shape)}")
+    if d is not None and not points.is_contiguous():
+        raise ValueError("input streams must be contiguous")
     if order not in (1, 2):
         raise ValueError(f"fcnn_taylor kernel supports order 1 or 2, got {order}")
     if actv not in _ACTVS:
         raise ValueError(f"unsupported activation {actv!r}; expected 'tanh' or 'sin'")
-    d = points.shape[1]
+    width = points.shape[-1]
+    d = width if d is None else d
     if not 1 <= len(layers) <= _MAX_LAYERS or not 1 <= math.ceil(d / _MAX_DIMS) <= _MAX_GRID_YZ:
         raise ValueError(f"the kernels take 1-{_MAX_LAYERS} layers and 1-{_MAX_DIMS * _MAX_GRID_YZ} "
-                         f"inputs, got {len(layers)} layers and d={d}")
-    dims = [d]
+                         f"directions, got {len(layers)} layers and d={d}")
+    dims = [width]
     for i, (W, b) in enumerate(layers):
         for name, t in (('W', W), ('b', b)):
             if t.dtype != dtype or t.device != device:
@@ -220,7 +303,7 @@ def _launch(points, layers, order, actv):
     if n == 0:
         return (c0, c1, c2)[:order + 1]
     index = points.get_device()
-    key = (dtype, index, dims, order, n)
+    key = ('points', dtype, index, dims, order, n, d)
     plan = _PLANS.get(key)
     if plan is None:
         plan = _PLANS[key] = _plan(n, dims, order, points.element_size(), _sm_count(index))
@@ -257,6 +340,74 @@ def _launch(points, layers, order, actv):
                            f"(n={n}, dims={dims}, order={order}, plan={plan})")
     LAUNCHES[plan.kernel] += 1
     return (c0, c1, c2)[:order + 1]
+
+
+def _launch_streams(streams, layers, order, actv, input_actv):
+    """:func:`_launch` for input streams: ``taylor_mlp_streams`` on the
+    current stream; returns the ``(1 + order d, N, out)`` stack."""
+    from ._build import load_library
+
+    d = _stream_dirs(streams, order)
+    if input_actv not in _IN_ACTVS:
+        raise ValueError(f"unsupported input activation {input_actv!r}; expected None, 'tanh' or 'sin'")
+    dims = _check(streams, layers, order, actv, d)
+    dtype, device, n = streams.dtype, streams.device, streams.shape[1]
+    out = torch.empty((1 + order * d, n, dims[-1]), dtype=dtype, device=device)
+    if n == 0:
+        return out
+    index = streams.get_device()
+    key = ('streams', dtype, index, dims, order, n, d)
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = _PLANS[key] = _plan_streams(n, d, dims, order, streams.element_size(), _sm_count(index))
+    Wk = [_row_major(W.t()) for W, _ in layers]  # kept alive until the launch is enqueued
+    bk = [_row_major(b) for _, b in layers]
+    scratch = torch.empty(plan.scratch, dtype=dtype, device=device) if plan.scratch else None
+    p0, stride = out.data_ptr(), n * dims[-1] * streams.element_size()
+    args = (streams.data_ptr(), n, d, len(layers), (ctypes.c_int * len(dims))(*dims),
+            (ctypes.c_void_p * len(Wk))(*[w.data_ptr() for w in Wk]),
+            (ctypes.c_void_p * len(bk))(*[t.data_ptr() for t in bk]),
+            order, _ACTVS[actv], _IN_ACTVS[input_actv], plan.tile, plan.threads, plan.smem, plan.hstride,
+            plan.blocks, None if scratch is None else scratch.data_ptr(), p0, p0 + stride,
+            p0 + (1 + d) * stride if order == 2 else None)
+    fn = getattr(load_library(), 'taylor_mlp_streams' + ('_f32' if dtype == torch.float32 else '_f64'))
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"taylor_mlp_streams kernel launch failed: CUDA error {err} "
+                           f"(n={n}, d={d}, dims={dims}, order={order}, plan={plan})")
+    LAUNCHES['taylor_mlp_streams'] += 1
+    return out
+
+
+class _TaylorStreamsFn(torch.autograd.Function):
+    """Forward: ``taylor_mlp_streams``, one ``(1 + order d, N, out)``
+    stack. Backward: autograd over the plain twin on the saved inputs, to
+    the input streams and the parameters."""
+
+    @staticmethod
+    def forward(ctx, streams, order, actv, input_actv, *flat):
+        ctx.args = (order, actv, input_actv)
+        ctx.save_for_backward(streams, *flat)
+        return _launch_streams(streams, list(zip(flat[0::2], flat[1::2])), order, actv, input_actv)
+
+    @staticmethod
+    def backward(ctx, grad):
+        saved = ctx.saved_tensors
+        need = [ctx.needs_input_grad[0]] + list(ctx.needs_input_grad[4:])
+        result = [None] * len(need)
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(f) for t, f in zip(saved, need)]
+            out = _streams_stacked_reference(leaves[0], list(zip(leaves[1::2], leaves[2::2])), *ctx.args)
+            wrt = [leaf for leaf, f in zip(leaves, need) if f]
+            if wrt and out.requires_grad:
+                got = iter(torch.autograd.grad(out, wrt, grad, allow_unused=True))
+                result = [next(got) if f else None for f in need]
+        return (result[0], None, None, None, *result[1:])
 
 
 class _TaylorMLPFn(torch.autograd.Function):
@@ -315,3 +466,34 @@ def fcnn_taylor(points, layers, order, actv='tanh'):
     if torch.is_grad_enabled() and any(t.requires_grad for t in [points, *flat]):
         return _TaylorMLPFn.apply(points, order, actv, *flat)
     return _launch(points, layers, order, actv)
+
+
+def fcnn_taylor_streams(streams, layers, order, actv='tanh', input_actv=None):
+    """Fused Taylor evaluation of a tanh or sin FCNN on input Taylor streams.
+
+    A CPU tensor runs :func:`fcnn_taylor_streams_reference`. A CUDA tensor
+    launches ``taylor_mlp_streams`` (order 1 or 2, float32 or float64,
+    1-128 layers, any widths; more than 8 directions as chunks of 8) or
+    raises; it never falls back to the twin. The gradient reaches the input
+    streams and the parameters.
+
+    :param streams: contiguous ``(1 + order * D, N, h_in)``: the value, the
+        D first-order and (order 2) the D second-order coefficients.
+    :param layers: ``[(W, b), ...]`` with ``W`` (n_in, n_out), ``b`` (n_out,).
+    :param order: 1 or 2.
+    :param actv: 'tanh' or 'sin', between the layers.
+    :param input_actv: None, 'tanh' or 'sin': applied to the streams first.
+    :return: ``(c0, c1[, c2])`` with c0 (N, out) and ck (D, N, out): views
+        of one ``(1 + order * D, N, out)`` stack.
+    """
+    if streams.device.type == 'cpu':
+        return fcnn_taylor_streams_reference(streams, layers, order, actv, input_actv)
+    if streams.device.type != 'cuda':
+        raise TypeError(f"fcnn_taylor_streams runs on 'cpu' or 'cuda' tensors, got {streams.device}")
+    _precision_once()
+    flat = [t for W, b in layers for t in (W, b)]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in [streams, *flat]):
+        out = _TaylorStreamsFn.apply(streams, order, actv, input_actv, *flat)
+    else:
+        out = _launch_streams(streams, layers, order, actv, input_actv)
+    return _unstack(out, order, _stream_dirs(streams, order))

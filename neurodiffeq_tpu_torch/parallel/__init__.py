@@ -10,12 +10,15 @@ solver combines the loss exactly and sums the parameter gradients over the
 ranks in one ``all_reduce`` per optimizer step, so that every loss, metric
 and gradient is the one the unsharded run computes.
 
+For wide networks a second ``'model'`` mesh axis adds Megatron-style tensor
+parallelism: pass ``make_mesh(model_axis_size=m)`` and each rank of a model
+group evaluates its slice of every FCNN and SIREN layer pair (even layers
+split output columns, odd layers input rows), with one ``all_reduce`` of
+the partial Taylor streams per pair. Pairs after the first run on the
+summed streams through their own kernel entry (``fcnn_taylor_streams``).
+
 Start the ranks with ``torchrun --nproc_per_node=N script.py`` (one per card
 under NCCL) or from Python with :func:`launch`.
-
-The JAX package's second, ``'model'`` axis (Megatron tensor parallelism over
-hidden units) is not ported: ``make_mesh(model_axis_size > 1)`` and
-:func:`megatron_param_shardings` raise ``NotImplementedError``.
 """
 from .launch import launch
 from .sharding import (make_mesh, points_sharding, replicated_sharding, shard_points,

@@ -1,38 +1,33 @@
 r"""Mesh construction and sharding helpers (counterpart of
 ``neurodiffeq_tpu/parallel/sharding.py``).
 
-A mesh is a 1-D ``torch.distributed.device_mesh.DeviceMesh`` over the ranks
-of the default process group, with one axis, ``'points'``: data parallelism
-over the collocation batch. Each rank owns one contiguous block of the rows
-of every global batch (:func:`points_sharding`); the blocks may be uneven.
+A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over the ranks of
+the default process group. Its first axis, ``'points'``, is data
+parallelism over the collocation batch: each rank owns one contiguous block
+of the rows of every global batch (:func:`points_sharding`); the blocks may
+be uneven. An optional second axis, ``'model'``, is Megatron tensor
+parallelism over hidden units (``make_mesh(model_axis_size=m)``: rank ``p *
+m + q`` is points index p and model index q): each rank of a model group
+evaluates its slice of every FCNN layer pair (even layers split their
+output columns, odd layers their input rows; :func:`megatron_param_shardings`)
+and one ``all_reduce`` over the group per pair sums the partial Taylor
+streams (:class:`ModelSplit`).
 
 The collectives the solvers issue are ``all_reduce`` (a sum) and
 ``broadcast`` only, the two that every backend runs on CUDA tensors (gloo
 included). A gather of rows is an ``all_reduce`` of a zero buffer into which
 each rank writes its block (:meth:`RowShard.gather_rows`): exact, since
 adding zeros changes no bit.
-
-The ``'model'`` axis of the JAX package (Megatron tensor parallelism over
-hidden units) is not ported: the port's kernels evaluate a whole FCNN in one
-launch, and a layer pair split over ranks needs a kernel entry that takes
-input Taylor streams. It is queued as ``ROADMAP.md`` §1 item 23b.
 """
+import contextlib
 import os
+from collections import namedtuple
 
 import torch
 import torch.distributed as dist
 
 __all__ = ['make_mesh', 'points_sharding', 'replicated_sharding', 'shard_points',
-           'megatron_param_shardings', 'shard_params']
-
-MODEL_AXIS_ITEM = "ROADMAP.md §1 item 23b, the 'model' axis"
-
-
-def _model_axis_error(what):
-    return NotImplementedError(
-        f"{what}: the 'model' (Megatron tensor-parallel) axis is not ported. The port's kernels evaluate a whole "
-        f"FCNN in one launch, and a layer pair split over ranks needs a taylor_mlp entry that takes input Taylor "
-        f"streams ({MODEL_AXIS_ITEM}). Use a 1-D mesh over the points.")
+           'megatron_param_shardings', 'shard_params', 'ModelSplit']
 
 
 def _device_type(devices):
@@ -75,19 +70,19 @@ def make_mesh(n_devices=None, devices=None, axis_name='points', model_axis_size=
         ``LOCAL_RANK``). The CPU is used only when asked for here or through
         :func:`~neurodiffeq_tpu_torch.utils.set_tensor_type`.
     :param axis_name: name of the batch axis, defaults to ``'points'``.
-    :param model_axis_size: must be None or 1: the ``'model'`` axis raises
-        ``NotImplementedError``.
+    :param model_axis_size: if given (> 1), the mesh becomes 2-D with shape
+        ``(world // model_axis_size, model_axis_size)`` and axes
+        ``(axis_name, 'model')``; it must divide the world size
+        (``ValueError`` otherwise).
     :param backend: ``'nccl'`` or ``'gloo'``; defaults to NCCL on the card
         and gloo on the CPU, or to the initialized group's. Under NCCL each
         rank needs a card of its own.
     :return: a ``torch.distributed.device_mesh.DeviceMesh`` with
-        ``mesh_dim_names == (axis_name,)``.
+        ``mesh_dim_names == (axis_name,)``, or ``(axis_name, 'model')``.
     """
     from torch.distributed.device_mesh import DeviceMesh
     from ..utils import _set_rank_device
 
-    if model_axis_size is not None and model_axis_size > 1:
-        raise _model_axis_error(f"make_mesh(model_axis_size={model_axis_size})")
     device_type = _device_type(devices)
     if backend is not None and backend not in ('nccl', 'gloo'):
         raise ValueError(f"backend must be 'nccl' or 'gloo', got {backend!r}")
@@ -101,6 +96,9 @@ def make_mesh(n_devices=None, devices=None, axis_name='points', model_axis_size=
     world, rank = dist.get_world_size(), dist.get_rank()
     if n_devices is not None and n_devices != world:
         raise ValueError(f"n_devices={n_devices}, but the process group has {world} ranks: a mesh spans them all")
+    m = model_axis_size if model_axis_size is not None and model_axis_size > 1 else 1
+    if world % m:
+        raise ValueError(f"model_axis_size={model_axis_size} must divide the device count {world}")
     local_rank = int(os.environ.get('LOCAL_RANK', rank))
     if device_type == 'cuda':
         n_cards = torch.cuda.device_count()
@@ -122,21 +120,48 @@ def make_mesh(n_devices=None, devices=None, axis_name='points', model_axis_size=
     else:
         device = torch.device('cpu')
     _set_rank_device(device)
-    return DeviceMesh(device_type, list(range(world)), mesh_dim_names=(axis_name,))
+    if m == 1:
+        return DeviceMesh(device_type, list(range(world)), mesh_dim_names=(axis_name,))
+    return DeviceMesh(device_type, torch.arange(world).reshape(world // m, m).tolist(),
+                      mesh_dim_names=(axis_name, 'model'))
 
 
 def _check_mesh(mesh, axis_name='points'):
     names = getattr(mesh, 'mesh_dim_names', None)
-    if names is None or tuple(names) != (axis_name,):
-        raise ValueError(f"expected a 1-D mesh over {axis_name!r} (make_mesh), got {mesh!r}")
+    if names is None or tuple(names) not in ((axis_name,), (axis_name, 'model')):
+        raise ValueError(f"expected a mesh over {axis_name!r}, or over ({axis_name!r}, 'model') (make_mesh), "
+                         f"got {mesh!r}")
+
+
+Axes = namedtuple('Axes', 'points model')
+_AXES = {}  # id(mesh) -> (mesh, Axes): slicing a DeviceMesh costs about 0.4 ms
+
+
+def mesh_axes(mesh):
+    """The 1-D meshes of ``mesh``'s axes, ``Axes(points, model)``: ``model``
+    is None on a 1-D mesh, whose points axis is the mesh. Cached per mesh."""
+    hit = _AXES.get(id(mesh))
+    if hit is None or hit[0] is not mesh:
+        names = tuple(mesh.mesh_dim_names)
+        axes = Axes(mesh, None) if len(names) == 1 else Axes(mesh[names[0]], mesh['model'])
+        hit = _AXES[id(mesh)] = (mesh, axes)
+    return hit[1]
+
+
+def world_group(mesh):
+    """The process group of every rank of ``mesh`` (a mesh spans the
+    default group)."""
+    return mesh.get_group() if mesh_axes(mesh).model is None else dist.group.WORLD
 
 
 def points_sharding(mesh, n, axis_name='points'):
     """The rows ``range(lo, hi)`` of an ``n``-row batch that this rank owns:
-    one contiguous block per rank, the first ``n % world`` blocks one row
-    longer. Needs ``n >= world``."""
+    one contiguous block per points index, the first ``n % P`` blocks one
+    row longer, P the size of the points axis (the model ranks of one points
+    index share a block). Needs ``n >= P``."""
     _check_mesh(mesh, axis_name)
-    world, rank = mesh.size(), mesh.get_local_rank()
+    points = mesh_axes(mesh).points
+    world, rank = points.size(), points.get_local_rank()
     if n < world:
         raise ValueError(f"a batch of {n} points cannot be sharded over {world} ranks (each needs a row)")
     base, extra = divmod(n, world)
@@ -185,7 +210,7 @@ def replicated_sharding(mesh):
     """The replicated layout: a function that makes a tensor equal on every
     rank of ``mesh`` (rank 0's value, broadcast in place) and returns it."""
     _check_mesh(mesh)
-    group = mesh.get_group()
+    group = world_group(mesh)
     return lambda tensor: broadcast_(tensor, group)
 
 
@@ -203,19 +228,178 @@ def _tensors(params):
 
 @torch.no_grad()
 def shard_params(params, mesh):
-    """Replicate parameters on a 1-D mesh: every tensor of ``params`` (a
+    """Make parameters equal on every rank: every tensor of ``params`` (a
     module, its parameters and buffers; a state dict; a list of either)
-    takes rank 0's value, in place. Returns ``params``. As in the JAX
-    package on a 1-D mesh, nothing is split."""
+    takes rank 0's value, in place. Returns ``params``. On a 1-D mesh, as in
+    the JAX package, nothing is split. On a 2-D mesh every rank keeps the
+    full-size tensors too, and evaluates its slices of them in the forward
+    (the layout of :func:`megatron_param_shardings`, which the solvers
+    record): the JAX package stores 1/m of each split leaf per device, the
+    port a full replica whose gradients outside the rank's slices are
+    zero."""
     replicate = replicated_sharding(mesh)
     for t in _tensors(params):
         replicate(t)
     return params
 
 
+def divides(width, m):
+    """Whether a dimension of ``width`` splits over ``m`` model ranks: the
+    JAX package's rule, a multiple of ``m`` and at least ``m``."""
+    return width % m == 0 and width >= m
+
+
+def _layer_specs(layers, m):
+    """Per ``(W (n_in, n_out), b)`` layer: even layers split W's output
+    dimension and the bias with it, odd layers W's input dimension; a
+    dimension that does not divide stays replicated."""
+    specs = []
+    for i, (W, b) in enumerate(layers):
+        w_spec, b_spec = (), ()
+        if i % 2 == 0 and divides(W.shape[1], m):
+            w_spec = (None, 'model')
+            if divides(b.shape[0], m):
+                b_spec = ('model',)
+        elif i % 2 == 1 and divides(W.shape[0], m):
+            w_spec = ('model', None)
+        specs.append({'W': w_spec, 'b': b_spec})
+    return specs
+
+
 def megatron_param_shardings(params, mesh):
-    """Not ported: the ``'model'`` axis raises ``NotImplementedError``."""
-    raise _model_axis_error("megatron_param_shardings")
+    """The Megatron layout of parameters on a 2-D ``(points, model)`` mesh,
+    per leaf the JAX package's ``PartitionSpec`` as a tuple: ``(None,
+    'model')`` splits the second dimension over the model axis, ``('model',)``
+    or ``('model', None)`` the first, ``()`` replicates.
+
+    For an FCNN or a SIREN (a module with ``linears``), ``{'layers': [{'W':
+    spec, 'b': spec}, ...]}``, W meaning the ``(n_in, n_out)`` view that
+    ``FCNN.layers()`` gives (the JAX package's layout): even layers split
+    their output dimension and their bias with it, odd layers their input
+    dimension (the bias replicated), and a dimension that does not divide
+    the model axis, or is smaller than it, stays replicated. Any other
+    module is replicated whole: ``()``. ``params`` may be a list of modules.
+    """
+    axis = mesh_axes(mesh).model
+    if axis is None:
+        raise ValueError("megatron_param_shardings needs a mesh with a 'model' axis")
+    m = axis.size()
+
+    def one(net):
+        linears = getattr(net, 'linears', None)
+        if not isinstance(net, torch.nn.Module) or linears is None:
+            return ()
+        return {'layers': _layer_specs([(lin.weight.t(), lin.bias) for lin in linears], m)}
+
+    return [one(p) for p in params] if isinstance(params, (list, tuple)) else one(params)
+
+
+def _chunk(width, m, q):
+    """Model rank ``q``'s contiguous block of a ``width`` split over ``m``."""
+    size = width // m
+    return q * size, (q + 1) * size
+
+
+def model_grad_slices(nets, mesh):
+    """``{parameter: (dim, lo, hi)}``: the block of each split leaf of
+    ``nets`` that this rank's model index owns, in ``nn.Linear``'s layout
+    (weight ``(n_out, n_in)``); a parameter not listed is replicated."""
+    axis = mesh_axes(mesh).model
+    m, q = axis.size(), axis.get_local_rank()
+    out = {}
+    for net, layout in zip(nets, megatron_param_shardings(list(nets), mesh)):
+        if not layout:
+            continue
+        for lin, spec in zip(net.linears, layout['layers']):
+            if spec['W']:
+                dim = 0 if spec['W'] == (None, 'model') else 1  # W (n_in, n_out) is weight (n_out, n_in)
+                out[lin.weight] = (dim, *_chunk(lin.weight.shape[dim], m, q))
+            if spec['b']:
+                out[lin.bias] = (0, *_chunk(lin.bias.shape[0], m, q))
+    return out
+
+
+class _SumOverModel(torch.autograd.Function):
+    """Megatron's g: the partial streams ``(c0, c1[, c2])`` stacked and
+    summed over the model group, plus ``bias`` on the value stream; the
+    backward is the identity (and the bias's gradient)."""
+
+    @staticmethod
+    def forward(ctx, bias, group, *parts):
+        ctx.sizes = [1] + [p.shape[0] for p in parts[1:]]
+        out = all_reduce_(torch.cat([parts[0][None], *parts[1:]]), group)
+        out[0] += bias
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad[0].sum(0), None, *[g[0] if i == 0 else g
+                                        for i, g in enumerate(torch.split(grad, ctx.sizes))])
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's f: the identity; the backward sums the gradient over the
+    model group (each rank's slice of the next pair reads all the streams)."""
+
+    @staticmethod
+    def forward(ctx, streams, group):
+        ctx.group = group
+        return streams.view_as(streams)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_(grad.clone(), ctx.group), None
+
+
+class ModelSplit:
+    """This rank's part of the ``'model'`` axis of ``mesh``: the group, its
+    size ``m`` and this rank's index ``q`` in it."""
+
+    __slots__ = ('group', 'size', 'rank')
+
+    def __init__(self, mesh):
+        axis = mesh_axes(mesh).model
+        self.group, self.size, self.rank = axis.get_group(), axis.size(), axis.get_local_rank()
+
+    def chunk(self, width):
+        """This rank's block ``(lo, hi)`` of a ``width`` split over the axis."""
+        return _chunk(width, self.size, self.rank)
+
+    def reduce(self, parts, bias):
+        """The ``(1 + order D, N, h)`` stack of the partial streams ``parts``
+        summed over the group, ``bias`` added to the value; differentiable."""
+        return _SumOverModel.apply(bias, self.group, *parts)
+
+    def enter(self, streams):
+        """``streams`` as the input of a split pair: the gradient that comes
+        back is summed over the group."""
+        return _CopyToModel.apply(streams, self.group)
+
+
+_SPLITS = {}  # id(module) -> (module, ModelSplit) while split_scope is active
+
+
+@contextlib.contextmanager
+def split_scope(nets, split):
+    """Within the block, the Taylor evaluations of ``nets`` run split over
+    ``split``'s model group (:func:`active_split`); None: nothing changes."""
+    if split is None:
+        yield
+        return
+    added = {id(n): (n, split) for n in nets if id(n) not in _SPLITS}
+    _SPLITS.update(added)
+    try:
+        yield
+    finally:
+        for k in added:
+            del _SPLITS[k]
+
+
+def active_split(module):
+    """The :class:`ModelSplit` that ``module``'s Taylor evaluation runs
+    over, or None."""
+    hit = _SPLITS.get(id(module))
+    return hit[1] if hit is not None and hit[0] is module else None
 
 
 class _GatherRows(torch.autograd.Function):
@@ -238,13 +422,15 @@ class _GatherRows(torch.autograd.Function):
 class RowShard:
     """This rank's block ``[lo, hi)`` of the rows of one ``n``-row global
     batch on ``mesh``: the context that a sharded loss, metric or
-    stochastic operator needs."""
+    stochastic operator needs. Its collectives run over the ``'points'``
+    axis: the model ranks of one points index hold the same rows."""
 
     __slots__ = ('group', 'rank', 'lo', 'hi', 'n')
 
     def __init__(self, mesh, n):
         rows = points_sharding(mesh, n)
-        self.group, self.rank = mesh.get_group(), mesh.get_local_rank()
+        points = mesh_axes(mesh).points
+        self.group, self.rank = points.get_group(), points.get_local_rank()
         self.lo, self.hi, self.n = rows.start, rows.stop, n
 
     @property

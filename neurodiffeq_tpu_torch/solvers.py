@@ -29,7 +29,13 @@ each evaluating its own block of rows. The loss is combined as the global
 one (each loss's ``shard_form``), metrics see the gathered batch, the
 gradients are summed over the ranks in one ``all_reduce`` per optimizer
 step (and per closure call), and the epoch's records in one more: every
-rank then holds the unsharded run's losses, metrics and parameters. Solvers
+rank then holds the unsharded run's losses, metrics and parameters. On a
+``(points, model)`` mesh the rows are blocks of the ``'points'`` axis, and
+the model ranks of a block evaluate their slices of every FCNN and SIREN
+layer pair (:class:`~neurodiffeq_tpu_torch.parallel.sharding.ModelSplit`);
+each rank keeps full-size parameters and counts, in the one ``all_reduce``
+of the gradients over the whole mesh, only the blocks of the split leaves
+that it owns and, on model index 0, the replicated ones. Solvers
 save, load and resume through
 :class:`~neurodiffeq_tpu_torch.solvers_utils.PretrainedSolver`; a solution
 exports its evaluator as a ``torch.export`` program
@@ -41,7 +47,7 @@ import json
 import sys
 import warnings
 from abc import ABC, abstractmethod
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from copy import deepcopy
 
 import numpy as np
@@ -54,7 +60,8 @@ from .fields import Field, cat as field_cat, coords_from_points
 from .generators import Generator1D, Generator2D, GeneratorSpherical, _as_tuple, contains_buried_adaptive
 from .losses import _losses
 from .networks import FCNN, Tanh
-from .parallel.sharding import RowShard, all_reduce_, broadcast_, shard_params, _check_mesh
+from .parallel.sharding import (ModelSplit, RowShard, all_reduce_, broadcast_, mesh_axes, model_grad_slices,
+                                shard_params, split_scope, world_group, _check_mesh)
 from .solvers_utils import PretrainedSolver
 from .utils import full_precision_matmuls, get_generator, resolve
 
@@ -135,12 +142,13 @@ class BaseSolver(ABC, PretrainedSolver):
     :param eval_mode: None, or 'taylor' or 'compose': the Field evaluation
         strategy (:func:`~neurodiffeq_tpu_torch.fields.eval_mode`) under
         which the loss and the adaptive-sampling scores are computed.
-    :param mesh: None, or a mesh over the points
-        (:func:`~neurodiffeq_tpu_torch.parallel.make_mesh`): this rank
-        trains on its block of each batch's rows, with the unsharded run's
-        losses, gradients and parameters (module docstring). Every rank
-        builds the solver alike. ``get_solution`` and ``get_residuals``
-        stay local and unsharded.
+    :param mesh: None, or a mesh over the points, or over ``(points,
+        model)`` (:func:`~neurodiffeq_tpu_torch.parallel.make_mesh`): this
+        rank trains on its block of each batch's rows (and its slices of
+        the FCNN and SIREN layer pairs), with the unsharded run's losses,
+        gradients and parameters (module docstring). Every rank builds the
+        solver alike. ``get_solution`` and ``get_residuals`` stay local and
+        unsharded.
 
     A :class:`~neurodiffeq_tpu_torch.generators.ResidualAdaptiveGenerator`
     as the train generator draws its candidates each batch and keeps them by
@@ -217,10 +225,14 @@ class BaseSolver(ABC, PretrainedSolver):
         self.metrics_history.update({'train__' + name: [] for name in self.metrics_fn})
         self.metrics_history.update({'valid__' + name: [] for name in self.metrics_fn})
         self.mesh = mesh
+        self._split, self._grad_slices = None, {}
         if mesh is not None:  # every rank starts from rank 0's parameters and generator state
             _check_mesh(mesh)
             shard_params(self._unique_nets, mesh)
-            self.rng.set_state(broadcast_(self.rng.get_state(), mesh.get_group()))
+            self.rng.set_state(broadcast_(self.rng.get_state(), world_group(mesh)))
+            if mesh_axes(mesh).model is not None:  # the Megatron layout: this rank's blocks of the split leaves
+                self._split = ModelSplit(mesh)
+                self._grad_slices = model_grad_slices(self._unique_nets, mesh)
 
         self.set_optimizer(optimizer if optimizer is not None else torch.optim.Adam(self._parameters(), lr=1e-3))
         self._set_loss_fn(loss_fn)
@@ -339,8 +351,13 @@ class BaseSolver(ABC, PretrainedSolver):
         power = getattr(self.loss_fn, 'residual_power', 2)
         return [r * (w ** (1.0 / power)) for r, w in zip(residuals, rw)]
 
+    @contextmanager
     def _eval_scope(self):
-        return fields.eval_mode(self.eval_mode) if self.eval_mode is not None else nullcontext()
+        """The scope of the sharded forward passes: the evaluation mode and,
+        under a ``'model'`` axis, the nets split over it."""
+        with fields.eval_mode(self.eval_mode) if self.eval_mode is not None else nullcontext():
+            with split_scope(self._unique_nets, self._split):
+                yield
 
     def _loss_and_metrics(self, cols):
         """Enforce, residuals, loss + additional loss, metrics."""
@@ -455,20 +472,39 @@ class BaseSolver(ABC, PretrainedSolver):
         self.optimizer.step(closure)
         return first[0]
 
+    def _counted(self, param, grad):
+        """``param``'s gradient ``grad`` on this rank as the sum over the
+        mesh counts it. Under a ``'model'`` axis every model rank computes
+        the same gradient for what it evaluates whole, and its own part for
+        its slices: a split leaf counts this rank's block (zeros elsewhere),
+        any other parameter counts on model index 0 only."""
+        if self._split is None:
+            return grad
+        block = self._grad_slices.get(param)
+        if block is None:
+            return grad if self._split.rank == 0 else torch.zeros_like(grad)
+        dim, lo, hi = block
+        out = torch.zeros_like(grad)
+        out.narrow(dim, lo, hi - lo).copy_(grad.narrow(dim, lo, hi - lo))
+        return out
+
     @torch.no_grad()
     def _reduce_grads(self, loss=None):
         """Under a mesh: sum the trained parameters' gradients over the
-        ranks in one ``all_reduce``, with ``loss``'s share if given. Every
-        rank runs the same graph on its block, so the parameters with a
-        gradient are the same on every rank. Returns the global loss, or
-        None."""
+        ranks in one ``all_reduce``, with ``loss``'s share if given (each
+        as :meth:`_counted`). Every rank runs the same graph on its block,
+        so the parameters with a gradient are the same on every rank.
+        Returns the global loss, or None."""
         params = [p for p in self._trained_parameters() if p.grad is not None]
-        parts = [p.grad.reshape(-1) for p in params] + ([loss.detach().reshape(1)] if loss is not None else [])
+        if loss is not None:
+            loss = loss.detach().reshape(1)
+            loss = loss if self._split is None or self._split.rank == 0 else torch.zeros_like(loss)
+        parts = [self._counted(p, p.grad).reshape(-1) for p in params] + ([loss] if loss is not None else [])
         if not parts:
             return None
         dtype = parts[0].dtype
         flat = torch.cat([t.to(dtype) for t in parts])
-        all_reduce_(flat, self.mesh.get_group())
+        all_reduce_(flat, world_group(self.mesh))
         sizes = [p.numel() for p in params]
         for p, g in zip(params, torch.split(flat[:sum(sizes)], sizes)):
             p.grad.copy_(g.view_as(p))
@@ -526,8 +562,9 @@ class BaseSolver(ABC, PretrainedSolver):
     def _record_epochs(self, out, phases):
         """Record each phase's ``(loss, metrics)`` of ``out`` with one
         device-to-host read. Under a mesh the losses are this rank's shares
-        and the metrics global: one ``all_reduce`` sums the shares (and
-        rank 0's metrics), so every rank records the global values."""
+        and the metrics global: one ``all_reduce`` over the ``'points'``
+        axis sums the shares (and points index 0's metrics), so every rank
+        records the global values."""
         names = list(self.metrics_fn)
         flat = torch.stack([torch.as_tensor(x, dtype=torch.float64, device=self.device)
                             for loss, m in out for x in [loss, *[m[k] for k in names]]])
@@ -535,8 +572,9 @@ class BaseSolver(ABC, PretrainedSolver):
         if self.mesh is not None:
             keep = torch.zeros_like(flat, dtype=torch.bool)
             keep[::per_phase] = True
-            keep |= self.mesh.get_local_rank() == 0
-            flat = all_reduce_(torch.where(keep, flat, torch.zeros_like(flat)), self.mesh.get_group())
+            points = mesh_axes(self.mesh).points
+            keep |= points.get_local_rank() == 0
+            flat = all_reduce_(torch.where(keep, flat, torch.zeros_like(flat)), points.get_group())
         values = flat.tolist()
         for phase, i in zip(phases, range(0, len(values), per_phase)):
             self._record(phase, values[i], dict(zip(names, values[i + 1:i + per_phase])))
@@ -585,7 +623,7 @@ class BaseSolver(ABC, PretrainedSolver):
         self._max_local_epoch = max_epochs
         self.local_epoch = 0
         pbar = None
-        if self.mesh is not None and self.mesh.get_local_rank() != 0:
+        if self.mesh is not None and self.mesh.get_rank() != 0:
             tqdm_file = None  # one progress bar, rank 0's
         if tqdm is not None and tqdm_file is not None:
             pbar = tqdm(total=max_epochs, desc='Training Progress', colour='blue', file=tqdm_file,

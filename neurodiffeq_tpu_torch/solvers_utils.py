@@ -507,7 +507,7 @@ class PretrainedSolver:
         if path is None and not save_to_hub:
             raise ValueError("Either `path` must be given or `save_to_hub` must be True")
         mesh = getattr(self, 'mesh', None)
-        if mesh is None or mesh.get_local_rank() == 0:
+        if mesh is None or mesh.get_rank() == 0:
             blob = self._serialize()
             if path is not None:
                 with open(path, 'wb') as f:
@@ -515,8 +515,8 @@ class PretrainedSolver:
             if save_to_hub:
                 self._upload_to_hub(blob, name=name, **kwargs)
         if mesh is not None:  # a barrier: no rank reads the file before it is written
-            from .parallel.sharding import all_reduce_
-            all_reduce_(torch.zeros(1, device=self.device), mesh.get_group())
+            from .parallel.sharding import all_reduce_, world_group
+            all_reduce_(torch.zeros(1, device=self.device), world_group(mesh))
         return path
 
     def _upload_to_hub(self, blob, name=None, description=""):

@@ -7,9 +7,10 @@ the port's own launcher (``parallel.launch``), one group of 2, one of 3
 cases (``tests/torch_parallel_ranks.py``, which imports no JAX) whose
 results the parametrized tests read. The JAX side runs here, unsharded and
 on the 8-device virtual mesh of ``tests/conftest.py``. The cases mirror
-``tests/test_parallel.py`` where the feature is ported; its ``'model'`` axis
-is not, and raises. Float64 throughout: loss and every gradient agree to
-1e-10 relative and 1e-12 absolute, trajectories to 1e-9.
+``tests/test_parallel.py``'s points axis; its ``'model'`` axis is
+``tests/test_torch_model_parallel.py``'s. Float64 throughout: loss and
+every gradient agree to 1e-10 relative and 1e-12 absolute, trajectories to
+1e-9.
 
 The STDE probes are the port's own hash, not JAX's threefry stream
 (``tests/test_torch_highdim.py``), so the estimators' cases hold the sharded
@@ -30,7 +31,7 @@ import jax.numpy as jnp
 import optax
 
 import torch_parallel_ranks as R
-from neurodiffeq_tpu_torch.parallel import launch, make_mesh as torch_make_mesh, megatron_param_shardings
+from neurodiffeq_tpu_torch.parallel import launch
 from neurodiffeq_tpu_torch.utils import get_default_device, get_default_dtype, set_tensor_type
 
 from neurodiffeq_tpu import conditions as JC, generators as JG, networks as JN, solvers as JS
@@ -257,12 +258,6 @@ def test_an_additional_loss_without_shard_form_raises_under_a_mesh(runs):
     ``additional_loss`` override must declare its form, as a loss does."""
     for message in runs['two']['undeclared_extra']:
         assert message is not None and 'ExtraLossSolver1D.additional_loss' in message and "'global'" in message
-
-
-def test_model_axis_raises_naming_the_roadmap_item():
-    for call in (lambda: torch_make_mesh(model_axis_size=2), lambda: megatron_param_shardings([], None)):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 23b"):
-            call()
 
 
 @pytest.mark.parametrize('key', list(_loss_specs()))
