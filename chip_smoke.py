@@ -1,10 +1,13 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
 Drives the port's paths through its hand-written CUDA kernels
-(``neurodiffeq_tpu_torch/csrc/taylor_mlp.cu``): ``taylor_mlp_1h`` for nets
-with one hidden layer, ``taylor_mlp`` for every other depth, and
+(``neurodiffeq_tpu_torch/csrc/``): ``taylor_mlp_1h`` for nets with one
+hidden layer, ``taylor_mlp`` for every other depth (``taylor_mlp.cu``), and
 ``taylor_mlp_streams`` for the layer pairs after the first of a net split
-over a ``'model'`` mesh axis. Phases, one line each or more:
+over a ``'model'`` mesh axis (``taylor_mlp_streams.cu``: tensor cores,
+weights resident in shared memory; its staged instance in
+``taylor_mlp.cu`` for narrow nets and where the weights do not fit).
+Phases, one line each or more:
 
 1. device: a CUDA device must be present (no CPU fallback); prints
    ``nvidia-smi --query-gpu=name,power.limit``;
@@ -17,10 +20,13 @@ over a ``'model'`` mesh axis. Phases, one line each or more:
    whose Taylor path folds w0 into its layers and launches the kernel,
    against the plain layer-by-layer engine, with the same limits.
    ``taylor_mlp_streams`` against its twin at every shape of
-   ``STREAM_SHAPES`` with the same limits and repeatability: one model
+   ``STREAM_SHAPES`` with the same limits and repeatability, in the design
+   the planner picks and in the other one where it fits: one model
    rank's slices of the cavity's pairs 1 and 2, the default FCNN's
    trailing layer, order 1, d = 10 (direction chunks), a width past shared
-   memory (the global scratch) and no input activation.
+   memory (the global scratch), no input activation, and 7 streams (one
+   raw input buffer in float32); then NaNs in the input streams and in a
+   weight must come out where the twin's do.
    ``CHECK_SHAPES`` include nets at the edges of the kernels' reach:
    more than 8 inputs (direction chunks), 20 layers, hidden
    widths whose streams overflow shared memory (a global scratch) and a
@@ -227,7 +233,11 @@ over a ``'model'`` mesh axis. Phases, one line each or more:
    ``TABLE_SHAPES`` and ``REACH_SHAPES`` (``torch.profiler`` over 10 calls;
    the latter only where the tree's kernels take them) beside the kernel's
    bound (``taylor_mlp_streams`` at the first ``STREAM_TIMED`` shapes of
-   ``STREAM_SHAPES``), the wrapper's host enqueue time per call, and train-only epochs/s
+   ``STREAM_SHAPES``, with the design that ran, the other design's time,
+   and a bound whose products run on tensor cores, ``stream_bound_ms``;
+   beside pair 1 the two plain float32 ``torch.matmul`` products of its
+   layers, TF32 off, as a yardstick; both designs at ``ROUTE_SHAPES``, on
+   each side of each bound of the planner's narrow-net rule), the wrapper's host enqueue time per call, and train-only epochs/s
    with the kernel and with the twin swapped in, interleaved in 50-epoch
    windows; the backward of the kernel's autograd function at both cavity
    widths; the Lotka-Volterra epoch's rate in 50-epoch windows and the spherical,
@@ -288,6 +298,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 KERNEL_SOURCE = 'neurodiffeq_tpu_torch/csrc/taylor_mlp.cu'
+STREAMS_SOURCE = 'neurodiffeq_tpu_torch/csrc/taylor_mlp_streams.cu'
 REPLACES = 'neurodiffeq_tpu/ops/pallas_mlp.py:115'
 # 5a's 2,000 epochs cut to 1,000 when a full run with the heat and Burgers phases
 # passed 900 s (the port's CPU float32 run of the phase: max error 4.746e-3 at
@@ -507,8 +518,16 @@ STREAM_SHAPES = [
     ((32, 16, 32), 10, 'tanh', 'tanh', 2, 1000),    # d > 8: two direction chunks, the last shifted back
     ((2800, 64, 1), 2, 'tanh', 'tanh', 2, 300),     # streams past shared memory: the global scratch
     ((16, 16, 2), 3, 'sin', None, 2, 37),           # no input activation; ragged N
+    ((128, 64, 128), 3, 'tanh', 'tanh', 2, 4097),  # 7 streams: one raw input buffer in float32
 ]
 STREAM_TIMED = 3
+# taylor_mlp_streams' routing (ops/taylor_mlp.py::_narrow), phase 6: both designs timed in float32 (d = 2, tanh,
+# input tanh, order 2) on each side of each bound of the narrow-net rule: (layer widths, N)
+ROUTE_SHAPES = [
+    ((32, 1), 16384), ((32, 8), 1024),       # the output under one mma n tile, or not
+    ((64, 1), 16384), ((128, 3), 1024),      # the input at most 64 wide, or not
+    ((32, 32, 1), 1024), ((64, 64, 1), 1024),  # 1,056 or 4,160 multiply-adds per point and stream
+]
 # the result line times taylor_mlp_1h at the flagship's shape and taylor_mlp at
 # the primitive cavity's, its heaviest path (taylor_mlp_streams at STREAM_SHAPES[0])
 RECORD_SHAPES = {'taylor_mlp_1h': ((2, 512, 1), 'tanh', 2, 1024, F32),
@@ -524,6 +543,8 @@ SIREN_SHAPES = [((2, 32, 32, 1), 1024), ((2, 64, 1), 1024)]  # (layer widths, N)
 TOL = {F64: 1e-10, F32: 1e-4}
 # H100 SXM peaks outside the tensor cores (float32, float64) and HBM3's rate, NVIDIA's data sheet
 PEAK_FLOPS = {F32: 67e12, F64: 34e12}
+# and on them: a float32 product in 3xTF32 is three TF32 products (495 TFLOP/s), float64 in DMMA
+PEAK_MMA = {F32: 495e12 / 3, F64: 67e12}
 PEAK_BYTES = 3.35e12
 
 
@@ -585,20 +606,32 @@ def taylor_cost(dims, actv, order, n, esize):
 
 
 def stream_cost(dims, d, actv, input_actv, order, n, esize):
-    """(floating-point operations, bytes) of one ``taylor_mlp_streams`` call
-    on ``(1 + order d, n, dims[0])`` input streams, as ``taylor_cost``
-    counts them: the input activation and every hidden unit's activation and
-    chain rule per point, 2 S h_in h_out per layer (S = 1 + order*d). Bytes:
-    the input streams, the parameters and the S outputs, each once."""
+    """(product operations, elementwise operations, bytes) of one
+    ``taylor_mlp_streams`` call on ``(1 + order d, n, dims[0])`` input
+    streams, as ``taylor_cost`` counts them: 2 S h_in h_out per layer (S =
+    1 + order*d), and the input activation and every hidden unit's
+    activation and chain rule per point. Bytes: the input streams, the
+    parameters and the S outputs, each once."""
     s = 1 + order * d
     act = (1 + 4) if actv == 'tanh' else (2 + 1)
     chain = 5 * d if order == 2 else d
     params = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
-    flops = dims[0] * (act + chain) if input_actv else 0
-    for h_in, h_out in zip(dims[:-2], dims[1:-1]):
-        flops += 2 * s * h_in * h_out + h_out * (act + chain)
-    flops += 2 * s * dims[-2] * dims[-1]
-    return n * flops, esize * (n * s * (dims[0] + dims[-1]) + params)
+    products = sum(2 * s * h_in * h_out for h_in, h_out in zip(dims[:-1], dims[1:]))
+    elementwise = (dims[0] * (act + chain) if input_actv else 0) + sum(h * (act + chain) for h in dims[1:-1])
+    return n * products, n * elementwise, esize * (n * s * (dims[0] + dims[-1]) + params)
+
+
+def stream_bound_ms(dims, d, actv, input_actv, order, n, dtype):
+    """(least milliseconds the card could take, 'operations' or 'bytes') for
+    one ``taylor_mlp_streams`` call: the larger of its bytes at HBM3's rate
+    and its products on tensor cores (``PEAK_MMA``) plus its elementwise
+    work at ``PEAK_FLOPS``; and, for comparison, the CUDA-core bound that
+    counts every operation at ``PEAK_FLOPS``."""
+    products, elementwise, nbytes = stream_cost(dims, d, actv, input_actv, order, n, torch.finfo(dtype).bits // 8)
+    t_ops = (products / PEAK_MMA[dtype] + elementwise / PEAK_FLOPS[dtype]) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    bound = (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
+    return bound, bound_ms(dims, actv, order, n, dtype, (products + elementwise, nbytes))
 
 
 def bound_ms(dims, actv, order, n, dtype, cost=None):
@@ -2097,44 +2130,123 @@ def check_streams(taylor_mlp):
             for i, shape in enumerate(STREAM_SHAPES):
                 dims, d, actv, input_actv, order, n = shape
                 streams, layers = stream_inputs(dims, d, order, n, dtype, seed=i)
+                before = dict(taylor_mlp.STREAM_DESIGNS)
                 got = taylor_mlp.fcnn_taylor_streams(streams, layers, order, actv, input_actv)
                 again = taylor_mlp.fcnn_taylor_streams(streams, layers, order, actv, input_actv)
                 torch.cuda.synchronize()
                 want = taylor_mlp.fcnn_taylor_streams_reference(streams, layers, order, actv, input_actv)
                 torch.cuda.synchronize()
+                picked = [k for k, v in taylor_mlp.STREAM_DESIGNS.items() if v > before[k]]
                 errs = [rel_err(a, b) for a, b in zip(got, want)]
                 same = all(torch.equal(a, b) for a, b in zip(got, again))
                 ok = len(got) == order + 1 and all(a.shape == b.shape for a, b in zip(got, want))
-                ok = ok and same and all(e <= TOL[dtype] for e in errs)
-                phase('3 kernel', f"{stream_name(*shape, dtype)}: rel err {' '.join(f'{e:.2e}' for e in errs)} "
-                                  f"(limit {TOL[dtype]:.0e}), two launches {'bitwise equal' if same else 'DIFFER'} "
-                                  f"{'ok' if ok else 'FAIL'}")
+                ok = ok and same and all(e <= TOL[dtype] for e in errs) and len(picked) == 1
+                # the design the planner does not pick, where it fits, through the launcher itself
+                other = {'resident': 'staged', 'staged': 'resident'}.get(''.join(picked))
+                stacked = taylor_mlp._streams_stacked_reference(streams, layers, order, actv, input_actv)
+                try:
+                    alt = taylor_mlp._launch_streams(streams, layers, order, actv, input_actv, other)
+                    alt_again = taylor_mlp._launch_streams(streams, layers, order, actv, input_actv, other)
+                    torch.cuda.synchronize()
+                    alt_err, alt_same = rel_err(alt, stacked), torch.equal(alt, alt_again)
+                    ok = ok and alt_same and alt_err <= TOL[dtype]
+                    alt_note = (f"; {other} design rel err {alt_err:.2e}, two launches "
+                                f"{'bitwise equal' if alt_same else 'DIFFER'}")
+                except ValueError:  # the resident kernel does not fit
+                    alt_note = f"; {other} design does not fit"
+                phase('3 kernel', f"{stream_name(*shape, dtype)}: {'+'.join(picked)} design (the planner's) rel err "
+                                  f"{' '.join(f'{e:.2e}' for e in errs)} (limit {TOL[dtype]:.0e}), two launches "
+                                  f"{'bitwise equal' if same else 'DIFFER'}{alt_note} {'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise SystemExit("chip_smoke: taylor_mlp_streams disagrees with its twin or with itself")
                 errors[(shape, dtype)] = max((a - b).abs().max().item() for a, b in zip(got, want))
+            # a NaN in the input streams and one in the output layer's weights come out where the twin's do
+            dims, d, actv, input_actv, order, _ = STREAM_SHAPES[1]
+            streams, layers = stream_inputs(dims, d, order, 1000, dtype, seed=len(STREAM_SHAPES))
+            streams[1, 7, 5] = float('nan')
+            layers[-1][0][10, 1] = float('nan')
+            got = taylor_mlp.fcnn_taylor_streams(streams, layers, order, actv, input_actv)
+            want = taylor_mlp.fcnn_taylor_streams_reference(streams, layers, order, actv, input_actv)
+            torch.cuda.synchronize()
+            nans = [int(w.isnan().sum()) for w in want]
+            ok = all(torch.equal(a.isnan(), b.isnan()) for a, b in zip(got, want)) and 0 < sum(nans)
+            errs = [rel_err(a[~b.isnan()], b[~b.isnan()]) for a, b in zip(got, want)]
+            ok = ok and all(e <= TOL[dtype] for e in errs)
+            phase('3 kernel', f"{stream_name(dims, d, actv, input_actv, order, 1000, dtype)} with a NaN in the "
+                              f"streams and one in a weight: NaNs where the twin's ({'+'.join(map(str, nans))}), "
+                              f"{'equal' if ok else 'DIFFER'}; elsewhere rel err "
+                              f"{' '.join(f'{e:.2e}' for e in errs)} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit("chip_smoke: taylor_mlp_streams loses or makes NaNs")
     return errors
 
 
 def time_streams(card, taylor_mlp):
     """Phase 6: {shape: (kernel us, twin us, bound ms, bound_by)} of
     ``taylor_mlp_streams`` at the first ``STREAM_TIMED`` shapes of
-    ``STREAM_SHAPES`` in float32."""
+    ``STREAM_SHAPES`` in float32, each with the design that ran (an older
+    tree's wrapper counts no designs) and, for pair 1, its two layers'
+    products as plain float32 ``torch.matmul`` calls (TF32 off): a
+    yardstick, not the same function, so the record's ``library_ms`` stays
+    null."""
     out = {}
+    designs = getattr(taylor_mlp, 'STREAM_DESIGNS', {})
     with torch.no_grad():
         for i, shape in enumerate(STREAM_SHAPES[:STREAM_TIMED]):
             dims, d, actv, input_actv, order, n = shape
             streams, layers = stream_inputs(dims, d, order, n, F32, seed=50 + i)
+            before = dict(designs)
             k_us, k_launches = device_us(lambda: taylor_mlp.fcnn_taylor_streams(streams, layers, order, actv,
                                                                                 input_actv), calls=SHAPE_CALLS)
+            ran = [name for name in designs if designs[name] > before[name]] or ['not counted']
+            if len(ran) == 1 and ran[0] in designs:  # the design the planner did not pick, timed beside it
+                other = 'staged' if ran[0] == 'resident' else 'resident'
+                other_us = design_us(taylor_mlp, other, streams, layers, order, actv, input_actv)
+                ran = [f"{ran[0]} (the planner's; {other} "
+                       f"{'does not fit' if other_us is None else f'{other_us:.2f} us'})"]
             t_us, t_launches = device_us(lambda: taylor_mlp.fcnn_taylor_streams_reference(
                 streams, layers, order, actv, input_actv), calls=SHAPE_CALLS)
-            b_ms, b_by = bound_ms(dims, actv, order, n, F32, stream_cost(dims, d, actv, input_actv, order, n, 4))
+            (b_ms, b_by), (old_ms, old_by) = stream_bound_ms(dims, d, actv, input_actv, order, n, F32)
             out[shape] = (k_us, t_us, b_ms, b_by)
-            phase('6 timing', f"{card}: {stream_name(*shape, F32)}: device time per call (profiler) kernel "
-                              f"{k_us:.2f} us in {k_launches:.0f} launches, twin {t_us:.2f} us in {t_launches:.0f} "
-                              f"launches; bound {b_ms * 1e3:.3f} us ({b_by}), kernel at {b_ms * 1e3 / k_us:.1%} of "
-                              f"the bound")
+            yardstick = ''
+            if i == 0:
+                assert not torch.backends.cuda.matmul.allow_tf32
+                rows = streams.shape[0] * n
+                mm = [(torch.rand(rows, a, device='cuda', dtype=F32),
+                       torch.rand(a, b, device='cuda', dtype=F32))
+                      for a, b in zip(dims[:-1], dims[1:])]
+                mm_us = [device_us(lambda a=a, b=b: torch.matmul(a, b), calls=SHAPE_CALLS)[0] for a, b in mm]
+                yardstick = (f"; yardstick, not the same function: torch.matmul float32 (TF32 off) "
+                             + ' + '.join(f"({rows} x {a.shape[1]}) @ ({b.shape[0]} x {b.shape[1]}) {us:.2f} us"
+                                          for (a, b), us in zip(mm, mm_us)))
+            phase('6 timing', f"{card}: {stream_name(*shape, F32)}: design {'+'.join(ran)}: device time per call "
+                              f"(profiler) kernel {k_us:.2f} us in {k_launches:.0f} launches, twin {t_us:.2f} us in "
+                              f"{t_launches:.0f} launches; bound {b_ms * 1e3:.3f} us ({b_by}; products on tensor "
+                              f"cores), kernel at {b_ms * 1e3 / k_us:.1%} of the bound (all on CUDA cores "
+                              f"{old_ms * 1e3:.3f} us, {old_by}){yardstick}")
+        for i, (dims, n) in enumerate(ROUTE_SHAPES if hasattr(taylor_mlp, '_narrow') else []):
+            streams, layers = stream_inputs(dims, 2, 2, n, F32, seed=60 + i)
+            us = {design: design_us(taylor_mlp, design, streams, layers, 2, 'tanh', 'tanh')
+                  for design in ('resident', 'staged')}
+            picked = taylor_mlp._plan_streams(n, 2, dims, 2, 4, torch.cuda.get_device_properties(0)
+                                              .multi_processor_count).design
+            faster = min(us, key=us.get)
+            phase('6 timing', f"{card}: routing: {stream_name(dims, 2, 'tanh', 'tanh', 2, n, F32)}: device time "
+                              f"per call (profiler) resident {us['resident']:.2f} us, staged {us['staged']:.2f} us; "
+                              f"the planner picks {picked}, {'the faster' if picked == faster else 'the SLOWER'}")
     return out
+
+
+def design_us(taylor_mlp, design, streams, layers, order, actv, input_actv):
+    """Device microseconds per ``taylor_mlp_streams`` call in ``design``,
+    whatever the planner picks, or None where that design does not fit."""
+    try:
+        taylor_mlp._plan_streams(streams.shape[1], (streams.shape[0] - 1) // order, tuple(
+            [layers[0][0].shape[0]] + [W.shape[1] for W, _ in layers]), order, streams.element_size(), 1, design)
+    except ValueError:
+        return None
+    return device_us(lambda: taylor_mlp._launch_streams(streams, layers, order, actv, input_actv, design),
+                     calls=SHAPE_CALLS)[0]
 
 
 def time_shapes(card, taylor_mlp):
@@ -3281,7 +3393,8 @@ def main():
     recorded.append(('taylor_mlp_streams', stream_times[STREAM_SHAPES[0]], stream_errors[(STREAM_SHAPES[0], F32)]))
     for name, (k_us, t_us, b_ms, b_by), err in recorded:
         record['kernels'].append({
-            'name': name, 'route': 'cuda', 'source': KERNEL_SOURCE, 'replaces': REPLACES,
+            'name': name, 'route': 'cuda', 'replaces': REPLACES,
+            'source': STREAMS_SOURCE if name == 'taylor_mlp_streams' else KERNEL_SOURCE,
             'launches': sum(p.get(name, 0) for p in paths.values()), 'max_abs_err': err, 'ms': k_us / 1e3,
             'plain_ms': t_us / 1e3, 'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None})
     print(card)

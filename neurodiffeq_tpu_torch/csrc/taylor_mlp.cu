@@ -1,4 +1,5 @@
-// Fused Taylor-mode FCNN forward for Hopper (sm_90a): three kernel entries.
+// Fused Taylor-mode FCNN forward for Hopper (sm_90a): three kernel entries
+// (taylor_mlp_streams.cu holds a fourth).
 //
 // taylor_mlp_1h and taylor_mlp replace the TPU kernel
 // neurodiffeq_tpu/ops/pallas_mlp.py::_kernel (launched by _pallas_call
@@ -61,37 +62,22 @@
 // global scratch instead (one region per resident block, which then loops
 // over point tiles); the weight tiles stay in shared memory.
 //
-// taylor_mlp_streams (the same function on input Taylor streams): a layer
-// pair of a net split over the ranks of a 'model' mesh axis (Megatron tensor
-// parallelism) starts from the summed streams of the pair before, not from
-// raw coordinates. The input is (1 + order d, N, h_in), the layout the
-// kernels write; an optional input activation is applied to it with the
-// chain rule above, then 1-kMaxLayers affine layers with the activation
-// between them. It is taylor_mlp_kernel with its first layer replaced by a
-// load of the tile's input streams into shared memory (STREAMS): every
-// layer but the output layer then runs on the staged weight tiles. On the
-// TPU this axis ran the plain Taylor path (Pallas is off by default there):
-// this entry replaces no Pallas kernel, and exists so that no layer pair of
-// a split net runs as plain PyTorch on the card. What bounds it is what
-// bounds taylor_mlp's middle layers: FMA work, 2 S h_in h_out per point
-// (S = 1 + order d), fed from shared memory.
+// taylor_mlp_streams_staged: the same function on input Taylor streams
+// (1 + order d, N, h_in), after an optional input activation, for the shapes
+// whose weights cannot stay resident in shared memory, where the
+// taylor_mlp_streams kernel of taylor_mlp_streams.cu takes them (that
+// file's header has the design; ops/taylor_mlp.py::_plan_streams routes by
+// shape). It is taylor_mlp_kernel with its first layer replaced by a load of
+// the tile's input streams into shared memory (STREAMS): every layer but the
+// output layer then runs on the staged weight tiles.
 //
 // No integer division by a runtime width in an inner loop: divisors are
 // compile-time constants (D, S, kKTile).
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "taylor_mlp_common.cuh"
 
 namespace {
 
-constexpr int kMaxLayers = 128;    // MLPParams, passed by value, stays under 4 KB of kernel parameters
-constexpr int kMaxDims = 8;        // directions D of one launch's chunk
-constexpr int kMaxGridYZ = 65535;  // CUDA's bound on a grid's y and z extents
 constexpr int kMaxThreads = 256;   // threads of a block, both kernels
-constexpr int kMaxDevices = 64;
-constexpr int kSmemLimit = 232448; // dynamic shared memory a block may use on sm_90
-constexpr int kActTanh = 0;
-constexpr int kActSin = 1;
-constexpr int kActNone = -1;  // taylor_mlp_streams: no input activation
 constexpr int kKTile = 16;         // rows (k) of one staged weight tile
 constexpr int kUnitsPerLane = 4;
 constexpr int kChunk = 32 * kUnitsPerLane;  // output units of one pass
@@ -102,42 +88,6 @@ static_assert(kUnitsPerLane == 4, "taylor_mlp_kernel dispatches mac_w_tile over 
 // in all at most); points a warp of the general kernel owns. The planner in ops/taylor_mlp.py repeats both.
 __host__ __device__ constexpr int max_tile_1h(int s) { return 32 / s; }
 __host__ __device__ constexpr int points_per_warp(int s) { return s <= 5 ? 2 : 1; }
-
-template <typename T>
-struct MLPParams {
-  const T* W[kMaxLayers];   // layer l weight, (dims[l+1], dims[l]) row-major (nn.Linear layout)
-  const T* b[kMaxLayers];   // layer l bias, (dims[l+1],)
-  int dims[kMaxLayers + 1];
-};
-
-__device__ __forceinline__ float dev_tanh(float x) { return tanhf(x); }
-__device__ __forceinline__ double dev_tanh(double x) { return tanh(x); }
-__device__ __forceinline__ float dev_sin(float x) { return sinf(x); }
-__device__ __forceinline__ double dev_sin(double x) { return sin(x); }
-__device__ __forceinline__ float dev_cos(float x) { return cosf(x); }
-__device__ __forceinline__ double dev_cos(double x) { return cos(x); }
-
-template <int ACT, typename T>
-__device__ __forceinline__ void actv_chain(T z, T& a, T& f1, T& f2) {
-  if constexpr (ACT == kActTanh) {
-    a = dev_tanh(z);
-    f1 = T(1) - a * a;
-    f2 = T(-2) * a * f1;
-  } else {
-    a = dev_sin(z);
-    f1 = dev_cos(z);
-    f2 = -a;
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void actv_chain(T z, int actv, T& a, T& f1, T& f2) {
-  if (actv == kActTanh) {
-    actv_chain<kActTanh>(z, a, f1, f2);
-  } else {
-    actv_chain<kActSin>(z, a, f1, f2);
-  }
-}
 
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
@@ -182,17 +132,6 @@ __device__ __forceinline__ T warp_transpose_sum(T (&v)[32], int lane) {
   transpose_step<T, 2>(v, lane);
   transpose_step<T, 1>(v, lane);
   return v[0];
-}
-
-// ---------------------------------------------------------------- direction chunks
-// The first of the D directions of the block's chunk: chunks of D, the last
-// shifted back so that it ends at d. Only a D = kMaxDims instance runs more
-// than one chunk; the others keep their output pointers as given (shifting
-// them slows their stores) and every block stores c0.
-template <int D>
-__device__ __forceinline__ int chunk_dir0(int d, unsigned chunk) {
-  if constexpr (D == kMaxDims) return min(static_cast<int>(chunk) * D, d - D);
-  return 0;
 }
 
 // ---------------------------------------------------------------- one hidden layer
@@ -298,19 +237,6 @@ taylor_mlp_1h_kernel(const T* __restrict__ x, int n, int d, int h, int n_out, co
 }
 
 // ---------------------------------------------------------------- general depth
-template <typename T>
-__device__ __forceinline__ void cp_async(T* dst, const T* src) {
-  const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if constexpr (sizeof(T) == 4) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(saddr), "l"(src));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(saddr), "l"(src));
-  }
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
 // One staged weight tile: layer l, output units [j0, j0 + kChunk), inputs [k0, k0 + kKTile).
 struct WTile {
   int l, j0, k0;
@@ -645,12 +571,7 @@ taylor_mlp_kernel(const T* __restrict__ x, int n, int d, int n_layers, MLPParams
 }
 
 // ---------------------------------------------------------------- host side
-constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
-
 bool bad_block(int threads) { return threads < 32 || threads > kMaxThreads || threads % 32 != 0; }
-
-// Direction chunks of a launch for d inputs (dispatch takes at most kMaxGridYZ).
-int chunks_of(int d) { return (d + kMaxDims - 1) / kMaxDims; }
 
 template <typename T, int D, int ORDER>
 int launch_1h(const T* x, int n, int d, int h, int n_out, const T* W1, const T* b1, const T* W2,
@@ -698,23 +619,6 @@ int launch_general(const T* x, int n, int d, int n_layers, const MLPParams<T>& p
         x, n, d, n_layers, p, actv, in_actv, tile, hstride, gbuf, c0, c1, c2);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-// Calls F<D, ORDER>::run(args...) for D = min(d, kMaxDims) and the runtime order.
-template <template <int, int> class F, typename... A>
-int dispatch(int d, int order, A... args) {
-  if (order != 1 && order != 2) return kInvalid;
-  if (d < 1 || chunks_of(d) > kMaxGridYZ) return kInvalid;
-#define NDTORCH_CASE(DD)                                                                \
-  case DD:                                                                              \
-    return order == 1 ? F<DD, 1>::run(args...) : F<DD, 2>::run(args...);
-  switch (d < kMaxDims ? d : kMaxDims) {
-    NDTORCH_CASE(1) NDTORCH_CASE(2) NDTORCH_CASE(3) NDTORCH_CASE(4)
-    NDTORCH_CASE(5) NDTORCH_CASE(6) NDTORCH_CASE(7) NDTORCH_CASE(8)
-    default:
-      return kInvalid;
-  }
-#undef NDTORCH_CASE
 }
 
 template <typename T>
@@ -798,13 +702,14 @@ extern "C" {
 // (streams in shared memory) or holds 2 * (1 + order * min(d, 8)) * tile *
 // hstride elements for each of them.
 //
-// taylor_mlp_streams takes input streams x of (1 + order * d, n, dims[0])
-// elements and in_actv (-1: none, 0: tanh, 1: sin); its `blocks`, `scratch`
-// and `hstride` are the general kernel's, hstride covering dims[0] too.
+// taylor_mlp_streams_staged takes input streams x of (1 + order * d, n,
+// dims[0]) elements and in_actv (-1: none, 0: tanh, 1: sin); its `blocks`,
+// `scratch` and `hstride` are the general kernel's, hstride covering dims[0]
+// too.
 //
 // The build compiles this file once per entry point, all at once, with
-// -DNDTORCH_ENTRY=1..6 (the order below), and links the six objects; with
-// no NDTORCH_ENTRY one compile holds them all.
+// -DNDTORCH_ENTRY=1..6 (the order below), beside the other sources' entries,
+// and links the objects; with no NDTORCH_ENTRY one compile holds them all.
 #ifndef NDTORCH_ENTRY
 #define NDTORCH_ENTRY 0
 #endif
@@ -848,20 +753,20 @@ int taylor_mlp_f64(const void* x, int n, int d, int n_layers, const int* dims,
 #endif
 
 #if NDTORCH_ENTRY == 0 || NDTORCH_ENTRY == 5
-int taylor_mlp_streams_f32(const void* x, int n, int d, int n_layers, const int* dims,
-                           const void* const* W, const void* const* b, int order, int actv, int in_actv,
-                           int tile, int threads, int smem, int hstride, int blocks, void* scratch,
-                           void* c0, void* c1, void* c2, void* stream) {
+int taylor_mlp_streams_staged_f32(const void* x, int n, int d, int n_layers, const int* dims,
+                                  const void* const* W, const void* const* b, int order, int actv, int in_actv,
+                                  int tile, int threads, int smem, int hstride, int blocks, void* scratch,
+                                  void* c0, void* c1, void* c2, void* stream) {
   return forward_general<float, true>(x, n, d, n_layers, dims, W, b, order, actv, in_actv, tile, threads,
                                       smem, hstride, blocks, scratch, c0, c1, c2, stream);
 }
 #endif
 
 #if NDTORCH_ENTRY == 0 || NDTORCH_ENTRY == 6
-int taylor_mlp_streams_f64(const void* x, int n, int d, int n_layers, const int* dims,
-                           const void* const* W, const void* const* b, int order, int actv, int in_actv,
-                           int tile, int threads, int smem, int hstride, int blocks, void* scratch,
-                           void* c0, void* c1, void* c2, void* stream) {
+int taylor_mlp_streams_staged_f64(const void* x, int n, int d, int n_layers, const int* dims,
+                                  const void* const* W, const void* const* b, int order, int actv, int in_actv,
+                                  int tile, int threads, int smem, int hstride, int blocks, void* scratch,
+                                  void* c0, void* c1, void* c2, void* stream) {
   return forward_general<double, true>(x, n, d, n_layers, dims, W, b, order, actv, in_actv, tile, threads,
                                        smem, hstride, blocks, scratch, c0, c1, c2, stream);
 }

@@ -4,10 +4,10 @@ The sources under ``neurodiffeq_tpu_torch/csrc/`` are compiled by ``nvcc``
 for ``sm_90a`` into one shared library with a plain C interface, placed in
 ``build/kernels/`` at the root of the checkout and named by a hash of the
 sources and flags, so an unchanged tree reuses it and a changed one
-rebuilds. Each source is compiled once per C entry point
-(``-DNDTORCH_ENTRY=1..6``, the order of ``_ARGTYPES``), all of them at
-once, and the objects are linked. Importing this module builds nothing;
-:func:`load_library` does, on the first call.
+rebuilds. Each source is compiled once per C entry point that it defines
+(``-DNDTORCH_ENTRY=1, 2, ...``, the order of ``SOURCE_ENTRIES``), all of
+them at once, and the objects are linked. Importing this module builds
+nothing; :func:`load_library` does, on the first call.
 """
 import ctypes
 import hashlib
@@ -28,18 +28,25 @@ _LIB = None
 BUILD_INFO = {}  # 'path', 'seconds' (0.0 when reused), 'log' (nvcc's stderr)
 
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = {  # C entry point -> argument types, as declared in csrc/taylor_mlp.cu
+_ARGTYPES = {  # C entry point -> argument types, as the csrc/ sources declare them
     'taylor_mlp_1h': [_VP, _INT, _INT, _INT, _INT, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
                       _VP, _VP, _VP, _VP],
     'taylor_mlp': [_VP, _INT, _INT, _INT, ctypes.POINTER(_INT), ctypes.POINTER(_VP),
                    ctypes.POINTER(_VP), _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VP, _VP, _VP, _VP,
                    _VP],
+    'taylor_mlp_streams_staged': [_VP, _INT, _INT, _INT, ctypes.POINTER(_INT), ctypes.POINTER(_VP),
+                                  ctypes.POINTER(_VP), _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VP,
+                                  _VP, _VP, _VP, _VP],
     'taylor_mlp_streams': [_VP, _INT, _INT, _INT, ctypes.POINTER(_INT), ctypes.POINTER(_VP),
-                           ctypes.POINTER(_VP), _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _VP, _VP,
-                           _VP, _VP, _VP],
+                           ctypes.POINTER(_VP), _INT, _INT, _INT, _INT, _INT, _INT, _VP, _VP],
 }
-# the C entry points, in the order of NDTORCH_ENTRY = 1, 2, ...
-ENTRY_POINTS = [name + suffix for name in _ARGTYPES for suffix in ('_f32', '_f64')]
+# source -> the C entry points it defines, in the order of its NDTORCH_ENTRY = 1, 2, ...
+SOURCE_ENTRIES = {
+    'taylor_mlp.cu': [name + suffix for name in ('taylor_mlp_1h', 'taylor_mlp', 'taylor_mlp_streams_staged')
+                      for suffix in ('_f32', '_f64')],
+    'taylor_mlp_streams.cu': ['taylor_mlp_streams_f32', 'taylor_mlp_streams_f64'],
+}
+ENTRY_POINTS = [entry for entries in SOURCE_ENTRIES.values() for entry in entries]
 
 
 def _sources():
@@ -82,7 +89,7 @@ def build():
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         units = [(src, entry, f'{tmp}/{src.stem}_{entry}.o') for src in _sources() if src.suffix == '.cu'
-                 for entry in range(1, len(ENTRY_POINTS) + 1)]
+                 for entry in range(1, len(SOURCE_ENTRIES[src.name]) + 1)]
         cmds = [[nvcc, *NVCC_FLAGS, f'-DNDTORCH_ENTRY={entry}', '-c', '-o', obj, str(src)]
                 for src, entry, obj in units]
         procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for cmd in cmds]

@@ -24,10 +24,15 @@ coordinate axes.
 the D first and the D second coefficients), after an optional input
 activation: the layer pairs of a net split over a ``'model'`` mesh axis
 (:mod:`~neurodiffeq_tpu_torch.parallel`) after the first. A CUDA tensor
-launches ``taylor_mlp_streams`` or raises; a CPU tensor runs its twin
+launches ``taylor_mlp_streams`` or raises: the tensor-core kernel of
+``csrc/taylor_mlp_streams.cu`` with the weights resident in shared memory,
+or, where they do not fit there, its staged instance in ``csrc/taylor_mlp.cu``
+(:func:`_plan_streams` routes by shape). A CPU tensor runs its twin
 :func:`fcnn_taylor_streams_reference`, which is its backward too.
 
-``LAUNCHES`` counts launches per kernel; :func:`reset_launches` zeroes it.
+``LAUNCHES`` counts launches per kernel, ``STREAM_DESIGNS`` the
+``taylor_mlp_streams`` launches per design; :func:`reset_launches` zeroes
+both.
 """
 import ctypes
 import functools
@@ -42,6 +47,7 @@ __all__ = ['fcnn_taylor', 'fcnn_taylor_reference', 'fcnn_taylor_streams', 'fcnn_
            'LAUNCHES', 'reset_launches']
 
 LAUNCHES = {'taylor_mlp_1h': 0, 'taylor_mlp': 0, 'taylor_mlp_streams': 0}
+STREAM_DESIGNS = {'resident': 0, 'staged': 0}
 
 _ACTVS = {'tanh': 0, 'sin': 1}
 _IN_ACTVS = {None: -1, **_ACTVS}  # taylor_mlp_streams' input activation
@@ -50,12 +56,17 @@ _SMEM_LIMIT = 232448   # bytes of shared memory one block may use on sm_90
 _MAX_LAYERS, _MAX_DIMS, _MAX_THREADS = 128, 8, 256   # _MAX_DIMS: directions of one chunk
 _MAX_GRID_YZ = 65535   # CUDA's bound on a grid's y and z extents: output units, direction chunks
 _K_TILE, _CHUNK = 16, 128   # kKTile, kChunk: one staged weight tile is kKTile x (kChunk + 1)
+# taylor_mlp_streams.cu's constants: threads of a block, points of a unit's tile and depth of
+# an mma k step by element size, weight rows padded to a multiple of _ROW_TILE, the mbarriers
+_RESIDENT_THREADS, _RESIDENT_TILE, _MMA_K, _ROW_TILE, _BAR_BYTES = 512, {4: 16, 8: 8}, {4: 8, 8: 4}, 16, 16
+_NARROW_OUT, _NARROW_IN, _NARROW_MACS = 8, 64, 2048   # _narrow: where the staged instance is the faster
 
 
 def reset_launches():
     """Set every kernel's launch count to 0."""
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, STREAM_DESIGNS):
+        for name in counts:
+            counts[name] = 0
 
 
 def _actv_chain(z, actv):
@@ -218,12 +229,100 @@ def _plan(n, dims, order, esize, n_sm):
     return _staged_plan('taylor_mlp', n, s, chunks, max(dims[1:-1]), esize, n_sm)
 
 
-def _plan_streams(n, d, dims, order, esize, n_sm):
+StreamPlan = namedtuple('StreamPlan', 'design tile threads smem hstride blocks scratch buffers')
+
+
+def _hstride(width, esize):
+    """``hstride`` of ``taylor_mlp_streams.cu``: the shared-memory row
+    stride of a width-``width`` operand, whole mma k steps and 4 mod 8
+    elements (the fragment loads' 8 rows x 4 columns in distinct banks)."""
+    k = -(-width // _MMA_K[esize]) * _MMA_K[esize]
+    return k if k % 8 == 4 else k + 4
+
+
+def _stage_in_operand(dims, esize):
+    """Whether the resident kernel stages a unit's outputs in the first
+    layer's operand buffer: the output layer does not read it, and the
+    outputs fit."""
+    return len(dims) > 2 and dims[-1] <= _hstride(dims[0], esize)
+
+
+def _resident_smem(dims, s, buffers, esize):
+    """Bytes of the resident kernel's shared memory (``layout`` of the CUDA
+    source): the mbarriers, every layer's weights and bias, ``buffers`` raw input
+    buffers, the first layer's operand, up to two buffers of hidden
+    streams and, unless it is the operand buffer, the output stage, for
+    ``s`` streams of one tile."""
+    tile = _RESIDENT_TILE[esize]
+    elems = sum(-(-b // _ROW_TILE) * _ROW_TILE * _hstride(a, esize) + -(-b // 4) * 4
+                for a, b in zip(dims[:-1], dims[1:]))
+    elems += buffers * s * tile * dims[0] + s * tile * _hstride(dims[0], esize)
+    hidden = dims[1:-1]
+    if hidden:
+        elems += min(2, len(hidden)) * s * tile * max(_hstride(h, esize) for h in hidden)
+    if not _stage_in_operand(dims, esize):
+        elems += s * tile * dims[-1]
+    return _BAR_BYTES + elems * esize
+
+
+def _bulk_rows(width, esize):
+    """Whether a tile's input streams of ``width`` elements per point can
+    come by bulk copy (one per stream), not element by element: a bulk copy
+    moves a whole number of 16 bytes between 16-byte aligned addresses (the
+    launch checks the input's own alignment)."""
+    return width * esize % 16 == 0
+
+
+def _narrow(dims):
+    """Whether ``taylor_mlp_streams``' staged instance outruns the resident
+    kernel at widths ``dims`` (both timed at shapes on each side of each
+    bound, ``chip_smoke.py`` phase 6): where every weak part of the staged
+    design is small, so that the resident kernel's fixed latency per tile
+    (the copies, the operand pass, three barriers, chains of mma on unit
+    tiles padded to 16) is not hidden. Its output layer, one warp reduction
+    per (point, output unit), is narrower than one mma n tile; its input,
+    loaded element by element through the input activation, is at most
+    ``_NARROW_IN`` wide; and its products, on CUDA cores, take at most
+    ``_NARROW_MACS`` multiply-adds per point and stream."""
+    return (dims[-1] < _NARROW_OUT and dims[0] <= _NARROW_IN
+            and sum(a * b for a, b in zip(dims[:-1], dims[1:])) <= _NARROW_MACS)
+
+
+def _plan_streams(n, d, dims, order, esize, n_sm, design=None):
     """The launch of ``taylor_mlp_streams`` for ``n`` points with ``d``
-    directions through widths ``dims`` (``dims[0]`` the streams' width):
-    the general kernel's plan, every width but the output's staged."""
-    return _staged_plan('taylor_mlp_streams', n, _streams(d, order), math.ceil(d / _MAX_DIMS), max(dims[:-1]),
-                        esize, n_sm)
+    directions through widths ``dims`` (``dims[0]`` the streams' width);
+    ``design`` ``'resident'`` or ``'staged'`` takes that design whatever
+    the shape (``chip_smoke.py`` times one against the other), and
+    ``'resident'`` raises ``ValueError`` where it does not fit.
+
+    - ``'resident'`` (``csrc/taylor_mlp_streams.cu``) where every layer's
+      weights stay in shared memory beside the tile's buffers with one raw
+      input buffer; two where they fit, so that the next tile's copies
+      start before this tile's input is read. Tiles of ``_RESIDENT_TILE``
+      points; persistent blocks of 16 warps, one on each SM (two would not
+      fit an SM's registers), none without a (tile, direction chunk) unit.
+    - ``'staged'`` otherwise: for a narrow net (:func:`_narrow`; the
+      default FCNN's trailing 32 -> 1 layer), and where the weights do not
+      fit (the reach shape 2800 -> 64 -> 1, whose weights take 717 KB in
+      float32; in float64 the cavity's 128 -> 64 -> 128 pair, 137 KB of
+      weights beside 105 KB of buffers): ``taylor_mlp_kernel``'s stream
+      instance in ``csrc/taylor_mlp.cu``, on staged weight tiles
+      (:func:`_staged_plan`).
+    """
+    if design not in (None, 'resident', 'staged'):
+        raise ValueError(f"unknown taylor_mlp_streams design {design!r}")
+    s, chunks = _streams(d, order), math.ceil(d / _MAX_DIMS)
+    tile = _RESIDENT_TILE[esize]
+    for buffers in (2, 1) if design == 'resident' or (design is None and not _narrow(dims)) else ():
+        smem = _resident_smem(dims, s, buffers, esize)
+        if smem <= _SMEM_LIMIT:
+            blocks = min(math.ceil(n / tile) * chunks, n_sm)
+            return StreamPlan('resident', tile, _RESIDENT_THREADS, smem, _hstride(dims[0], esize), blocks, 0,
+                              buffers)
+    if design == 'resident':
+        raise ValueError(f"taylor_mlp_streams' resident design does not fit widths {dims} at {s} streams")
+    staged = _staged_plan('taylor_mlp_streams', n, s, chunks, max(dims[:-1]), esize, n_sm)
+    return StreamPlan('staged', *staged[1:], 0)
 
 
 def _staged_plan(kernel, n, s, chunks, hstride, esize, n_sm):
@@ -246,7 +345,7 @@ def _weight_tiles(esize):
     return 2 * _K_TILE * (_CHUNK + 1) * esize
 
 
-_PLANS = {}  # (kernel family, dtype, device index, dims, order, n, d) -> Plan
+_PLANS = {}  # (kernel family, dtype, device index, dims, order, n, d[, design]) -> Plan or StreamPlan
 
 
 def _check(points, layers, order, actv, d=None):
@@ -342,9 +441,10 @@ def _launch(points, layers, order, actv):
     return (c0, c1, c2)[:order + 1]
 
 
-def _launch_streams(streams, layers, order, actv, input_actv):
+def _launch_streams(streams, layers, order, actv, input_actv, design=None):
     """:func:`_launch` for input streams: ``taylor_mlp_streams`` on the
-    current stream; returns the ``(1 + order d, N, out)`` stack."""
+    current stream, in the design :func:`_plan_streams` picks (or
+    ``design``); returns the ``(1 + order d, N, out)`` stack."""
     from ._build import load_library
 
     d = _stream_dirs(streams, order)
@@ -356,21 +456,26 @@ def _launch_streams(streams, layers, order, actv, input_actv):
     if n == 0:
         return out
     index = streams.get_device()
-    key = ('streams', dtype, index, dims, order, n, d)
+    key = ('streams', dtype, index, dims, order, n, d, design)
     plan = _PLANS.get(key)
     if plan is None:
-        plan = _PLANS[key] = _plan_streams(n, d, dims, order, streams.element_size(), _sm_count(index))
+        plan = _PLANS[key] = _plan_streams(n, d, dims, order, streams.element_size(), _sm_count(index), design)
     Wk = [_row_major(W.t()) for W, _ in layers]  # kept alive until the launch is enqueued
     bk = [_row_major(b) for _, b in layers]
-    scratch = torch.empty(plan.scratch, dtype=dtype, device=device) if plan.scratch else None
-    p0, stride = out.data_ptr(), n * dims[-1] * streams.element_size()
-    args = (streams.data_ptr(), n, d, len(layers), (ctypes.c_int * len(dims))(*dims),
-            (ctypes.c_void_p * len(Wk))(*[w.data_ptr() for w in Wk]),
-            (ctypes.c_void_p * len(bk))(*[t.data_ptr() for t in bk]),
-            order, _ACTVS[actv], _IN_ACTVS[input_actv], plan.tile, plan.threads, plan.smem, plan.hstride,
-            plan.blocks, None if scratch is None else scratch.data_ptr(), p0, p0 + stride,
-            p0 + (1 + d) * stride if order == 2 else None)
-    fn = getattr(load_library(), 'taylor_mlp_streams' + ('_f32' if dtype == torch.float32 else '_f64'))
+    net = (streams.data_ptr(), n, d, len(layers), (ctypes.c_int * len(dims))(*dims),
+           (ctypes.c_void_p * len(Wk))(*[w.data_ptr() for w in Wk]),
+           (ctypes.c_void_p * len(bk))(*[t.data_ptr() for t in bk]),
+           order, _ACTVS[actv], _IN_ACTVS[input_actv])
+    if plan.design == 'resident':
+        bulk = _bulk_rows(dims[0], streams.element_size()) and streams.data_ptr() % 16 == 0
+        name, args = 'taylor_mlp_streams', (*net, plan.buffers, int(bulk), plan.blocks, out.data_ptr())
+    else:
+        scratch = torch.empty(plan.scratch, dtype=dtype, device=device) if plan.scratch else None
+        p0, stride = out.data_ptr(), n * dims[-1] * streams.element_size()
+        name, args = 'taylor_mlp_streams_staged', (*net, plan.tile, plan.threads, plan.smem, plan.hstride,
+                                                   plan.blocks, None if scratch is None else scratch.data_ptr(),
+                                                   p0, p0 + stride, p0 + (1 + d) * stride if order == 2 else None)
+    fn = getattr(load_library(), name + ('_f32' if dtype == torch.float32 else '_f64'))
     stream = torch._C._cuda_getCurrentRawStream(index)
     if index == torch.cuda.current_device():
         err = fn(*args, stream)
@@ -381,6 +486,7 @@ def _launch_streams(streams, layers, order, actv, input_actv):
         raise RuntimeError(f"taylor_mlp_streams kernel launch failed: CUDA error {err} "
                            f"(n={n}, d={d}, dims={dims}, order={order}, plan={plan})")
     LAUNCHES['taylor_mlp_streams'] += 1
+    STREAM_DESIGNS[plan.design] += 1
     return out
 
 

@@ -8,8 +8,15 @@ imports it; this file imports none).
 primitive cavity's second layer pair (128 -> 64 -> 128 on order-2 streams
 of 2 directions, tanh, the input activation inside) against its twin: 1e-4
 relative in float32 (the kernel sums in another order than cuBLAS), 1e-10
-in float64, and two launches bitwise equal. And ``launch(fn, 4)`` under
-gloo: four ranks on one card form a (2, 2) ``(points, model)`` mesh whose
+in float64, and two launches bitwise equal. The same for each design,
+the tensor-core kernel with its weights resident wherever they fit and
+the staged instance everywhere, and for the planner's pick: at both of
+the cavity's stream pairs (-> 128 and -> 3) at a ragged N = 16,383; with
+7 streams, where float32 takes one raw input buffer; at widths whose rows
+are no multiple of 16 bytes (the input streams copied element by
+element); at a single layer; and at a shape whose weights do not fit
+shared memory in either type. NaNs in the input streams and in a weight
+come out where the twin's do. And ``launch(fn, 4)`` under gloo: four ranks on one card form a (2, 2) ``(points, model)`` mesh whose
 pass goes through both kernel entries and holds the unsharded loss and
 gradients (float64, 1e-10 relative).
 """
@@ -22,12 +29,12 @@ from neurodiffeq_tpu_torch.ops import taylor_mlp as T
 from neurodiffeq_tpu_torch.parallel import launch
 
 
-def _inputs(dtype):
+def _inputs(dtype, dims=(128, 64, 128), n=2048, d=2, order=2):
     g = torch.Generator().manual_seed(0)
-    streams = torch.rand(5, 2048, 128, generator=g, dtype=torch.float64) * 2 - 1
+    streams = torch.rand(1 + order * d, n, dims[0], generator=g, dtype=torch.float64) * 2 - 1
     layers = [((torch.rand(a, b, generator=g, dtype=torch.float64) * 2 - 1) / a ** 0.5,
                (torch.rand(b, generator=g, dtype=torch.float64) * 2 - 1) / a ** 0.5)
-              for a, b in ((128, 64), (64, 128))]
+              for a, b in zip(dims[:-1], dims[1:])]
     return streams.to('cuda', dtype), [(W.to('cuda', dtype), b.to('cuda', dtype)) for W, b in layers]
 
 
@@ -47,6 +54,76 @@ def test_stream_entry_matches_its_twin_bitwise_repeatably(dtype, tol):
     for a, b, w in zip(got, again, want, strict=True):
         assert torch.equal(a, b)
         assert ((a - w).abs().max() / w.abs().max()).item() <= tol
+
+
+# (widths, N, d, order, input activation) of the stream designs' checks
+STREAM_CASES = [
+    ((128, 64, 128), 16383, 2, 2, 'tanh'),  # the cavity's pair 1 on one of 2 model ranks, ragged
+    ((128, 64, 3), 16383, 2, 2, 'tanh'),    # its pair 2
+    ((128, 64, 128), 4097, 3, 2, 'tanh'),   # S = 7: one raw input buffer in float32 (two pass shared memory)
+    ((3, 20, 5), 1001, 3, 2, 'sin'),        # 12- and 24-byte rows: element copies; 20 hidden units
+    ((6, 40, 24, 7), 300, 10, 1, None),     # order 1, two direction chunks, 2 middle layers
+    ((32, 1), 1024, 2, 2, 'tanh'),          # the default FCNN's trailing layer: a single layer
+    ((2800, 64, 1), 300, 2, 2, 'tanh'),     # weights past shared memory
+]
+DTYPES = {torch.float32: 1e-4, torch.float64: 1e-10}
+
+
+def _fits(dims, d, order, dtype):
+    try:
+        T._plan_streams(1, d, dims, order, torch.finfo(dtype).bits // 8, 132, 'resident')
+    except ValueError:
+        return False
+    return True
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,dims,n,d,order,input_actv,design', [
+    (dtype, *case, design) for dtype in DTYPES for case in STREAM_CASES for design in (None, 'resident', 'staged')
+    if design != 'resident' or _fits(case[0], case[2], case[3], dtype)])
+def test_stream_designs_match_the_twin_bitwise_repeatably(dtype, dims, n, d, order, input_actv, design):
+    """Each design (None: the one the planner picks, and counts) against
+    the twin at every case where it fits, two launches bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (runs on the GPU machine)')
+    plan = T._plan_streams(n, d, dims, order, torch.finfo(dtype).bits // 8, T._sm_count(0), design)
+    if dims == (128, 64, 128) and d == 3 and dtype == torch.float32 and design != 'staged':
+        assert plan.design == 'resident' and plan.buffers == 1
+    streams, layers = _inputs(dtype, dims, n, d, order)
+    with torch.no_grad():
+        T.reset_launches()
+        got = T._launch_streams(streams, layers, order, 'tanh', input_actv, design)
+        again = T._launch_streams(streams, layers, order, 'tanh', input_actv, design)
+        want = T._streams_stacked_reference(streams, layers, order, 'tanh', input_actv)
+        torch.cuda.synchronize()
+    assert T.LAUNCHES['taylor_mlp_streams'] == T.STREAM_DESIGNS[plan.design] == 2
+    assert got.shape == want.shape and torch.equal(got, again)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= DTYPES[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('design', ['resident', 'staged'])
+@pytest.mark.parametrize('input_actv', [None, 'tanh'])
+@pytest.mark.parametrize('dtype', list(DTYPES))
+def test_nans_come_out_where_the_twins_do(dtype, input_actv, design):
+    """A NaN in the input streams (a first-order coefficient of one point)
+    and one in the output layer's weights come out as NaN where the twin's
+    do, through the input activation, a middle layer's chain rule and the
+    products (the float32 products round by integer arithmetic, which must
+    keep a NaN one), and every other value as the twin's."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (runs on the GPU machine)')
+    streams, layers = _inputs(dtype, (32, 40, 24), 300, 2, 2)
+    streams[1, 7, 5] = float('nan')
+    layers[-1][0][10, 3] = float('nan')
+    with torch.no_grad():
+        got = T._launch_streams(streams, layers, 2, 'tanh', input_actv, design)
+        want = T._streams_stacked_reference(streams, layers, 2, 'tanh', input_actv)
+        torch.cuda.synchronize()
+    nan = want.isnan()
+    assert nan[:, :, 3].all() and nan[1, 7].all() and not nan[0, 7, 0]
+    assert torch.equal(got.isnan(), nan)
+    assert ((got - want)[~nan].abs().max() / want[~nan].abs().max()).item() <= DTYPES[dtype]
 
 
 @pytest.mark.cuda

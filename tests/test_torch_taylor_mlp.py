@@ -279,6 +279,174 @@ def test_plan_raises_where_one_warp_cannot_fit():
     assert one.kernel == 'taylor_mlp_1h' and one.scratch == 0
 
 
+# the chip check's taylor_mlp_streams shapes: (widths, d, activation, input activation, order, N)
+STREAM_SHAPES = [
+    ((128, 64, 128), 2, 'tanh', 'tanh', 2, 16384),  # one model rank's slice of the cavity's pair 1
+    ((128, 64, 3), 2, 'tanh', 'tanh', 2, 16384),    # its pair 2
+    ((32, 1), 2, 'tanh', 'tanh', 2, 1024),          # the default FCNN's trailing layer
+    ((128, 64, 128), 2, 'sin', 'sin', 1, 1024),
+    ((32, 16, 32), 10, 'tanh', 'tanh', 2, 1000),    # two direction chunks
+    ((2800, 64, 1), 2, 'tanh', 'tanh', 2, 300),     # weights past shared memory
+    ((16, 16, 2), 3, 'sin', None, 2, 37),
+    ((128, 64, 128), 3, 'tanh', 'tanh', 2, 4097),  # 7 streams: one raw input buffer in float32
+]
+
+
+def test_stream_shapes_are_the_chip_checks():
+    import chip_smoke
+
+    assert STREAM_SHAPES == chip_smoke.STREAM_SHAPES
+
+
+# STREAM_SHAPES that the staged instance takes, by element size: the narrow
+# nets (the trailing 32 -> 1 layer, 16 -> 16 -> 2) and 2800 -> 64 -> 1, whose
+# weights do not fit shared memory; in float64 also 128 -> 64 -> 128 at
+# order 2, whose 137 KB of weights pass a block's shared memory beside its
+# buffers
+STAGED_STREAM_SHAPES = {4: {2, 5, 6}, 8: {0, 2, 5, 6, 7}}
+
+
+@pytest.mark.parametrize('esize', [4, 8])
+@pytest.mark.parametrize('index', range(len(STREAM_SHAPES)))
+def test_plan_streams_routes_by_shape(index, esize):
+    """The tensor-core kernel with resident weights takes every stream shape
+    but the narrow nets and those whose weights do not fit shared memory
+    (``STAGED_STREAM_SHAPES``), with two raw input buffers where they fit
+    and one otherwise. Its shared memory fits a block; its tiles cover N;
+    its persistent blocks walk every (tile, direction chunk) unit once and
+    are no more than the card's SMs."""
+    dims, d, _, _, order, n = STREAM_SHAPES[index]
+    plan = taylor_mlp._plan_streams(n, d, dims, order, esize, H100_SMS)
+    s, chunks = 1 + order * min(d, 8), -(-d // 8)
+    assert plan.design == ('staged' if index in STAGED_STREAM_SHAPES[esize] else 'resident')
+    assert 0 < plan.smem <= 232448
+    if plan.design == 'staged':
+        assert plan == taylor_mlp.StreamPlan('staged', *taylor_mlp._staged_plan(
+            'taylor_mlp_streams', n, s, chunks, max(dims[:-1]), esize, H100_SMS)[1:], 0)
+        return
+    two = taylor_mlp._resident_smem(dims, s, 2, esize)
+    assert plan.buffers == (2 if two <= 232448 else 1)
+    assert plan.smem == taylor_mlp._resident_smem(dims, s, plan.buffers, esize)
+    assert (plan.tile, plan.threads) == ({4: 16, 8: 8}[esize], 512)
+    tiles = -(-n // plan.tile)
+    assert tiles * plan.tile >= n > (tiles - 1) * plan.tile
+    assert plan.blocks == min(tiles * chunks, H100_SMS)  # one block on each SM at most
+    walked = sorted(u for b in range(plan.blocks) for u in range(b, tiles * chunks, plan.blocks))
+    assert walked == list(range(tiles * chunks))
+
+
+def test_resident_layout_at_the_cavity_pairs():
+    """Shared memory of the cavity's stream pairs, counted by hand: 16 bytes
+    of mbarriers; weights (rows padded to 16, stride 132 or 68) and biases
+    (padded to a multiple of 4); two raw
+    input buffers of 5 x 16 x 128; the first layer's operand, 5 x 16 rows
+    of 132; one hidden buffer of 5 x 16 rows of 68; the outputs staged in
+    the operand buffer. The trailing (32, 1) layer stages its own. In
+    float64 pair 2 keeps two raw buffers of 5 x 8 x 128, and pair 1 does
+    not fit even with one."""
+    weights = 64 * 132 + 128 * 68 + 64 + 128
+    raw, operand, hidden = 5 * 16 * 128, 5 * 16 * 132, 5 * 16 * 68
+    assert taylor_mlp._resident_smem((128, 64, 128), 5, 2, 4) == 16 + 4 * (weights + 2 * raw + operand + hidden)
+    assert taylor_mlp._resident_smem((128, 64, 3), 5, 2, 4) == 16 + 4 * (
+        64 * 132 + 16 * 68 + 64 + 4 + 2 * raw + operand + hidden)
+    assert taylor_mlp._resident_smem((32, 1), 5, 2, 4) == 16 + 4 * (
+        16 * 36 + 4 + 2 * 5 * 16 * 32 + 5 * 16 * 36 + 5 * 16)
+    assert taylor_mlp._plan_streams(16384, 2, (128, 64, 3), 2, 8, H100_SMS).buffers == 2
+    assert taylor_mlp._resident_smem((128, 64, 128), 5, 1, 8) > 232448
+
+
+@pytest.mark.parametrize('dims,narrow', [
+    ((32, 1), True), ((32, 8), False),            # the output: under one mma n tile, or not
+    ((64, 1), True), ((128, 3), False),           # the input: at most 64 wide, or not
+    ((32, 32, 1), True), ((64, 64, 1), False),    # the products: 1,056 or 4,160 multiply-adds per point
+    ((16, 16, 2), True), ((256, 1), False), ((128, 64, 3), False), ((32, 32), False),
+])
+def test_plan_streams_sends_narrow_nets_to_the_staged_instance(dims, narrow):
+    """Phase 6 of ``chip_smoke.py`` times both designs on each side of each
+    bound of ``_narrow``: the staged instance takes a net whose output is
+    narrower than 8 units, whose input is at most 64 wide and whose layers
+    take at most 2,048 multiply-adds per point and stream, at any N and in
+    either type; every other net that fits runs the resident kernel."""
+    assert taylor_mlp._narrow(dims) is narrow
+    for n in (256, 1024, 65536):
+        for esize in (4, 8):
+            plan = taylor_mlp._plan_streams(n, 2, dims, 2, esize, H100_SMS)
+            assert plan.design == ('staged' if narrow else 'resident')
+
+
+def test_plan_streams_takes_one_raw_buffer_where_two_do_not_fit():
+    """7 streams (d = 3, order 2) of 128 -> 64 -> 128 in float32: two raw
+    input buffers take 273,680 bytes, past a block's shared memory, and one
+    216,336, so the resident kernel runs with one (its next unit's copies
+    start once the operand is built); in float64 not even one fits."""
+    assert taylor_mlp._resident_smem((128, 64, 128), 7, 2, 4) == 273680
+    plan = taylor_mlp._plan_streams(4097, 3, (128, 64, 128), 2, 4, H100_SMS)
+    assert (plan.design, plan.buffers, plan.smem) == ('resident', 1, 216336)
+    assert taylor_mlp._plan_streams(4097, 3, (128, 64, 128), 2, 8, H100_SMS).design == 'staged'
+
+
+@pytest.mark.parametrize('shape', STREAM_SHAPES)
+def test_plan_streams_takes_the_design_asked_for(shape):
+    """``design`` forces the staged instance at every shape, and the
+    resident kernel wherever it fits (the same plan as when the planner
+    picks it); where it does not fit, asking for it raises."""
+    dims, d, _, _, order, n = shape
+    s, chunks = 1 + order * min(d, 8), -(-d // 8)
+    staged = taylor_mlp._plan_streams(n, d, dims, order, 4, H100_SMS, 'staged')
+    assert staged == taylor_mlp.StreamPlan('staged', *taylor_mlp._staged_plan(
+        'taylor_mlp_streams', n, s, chunks, max(dims[:-1]), 4, H100_SMS)[1:], 0)
+    if taylor_mlp._resident_smem(dims, s, 1, 4) > 232448:
+        with pytest.raises(ValueError, match='does not fit'):
+            taylor_mlp._plan_streams(n, d, dims, order, 4, H100_SMS, 'resident')
+        return
+    resident = taylor_mlp._plan_streams(n, d, dims, order, 4, H100_SMS, 'resident')
+    assert resident.design == 'resident'
+    assert resident.buffers == (2 if taylor_mlp._resident_smem(dims, s, 2, 4) <= 232448 else 1)
+    with pytest.raises(ValueError, match='unknown'):
+        taylor_mlp._plan_streams(n, d, dims, order, 4, H100_SMS, 'fast')
+
+
+@pytest.mark.parametrize('esize', [4, 8])
+@pytest.mark.parametrize('width,bulk', [(3, False), (16, True), (128, True)])
+def test_bulk_copy_predicate(width, bulk, esize):
+    """A tile's input streams come by bulk copy where a point's row is a
+    whole number of 16 bytes, else element by element; the operand's padded
+    rows in shared memory stay 16-byte aligned and hold whole mma k
+    steps."""
+    assert taylor_mlp._bulk_rows(width, esize) is bulk
+    hs = taylor_mlp._hstride(width, esize)
+    assert hs * esize % 16 == 0 and hs >= -(-width // {4: 8, 8: 4}[esize]) * {4: 8, 8: 4}[esize]
+
+
+@pytest.mark.parametrize('esize', [4, 8])
+def test_fragment_loads_are_free_of_bank_conflicts(esize):
+    """At every width up to 300 a fragment load's 8 rows x 4 columns (lane
+    4 g + q reads row g, column q) fall in distinct 4-byte banks: all 32
+    lanes in float32; each half warp, which float64's 8-byte loads serve
+    per wavefront, in float64."""
+    for width in range(1, 301):
+        hs = taylor_mlp._hstride(width, esize)
+        words = esize // 4
+        for lanes in ([range(32)] if esize == 4 else [range(16), range(16, 32)]):
+            banks = [((lane // 4 * hs + lane % 4) * words + w) % 32 for lane in lanes for w in range(words)]
+            assert len(set(banks)) == len(banks), (width, hs)
+
+
+def test_build_compiles_each_source_with_its_own_entries():
+    """Each CUDA source is compiled only with the NDTORCH_ENTRY values it
+    defines, numbered as ``SOURCE_ENTRIES`` lists them; every entry has its
+    ctypes argument types."""
+    from neurodiffeq_tpu_torch.ops import _build
+
+    sources = sorted(p.name for p in _build._CSRC.glob('*.cu'))
+    assert sources == sorted(_build.SOURCE_ENTRIES)
+    for name, entries in _build.SOURCE_ENTRIES.items():
+        text = (_build._CSRC / name).read_text()
+        found = re.findall(r'#if NDTORCH_ENTRY == 0 \|\| NDTORCH_ENTRY == (\d+)\nint (\w+)\(', text)
+        assert found == [(str(i), e) for i, e in enumerate(entries, 1)]
+        assert all(e[:-4] in _build._ARGTYPES for e in entries)
+
+
 def _bad_inputs(case):
     """(points, layers, order, actv) that the kernels do not take, one fault each."""
     pts, layers = _inputs((2, 8, 1))
