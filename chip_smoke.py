@@ -223,11 +223,17 @@ Phases, one line each or more:
       primitive cavity (5e's config at full width, 16,384 points, from 5e's
       seed) for ``MODEL_CAV_EPOCHS`` epochs, each model rank on its slices
       of the three layer pairs (exactly 1 ``taylor_mlp_1h`` and 2
-      ``taylor_mlp_streams`` per epoch): first-epoch loss and every
-      gradient within ``SHARD_GRAD_TOL`` relative of the unsharded runs', no
-      fallback, every rank the same histories, falling losses, the
-      flagship's error below ``SHARD_LIMIT`` and the cavity's walls exact
-      as 5e holds them; the model group's ``all_reduce`` time per epoch is
+      ``taylor_mlp_streams`` per epoch), each loaded through the solver:
+      each rank stores its blocks of the split leaves, and its parameters,
+      gradients and both Adam moments hold ``MODEL_PER_RANK`` elements;
+      first-epoch loss and each rank's block of every gradient within
+      ``SHARD_GRAD_TOL`` relative of the unsharded runs', no all-reduce
+      over the points axis (gradients, records), no fallback, every rank
+      the same histories, falling losses, the flagship's error below
+      ``SHARD_LIMIT`` and the cavity's walls exact as 5e holds them; the
+      cavity saved on the mesh and loaded in this process without one
+      gives the mesh run's gathered solution bit for bit; each rank's
+      epochs/s and the model group's ``all_reduce`` time per epoch are
       reported;
 6. timing: device time per call of kernel and twin at every shape of
    ``TABLE_SHAPES`` and ``REACH_SHAPES`` (``torch.profiler`` over 10 calls;
@@ -437,6 +443,9 @@ WIDE_INPUTS = (9, 32, 32, 1)  # more inputs than one direction chunk: two chunks
 # the flagship's error limit is 5r's SHARD_LIMIT, about twice that rehearsal's errors over seeds 0-2 (1.4901e-2,
 # 1.5154e-2, 1.4915e-2, 5r's own; the JAX package on its (1, 2) mesh, 5s-jax: 1.4700e-2, 1.5194e-2, 1.5182e-2)
 MODEL_AXIS, MODEL_CAV_EPOCHS, MODEL_CAV_COLL_EPOCHS = 2, 20, 5
+# each rank stores its blocks of the split leaves (the JAX package's addressable shards): the elements of its
+# parameters, gradients and each Adam moment on a model axis of 2, against the whole net's (2,049 and 66,819)
+MODEL_PER_RANK = {'flagship': 1025, 'cavity': 33539}
 PHASES = ('3', '3c', '3d', '4', '5a', '5b', '5c', '5d', '5e', '5f', '5g', '5h', '5i', '5j', '5k', '5l', '5m', '5n',
           '5o', '5p', '5q', '5r', '5s', '6')
 EXTRA_PHASES = ('6b',)  # run only when named: a baseline that PERF.md records, too slow for every run
@@ -2952,18 +2961,24 @@ def timed_collective(name, sync, spent, group=None):
     return lambda: setattr(torch.distributed, name, original)
 
 
-def model_rank(backend, devices, flagship, cavity, sync):
+def model_rank(backend, devices, flagship, cavity, sync, save_path):
     """Phase 5s in one rank: ``make_mesh(model_axis_size=MODEL_AXIS)`` over
     the ranks, and on it the flagship from ``flagship = (parameters,
     generator state, epochs)`` and the primitive cavity from ``cavity``
-    (the same for it): each one's first epoch (loss
-    and gradients), launches and fallbacks, history, and the seconds of the
-    model group's ``all_reduce`` calls over its last epochs (synchronized);
-    the flagship's error and the cavity's walls."""
+    (the same for it), each loaded through the solver: each one's first
+    epoch (loss, and this rank's block of each gradient with its place),
+    the elements of its stored parameters, gradients and Adam moments,
+    launches and fallbacks, history, its epochs/s over the epochs between
+    the first and the last ones, and the seconds of the model group's
+    ``all_reduce`` calls over its last epochs (synchronized) and the number
+    of the other ``all_reduce`` calls (the points axis: gradients and
+    records); the flagship's error and the cavity's walls. The cavity is
+    saved to ``save_path`` at the end (every rank gathers, rank 0 writes),
+    with its gathered ``get_solution()`` on a grid."""
     from neurodiffeq_tpu_torch import fields as F
     from neurodiffeq_tpu_torch.ops import taylor_mlp
     from neurodiffeq_tpu_torch.parallel import make_mesh
-    from neurodiffeq_tpu_torch.parallel.sharding import mesh_axes
+    from neurodiffeq_tpu_torch.parallel.sharding import mesh_axes, stored_blocks
     from neurodiffeq_tpu_torch.utils import get_default_device
 
     mesh = make_mesh(devices=devices, backend=backend, model_axis_size=MODEL_AXIS)
@@ -2976,29 +2991,42 @@ def model_rank(backend, devices, flagship, cavity, sync):
         gen = torch.Generator(device=dev)
         gen.set_state(rng_state)
         solver, callbacks = build(mesh=mesh, generator=gen)
-        solver.nets[0].load_state_dict(init)
+        solver.load_params([init])
         F.reset_taylor_fallback_count()
         taylor_mlp.reset_launches()
         solver.fit(1, callbacks=callbacks, tqdm_file=None)
-        first = (solver.metrics_history['train_loss'][0],
-                 [p.grad.detach().cpu().numpy() for p in solver._parameters()])
+        params, blocks, moments = solver._parameters(), stored_blocks(solver._unique_nets), solver.optimizer.state
+        first = (solver.metrics_history['train_loss'][0], [p.grad.detach().cpu().numpy() for p in params],
+                 [(blocks[p].dim, blocks[p].lo, blocks[p].hi) if p in blocks else None for p in params])
+        counts = [sum(t.numel() for t in tensors) for tensors in zip(*[
+            (p, p.grad, moments[p]['exp_avg'], moments[p]['exp_avg_sq']) for p in params])]
         coll = min(coll, epochs - 1)
+        sync()
+        t0 = time.perf_counter()
         solver.fit(epochs - 1 - coll, callbacks=callbacks, tqdm_file=None)
-        spent = [0.0, 0]
-        restore = timed_collective('all_reduce', sync, spent, axes.model.get_group())
+        sync()
+        rate = (epochs - 1 - coll) / (time.perf_counter() - t0)
+        spent, every = [0.0, 0], [0.0, 0]
+        restore = [timed_collective('all_reduce', sync, spent, axes.model.get_group()),
+                   timed_collective('all_reduce', sync, every)]
         try:
             solver.fit(coll, callbacks=callbacks, tqdm_file=None)
         finally:
-            restore()
-        run = {'first': first, 'launches': dict(taylor_mlp.LAUNCHES), 'fallbacks': F.taylor_fallback_count(),
-               'history': list(solver.metrics_history['train_loss']),
-               'model_ms': (spent[0] / max(coll, 1) * 1e3, spent[1] / max(coll, 1))}
+            for undo in reversed(restore):
+                undo()
+        run = {'first': first, 'counts': counts, 'rate': rate, 'launches': dict(taylor_mlp.LAUNCHES),
+               'fallbacks': F.taylor_fallback_count(), 'history': list(solver.metrics_history['train_loss']),
+               'model_ms': (spent[0] / max(coll, 1) * 1e3, spent[1] / max(coll, 1)),
+               'points_calls': (every[1] - spent[1]) / max(coll, 1)}
         if name == 'flagship':
             xs, ys = np.meshgrid(np.linspace(0, 1, 101), np.linspace(0, 1, 101))
             exact = np.sin(np.pi * xs) * np.sinh(np.pi * (1 - ys)) / np.sinh(np.pi)
             run['error'] = float(np.abs(solver.get_solution()(xs, ys, to_numpy=True) - exact).max())
         else:
             run['walls'] = cavity_walls(solver)
+            solver.save(save_path)
+            xs, ys = np.meshgrid(np.linspace(0, 1, 33), np.linspace(0, 1, 33))
+            run['solution'] = solver.get_solution()(xs, ys, to_numpy=True)
         out[name] = run
     return out
 
@@ -3011,8 +3039,8 @@ def shard_rank(backend, devices, init, rng_state, epochs, hd, model=None):
     of them with every collective synchronized and timed; and, with ``hd =
     (points, parameters)``, one batch of 5m's d = 100 problem. With
     ``model = (flagship epochs, cavity parameters, cavity generator state,
-    cavity epochs)`` (5s): ``model_rank`` over the same ranks. Returns what
-    the parent checks."""
+    cavity epochs, cavity save path)`` (5s): ``model_rank`` over the same
+    ranks. Returns what the parent checks."""
     from neurodiffeq_tpu_torch import fields as F, operators as O
     from neurodiffeq_tpu_torch.ops import taylor_mlp
     from neurodiffeq_tpu_torch.parallel import make_mesh
@@ -3073,7 +3101,7 @@ def shard_rank(backend, devices, init, rng_state, epochs, hd, model=None):
         out['hd'] = (loss, [p.grad.detach().cpu().numpy() for p in hd_solver._parameters()], shard.lo, shard.hi,
                      probes.cpu().numpy())
     if model is not None:
-        out['model'] = model_rank(backend, devices, (init, rng_state, model[0]), model[1:], sync)
+        out['model'] = model_rank(backend, devices, (init, rng_state, model[0]), model[1:4], sync, model[4])
     return out
 
 
@@ -3115,6 +3143,7 @@ def run_sharded(F, taylor_mlp, card='the CPU', chosen=('5r', '5s')):
     gradients; one NCCL rank must equal the unsharded first epoch bitwise.
     5s, the model axis (:func:`run_model_axis`), over the same ranks.
     Returns ``{phase: launches summed over the ranks}``."""
+    import tempfile
     from neurodiffeq_tpu_torch import operators as O
     from neurodiffeq_tpu_torch.parallel import launch
     from neurodiffeq_tpu_torch.utils import get_default_device, set_seed
@@ -3130,11 +3159,12 @@ def run_sharded(F, taylor_mlp, card='the CPU', chosen=('5r', '5s')):
     sync = torch.cuda.synchronize if dev.type == 'cuda' else (lambda: None)
     points_axis, model_axis = '5r' in chosen, '5s' in chosen
     hd = model = None
+    tmp = tempfile.TemporaryDirectory(prefix='chip_smoke_5s_')
     if model_axis:  # first: the seed set last is the STDE probes' (utils.seed_value), the ranks' SHARD_SEED
         set_seed(4)  # 5e's
         cav_ref, cav_step = cavity_solver('primitive', CAV_ANNEAL)
         model = (SHARD_EPOCHS, {k: v.detach().cpu().clone() for k, v in cav_ref.nets[0].state_dict().items()},
-                 cav_ref.rng.get_state(), MODEL_CAV_EPOCHS)
+                 cav_ref.rng.get_state(), MODEL_CAV_EPOCHS, str(Path(tmp.name, 'cavity.pt')))
     set_seed(SHARD_SEED)
     ref = flagship_solver()
     init = {k: v.detach().cpu().clone() for k, v in ref.nets[0].state_dict().items()}
@@ -3160,8 +3190,12 @@ def run_sharded(F, taylor_mlp, card='the CPU', chosen=('5r', '5s')):
         cav_ref.fit(1, callbacks=[cav_step], tqdm_file=None)
         cav_first = (cav_ref.metrics_history['train_loss'][0],
                      [p.grad.detach().cpu().numpy() for p in cav_ref._parameters()])
+        whole = {'flagship': sum(p.numel() for p in ref._parameters()),
+                 'cavity': sum(p.numel() for p in cav_ref._parameters())}
+        loaded = load_cavity(model[4])
         totals['5s'] = run_model_axis(taylor_mlp, card, [o['model'] for o in outs], first, cav_first, backend, world,
-                                      launch_s, checks)
+                                      launch_s, checks, whole, loaded)
+    tmp.cleanup()
     if not points_axis:
         return totals
     sync()
@@ -3224,19 +3258,43 @@ def rel(a, b):
                  / max(np.abs(np.asarray(b, np.float64)).max(), 1e-300))
 
 
-def run_model_axis(taylor_mlp, card, outs, first, cav_first, backend, world, launch_s, checks):
+def load_cavity(path):
+    """The cavity that 5s's ranks saved at ``path``, loaded in this process
+    without a mesh through a ``SolverConfig`` (the card's machine has no
+    dill): its ``get_solution()`` on the ranks' grid."""
+    from neurodiffeq_tpu_torch.solvers import Solver2D
+    from neurodiffeq_tpu_torch.solvers_utils import SolverConfig
+
+    fresh, _ = cavity_solver('primitive', CAV_ANNEAL)
+    loaded = Solver2D.load(path, config=SolverConfig(
+        pde_system=fresh.diff_eqs, conditions=fresh.conditions, nets=fresh.nets,
+        train_generator=fresh.generator['train'], valid_generator=fresh.generator['valid']))
+    xs, ys = np.meshgrid(np.linspace(0, 1, 33), np.linspace(0, 1, 33))
+    return loaded.mesh is None, loaded.get_solution()(xs, ys, to_numpy=True)
+
+
+def run_model_axis(taylor_mlp, card, outs, first, cav_first, backend, world, launch_s, checks, whole, loaded):
     """Phase 5s's checks on the ranks' ``model_rank`` results ``outs``: on
     the ``(world // 2, 2)`` mesh the flagship's and the cavity's first
     epochs within ``SHARD_GRAD_TOL`` of the unsharded runs' (``first``,
-    ``cav_first``), the rehearsal's launches per epoch and rank with no
-    fallback, every rank the same histories, falling losses, the flagship's
-    error below ``SHARD_LIMIT`` and the cavity's walls exact as 5e holds
-    them. Returns the launches summed over the ranks."""
+    ``cav_first``; each rank's block of each gradient against the same
+    block of the unsharded one), each rank's stored parameters, gradients
+    and Adam moments at ``MODEL_PER_RANK`` elements (``whole``: the nets'
+    own), no points-axis collective on a ``(1, m)`` mesh, the rehearsal's
+    launches per epoch and rank with no fallback, every rank the same
+    histories, falling losses, the flagship's error below ``SHARD_LIMIT``,
+    the cavity's walls exact as 5e holds them, and the cavity saved on the
+    mesh and ``loaded`` here without one (``load_cavity``) with the mesh
+    run's gathered solution bit for bit. Returns the launches summed over
+    the ranks."""
     flag, cav, checks = [o['flagship'] for o in outs], [o['cavity'] for o in outs], dict(checks)
+
+    def block(h, spec):  # a rank's block of the unsharded array h
+        return h if spec is None else np.take(h, np.arange(spec[1], spec[2]), axis=spec[0])
 
     def first_err(runs, want):
         return max([rel(r['first'][0], want[0]) for r in runs]
-                   + [rel(g, h) for r in runs for g, h in zip(r['first'][1], want[1])])
+                   + [rel(g, block(h, spec)) for r in runs for g, h, spec in zip(r['first'][1], want[1], r['first'][2])])
 
     def launches(runs, epochs, one_hidden, streams):
         return all(r['launches'] == {'taylor_mlp_1h': one_hidden * epochs, 'taylor_mlp': 0,
@@ -3247,7 +3305,16 @@ def run_model_axis(taylor_mlp, card, outs, first, cav_first, backend, world, lau
 
     flag_err, cav_err = first_err(flag, first), first_err(cav, cav_first)
     walls = [max(w) for w in zip(*[r['walls'] for r in cav])]
+    unsharded, loaded_solution = loaded
+    points_calls = [r['points_calls'] for r in flag + cav]
     checks.update({
+        f"stored parameters, gradients and Adam moments {MODEL_PER_RANK['flagship']} and "
+        f"{MODEL_PER_RANK['cavity']} elements per rank (nets {whole['flagship']} and {whole['cavity']})": all(
+            r['counts'] == [MODEL_PER_RANK[name]] * 4 for name, runs in (('flagship', flag), ('cavity', cav))
+            for r in runs),
+        'no points-axis collective on a (1, m) mesh': world > MODEL_AXIS or all(c == 0 for c in points_calls),
+        'the cavity saved on the mesh loads without one, get_solution() bit for bit': unsharded and all(
+            np.array_equal(a, b) for r in cav for a, b in zip(r['solution'], loaded_solution, strict=True)),
         f"a ({world // MODEL_AXIS}, {MODEL_AXIS}) mesh": sorted(o['index'] for o in outs) == sorted(
             (('points', 'model'), p, q) for p in range(world // MODEL_AXIS) for q in range(MODEL_AXIS)),
         f'flagship first epoch within {SHARD_GRAD_TOL} of unsharded': flag_err < SHARD_GRAD_TOL,
@@ -3262,6 +3329,8 @@ def run_model_axis(taylor_mlp, card, outs, first, cav_first, backend, world, lau
         **wall_checks(*walls),
     })
     hist, chist = flag[0]['history'], cav[0]['history']
+    rates = ', '.join(name + ' ' + ' '.join(f"{r['rate']:.2f}" for r in runs) for name, runs in (('flagship', flag),
+                                                                                             ('cavity', cav)))
     coll = '; '.join(name + ' ' + ' '.join(f"{r['model_ms'][0]:.3f}" for r in runs) + f" ms in "
                      f"{runs[0]['model_ms'][1]:.0f} calls" for name, runs in (('flagship', flag), ('cavity', cav)))
     report('5s model axis', f"{card}: {world} {backend} ranks, mesh ({world // MODEL_AXIS}, {MODEL_AXIS}), in "
@@ -3273,8 +3342,13 @@ def run_model_axis(taylor_mlp, card, outs, first, cav_first, backend, world, lau
                             f"10) -> {np.mean(hist[-10:]):.3e} (last 10), flagship max |u - exact| on 101x101 "
                             f"{flag[0]['error']:.4e}; cavity {np.mean(chist[:5]):.4e} (first 5) -> "
                             f"{np.mean(chist[-5:]):.4e} (last 5), walls {walls[0]:.2e}, lid {walls[1]:.2e}, p "
-                            f"{walls[2]:.2e}; the model group's all_reduce per epoch, each rank (synchronized): {coll}",
-           checks, "model-axis check failed")
+                            f"{walls[2]:.2e}; epochs/s, each rank: {rates}; the model group's all_reduce per "
+                            f"epoch, each rank (synchronized): {coll}; "
+                            f"other all_reduce calls per epoch (gradients and records over the points axis), each "
+                            f"rank: {' '.join(f'{c:.0f}' for c in points_calls)}; elements per rank (parameters, "
+                            f"gradients, exp_avg, exp_avg_sq): flagship {flag[0]['counts']} of {whole['flagship']}, "
+                            f"cavity {cav[0]['counts']} of {whole['cavity']}; the cavity saved on the mesh and loaded "
+                            f"without one", checks, "model-axis check failed")
     return {k: sum(r['launches'][k] for r in flag + cav) for k in taylor_mlp.LAUNCHES}
 
 

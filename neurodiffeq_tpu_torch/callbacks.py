@@ -16,7 +16,10 @@ orbax). matplotlib, dill and tensorboard are imported at first use.
 Under a mesh every rank calls the callbacks with the same global histories;
 the ones that write (monitors, checkpoints, TensorBoard) write from rank 0
 only, and ``AutoResidualWeightCallback`` sums its gradients over the ranks,
-so that every rank gets the unsharded run's weights.
+so that every rank gets the unsharded run's weights. Under a ``'model'``
+axis a monitor or a checkpoint reads the parameters on every rank (each
+rank stores its blocks of the split leaves, and reading gathers them),
+then rank 0 writes.
 """
 import json
 import logging
@@ -74,6 +77,12 @@ def _writes(solver):
     on rank 0 under one."""
     mesh = getattr(solver, 'mesh', None)
     return mesh is None or mesh.get_rank() == 0
+
+
+def _gathers(solver):
+    """Whether reading ``solver``'s parameters is a collective, which every
+    rank must join (the solver's ``_reads_collective``)."""
+    return getattr(solver, '_reads_collective', False)
 
 
 class BaseCallback(ABC, _LoggerMixin):
@@ -139,6 +148,8 @@ class MonitorCallback(ActionCallback):
             _safe_mkdir(fig_dir)
 
     def __call__(self, solver):
+        # under a model axis every rank gathers the nets' copies, and rank 0 draws them
+        copies = solver._nets_for(best=False) if _gathers(solver) else None
         if not _writes(solver):
             return
         is_last = solver.local_epoch >= getattr(solver, '_max_local_epoch', 0)
@@ -156,13 +167,14 @@ class MonitorCallback(ActionCallback):
             import copy
             # the worker never sees live training state: frozen copies of the
             # nets (one deepcopy keeps a shared net shared) and of the histories
-            nets = solver._nets_for(best=False)
+            nets = copies if copies is not None else solver._nets_for(best=False)
             history = {k: list(v) for k, v in solver.metrics_history.items()}
             monitor_solver = copy.copy(solver)
             monitor_solver.nets = nets
             monitor_solver.metrics_history = history
         else:
-            nets, history, monitor_solver = solver.nets, solver.metrics_history, solver
+            nets = copies if copies is not None else solver.nets
+            history, monitor_solver = solver.metrics_history, solver
         conditions = solver.conditions
 
         def draw():
@@ -230,19 +242,23 @@ class CheckpointCallback(ActionCallback):
         _safe_mkdir(ckpt_dir)
 
     def __call__(self, solver):
-        if not _writes(solver):
+        if not (_writes(solver) or _gathers(solver)):  # under a model axis every rank gathers, rank 0 writes
             return
         if self.format == 'state_dict':
             return self._save_state_dict(solver)
-        import dill
+        from .solvers_utils import _optimizer_state
 
-        fname = os.path.join(self.ckpt_dir, datetime.now().strftime("%Y-%m-%d_%H-%M-%S") + ".internals")
         internals = dict(solver.get_internals("all"))
         for key in ('params', 'best_params'):
             internals[key] = _numpy_tree(internals.get(key))
         # a torch optimizer does not pickle: its class and state as data
         internals['optimizer'] = {'type': type(solver.optimizer).__name__,
-                                  'state_dict': _numpy_tree(solver.optimizer.state_dict())}
+                                  'state_dict': _numpy_tree(_optimizer_state(solver)['state_dict'])}
+        if not _writes(solver):
+            return
+        import dill
+
+        fname = os.path.join(self.ckpt_dir, datetime.now().strftime("%Y-%m-%d_%H-%M-%S") + ".internals")
         with open(fname, 'wb') as f:
             dill.dump(internals, f)
         self.logger.info(f"Saved checkpoint to {fname} at local epoch = {solver.local_epoch} "
@@ -253,7 +269,10 @@ class CheckpointCallback(ActionCallback):
 
         step = solver.global_epoch
         path = os.path.join(self.ckpt_dir, f"step_{step}.pt")
-        torch.save(_state(solver), path)
+        state = _state(solver)
+        if not _writes(solver):
+            return
+        torch.save(state, path)
         meta = {'global_epoch': step, 'lowest_loss': solver.lowest_loss, 'metrics_history': solver.metrics_history}
         with open(os.path.join(self.ckpt_dir, f"step_{step}.meta.json"), 'w') as f:
             json.dump(meta, f)
@@ -370,10 +389,14 @@ class AutoResidualWeightCallback(ActionCallback):
         """The L2 norm over the solver's parameters of the gradient of each
         equation's mean squared unweighted residual on ``cols``: one forward,
         one ``torch.autograd.grad`` per equation. Under a mesh each rank
-        differentiates its block's share of each term, and the gradients,
-        each as the solver counts it (``_counted``), are summed over the
-        ranks (one ``all_reduce``) before the norms."""
-        from .parallel.sharding import all_reduce_, world_group
+        differentiates its block's share of each term, and the gradients are
+        summed over the ``'points'`` axis (one ``all_reduce``) before the
+        norms. Under a ``'model'`` axis a rank holds its blocks of the split
+        leaves and the same gradient of every replicated leaf as the rest of
+        its model group: the squared norms of its blocks, and on model index
+        0 those of the replicated leaves, are summed over the model group
+        (one more; :func:`~neurodiffeq_tpu_torch.parallel.sharding.squared_norms`)."""
+        from .parallel.sharding import all_reduce_, mesh_axes, squared_norms
         params = solver._parameters()
         with torch.enable_grad(), solver._eval_scope():
             funcs, coords = solver._forward(cols)
@@ -388,11 +411,11 @@ class AutoResidualWeightCallback(ActionCallback):
                 if shard is None:
                     norms.append(torch.sqrt(sum((g * g).sum() for g in grads if g is not None)))
                 else:
-                    flat.append(torch.cat([solver._counted(p, g if g is not None else torch.zeros_like(p)).reshape(-1)
+                    flat.append(torch.cat([(g if g is not None else torch.zeros_like(p)).reshape(-1)
                                            for g, p in zip(grads, params)]))
         if shard is not None:
-            summed = all_reduce_(torch.stack(flat), world_group(solver.mesh))
-            norms = list(torch.sqrt((summed * summed).sum(dim=1)))
+            summed = all_reduce_(torch.stack(flat), mesh_axes(solver.mesh).points.get_group())
+            norms = list(torch.sqrt(squared_norms(summed, params, solver._unique_nets, solver.mesh)))
         return np.asarray(torch.stack(norms).tolist(), dtype=float)
 
     def __call__(self, solver):
@@ -507,7 +530,7 @@ class SetOptimizer(ActionCallback):
             if isinstance(self.optimizer, torch.optim.Optimizer):
                 solver.set_optimizer(self.optimizer)
             elif callable(self.optimizer):
-                params = [p for net in solver._unique_nets for p in net.parameters()]
+                params = solver._parameters()
                 solver.set_optimizer(self.optimizer(params, *self.optimizer_args, **self.optimizer_kwargs))
             else:
                 raise TypeError(f"Unknown optimizer instance/type {self.optimizer}")

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .parallel.sharding import active_split
+from .parallel.sharding import active_split, load_leaf, stored_leaf
 from .utils import resolve
 
 __all__ = ['FCNN', 'Resnet', 'MonomialNN', 'FourierFCNN', 'SIREN',
@@ -38,12 +38,12 @@ def _copy_(dst, src):
 @torch.no_grad()
 def _load_layers(linears, layers):
     """Copy the JAX layer list ``[{'W': (n_in, n_out), 'b': (n_out,)}, ...]``
-    into ``nn.Linear`` modules."""
+    into ``nn.Linear`` modules; a split leaf keeps this rank's block."""
     if len(layers) != len(linears):
         raise ValueError(f"expected {len(linears)} layers, got {len(layers)}")
     for lin, lp in zip(linears, layers):
-        _copy_(lin.weight, np.asarray(lp['W']).T)
-        _copy_(lin.bias, lp['b'])
+        load_leaf(lin, 'weight', np.asarray(lp['W']).T)
+        load_leaf(lin, 'bias', np.asarray(lp['b']))
 
 
 # ------------------------------------------------------------------ activations
@@ -164,36 +164,49 @@ def _as_activation(actv):
     raise TypeError(f"Unsupported activation {actv}")
 
 
-def _split_taylor(points, layers, order, actv, split):
+def _layer(lin, scale=None, stored=False):
+    """``lin`` as ``(W (n_in, n_out), b)``, both times ``scale`` if given:
+    the full leaves, or with ``stored`` what this rank stores of them
+    (:func:`~neurodiffeq_tpu_torch.parallel.sharding.stored_leaf`), which
+    reads no split leaf whole."""
+    W, b = (stored_leaf(lin, 'weight'), stored_leaf(lin, 'bias')) if stored else (lin.weight, lin.bias)
+    return (W.t(), b) if scale is None else (scale * W.t(), scale * b)
+
+
+def _split_taylor(points, linears, scales, order, actv, split):
     """:func:`_mlp_taylor`'s fused call with the layer pairs split over the
     ``'model'`` axis of ``split`` (Megatron tensor parallelism): pair k is
     layers 2k and 2k + 1 where their hidden width divides the axis
     (:func:`~neurodiffeq_tpu_torch.parallel.sharding.divides`). Its slice on
     this rank (the columns of layer 2k and its bias, the rows of layer 2k +
-    1) runs on raw coordinates through ``fcnn_taylor`` for pair 0, on the
-    summed streams of the pair before through ``fcnn_taylor_streams`` (the
-    activation applied inside) for the others; one ``all_reduce`` per pair
-    sums the partial streams, and the bias of layer 2k + 1 is added after
-    it. Runs of layers that do not split (a trailing layer, widths that do
-    not divide) run whole on every rank of the axis."""
+    1: the blocks the rank stores) runs on raw coordinates through
+    ``fcnn_taylor`` for pair 0, on the summed streams of the pair before
+    through ``fcnn_taylor_streams`` (the activation applied inside) for the
+    others; one ``all_reduce`` per pair sums the partial streams, and the
+    bias of layer 2k + 1 is added after it. Runs of layers that do not
+    split (a trailing layer, widths that do not divide) run whole on every
+    rank of the axis, a split leaf among them gathered."""
     from .ops import taylor_mlp
     from .parallel.sharding import divides
 
-    n_layers, d = len(layers), points.shape[1]
+    n_layers, d = len(linears), points.shape[1]
     segments = []  # [first layer, end, split]
     for i in range(0, n_layers, 2):
-        split_pair = i + 1 < n_layers and divides(layers[i][0].shape[1], split.size)
+        split_pair = i + 1 < n_layers and divides(linears[i].out_features, split.size)
         if segments and not split_pair and not segments[-1][2]:
             segments[-1][1] = min(i + 2, n_layers)
         else:
             segments.append([i, min(i + 2, n_layers), split_pair])
     stack = None  # the (1 + order d, N, h) streams between segments
     for lo, hi, split_pair in segments:
-        seg = layers[lo:hi]
         if split_pair:
-            (W0, b0), (W1, b1) = seg
-            a, b = split.chunk(W0.shape[1])
-            seg = [(W0[:, a:b], b0[a:b]), (W1[a:b], torch.zeros_like(b1))]
+            (W0, b0), (W1, b1) = (_layer(linears[i], scales[i], stored=True) for i in (lo, lo + 1))
+            if W0.shape[1] != linears[lo].out_features // split.size:
+                raise RuntimeError("a net split over the 'model' axis stores full-size leaves: place its blocks "
+                                   "first (parallel.sharding.device_put_params)")
+            seg = [(W0, b0), (W1, torch.zeros_like(b1))]
+        else:
+            seg = [_layer(linears[i], scales[i]) for i in range(lo, hi)]
         if lo == 0:
             parts = taylor_mlp.fcnn_taylor(points, seg, order, actv=actv)
         else:
@@ -208,8 +221,10 @@ def _split_taylor(points, layers, order, actv, split):
     return (stack[0], stack[1:1 + d], stack[1 + d:])[:order + 1]
 
 
-def _mlp_taylor(series, ctx, layers, actvs, split=None):
-    """Batched Taylor propagation through ``x -> ... actv(x W + b) ... W + b``.
+def _mlp_taylor(series, ctx, linears, actvs, scales=None, split=None):
+    """Batched Taylor propagation through ``x -> ... actv(x W + b) ... W + b``,
+    the layers ``linears`` (``nn.Linear``), each times its entry of
+    ``scales`` if given (:func:`_layer`).
 
     On raw coordinate inputs at order 1-2 with one activation kind (tanh or
     sin), the propagation is one fused Taylor-MLP call
@@ -220,16 +235,19 @@ def _mlp_taylor(series, ctx, layers, actvs, split=None):
     goes layer by layer, as every order above 2 does (the JAX package's
     kernel stops at order 2 too), whole on every rank."""
     from .ops.taylor import TSeries, affine_series
+    scales = scales or [None] * len(linears)
     kinds = {getattr(a, 'kernel_kind', None) for a in actvs}
     if series.meta == 'raw_coords' and 1 <= ctx.order <= 2 and len(kinds) <= 1 and None not in kinds:
         from .ops import taylor_mlp
         # a net with no hidden layer has no activation: any kind will do
         kind = kinds.pop() if kinds else 'tanh'
         if split is not None:
-            outs = _split_taylor(series.c0, layers, ctx.order, kind, split)
+            outs = _split_taylor(series.c0, linears, scales, ctx.order, kind, split)
         else:
-            outs = taylor_mlp.fcnn_taylor(series.c0, layers, ctx.order, actv=kind)
+            outs = taylor_mlp.fcnn_taylor(series.c0, [_layer(lin, s) for lin, s in zip(linears, scales)], ctx.order,
+                                          actv=kind)
         return TSeries(outs[0], list(outs[1:]))
+    layers = [_layer(lin, s) for lin, s in zip(linears, scales)]
     for (W, b), actv in zip(layers[:-1], actvs):
         series = actv.taylor_series(affine_series(series, W, b), ctx)
     W, b = layers[-1]
@@ -291,14 +309,14 @@ class FCNN(nn.Module):
     def layers(self):
         """``[(W, b), ...]`` with ``W`` as the ``(n_in, n_out)`` view of each
         ``nn.Linear`` weight: the JAX package's layout."""
-        return [(lin.weight.t(), lin.bias) for lin in self.linears]
+        return [_layer(lin) for lin in self.linears]
 
     def taylor_apply(self, series, ctx):
         """Batched Taylor propagation of the whole network: one fused
         Taylor-MLP call where it applies (:func:`_mlp_taylor`; split over
         the ``'model'`` axis inside a solver's sharded pass), else layer by
         layer."""
-        return _mlp_taylor(series, ctx, self.layers(), list(self.actvs), active_split(self))
+        return _mlp_taylor(series, ctx, self.linears, list(self.actvs), split=active_split(self))
 
     @torch.no_grad()
     def load_jax_params(self, params):
@@ -449,10 +467,9 @@ class SIREN(nn.Module):
         # sin(w0 (h W + b)) is an FCNN sin layer with weights w0 W and w0 b:
         # the folded layers take the FCNN path and its kernel, and gradients
         # flow through the folding
-        lins = self.linears
-        layers = [(self._layer_w0(i) * lin.weight.t(), self._layer_w0(i) * lin.bias)
-                  for i, lin in enumerate(lins[:-1])] + [(lins[-1].weight.t(), lins[-1].bias)]
-        return _mlp_taylor(series, ctx, layers, [self._sin] * len(self.hidden_units), active_split(self))
+        scales = [self._layer_w0(i) for i in range(len(self.hidden_units))] + [None]
+        return _mlp_taylor(series, ctx, self.linears, [self._sin] * len(self.hidden_units), scales,
+                           active_split(self))
 
     def load_jax_params(self, params):
         """Copy the JAX package's SIREN parameters ``{'layers': [...]}``."""

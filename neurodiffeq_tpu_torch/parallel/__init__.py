@@ -16,13 +16,17 @@ group evaluates its slice of every FCNN and SIREN layer pair (even layers
 split output columns, odd layers input rows), with one ``all_reduce`` of
 the partial Taylor streams per pair. Pairs after the first run on the
 summed streams through their own kernel entry (``fcnn_taylor_streams``).
+Each rank stores only its blocks of the split leaves, and so do the
+gradients and the optimizer state (:func:`device_put_params`, the JAX
+package's ``shard_params`` layout); solutions, saved files and checkpoints
+hold the full-size tensors (:func:`full_state`), gathered on every rank.
 
 Start the ranks with ``torchrun --nproc_per_node=N script.py`` (one per card
 under NCCL) or from Python with :func:`launch`.
 """
 from .launch import launch
 from .sharding import (make_mesh, points_sharding, replicated_sharding, shard_points,
-                       megatron_param_shardings, shard_params)
+                       megatron_param_shardings, shard_params, device_put_params, full_state)
 
 __all__ = ['make_mesh', 'points_sharding', 'replicated_sharding', 'shard_points',
-           'megatron_param_shardings', 'shard_params', 'launch']
+           'megatron_param_shardings', 'shard_params', 'device_put_params', 'full_state', 'launch']

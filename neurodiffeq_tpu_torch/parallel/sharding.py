@@ -11,23 +11,29 @@ m + q`` is points index p and model index q): each rank of a model group
 evaluates its slice of every FCNN layer pair (even layers split their
 output columns, odd layers their input rows; :func:`megatron_param_shardings`)
 and one ``all_reduce`` over the group per pair sums the partial Taylor
-streams (:class:`ModelSplit`).
+streams (:class:`ModelSplit`). Each rank stores only its blocks of those
+split leaves (:func:`device_put_params`), and the optimizer state follows
+them; reading a split leaf gathers it, and :func:`full_state` gives the
+full-size tensors that solutions and saved files hold.
 
 The collectives the solvers issue are ``all_reduce`` (a sum) and
 ``broadcast`` only, the two that every backend runs on CUDA tensors (gloo
-included). A gather of rows is an ``all_reduce`` of a zero buffer into which
-each rank writes its block (:meth:`RowShard.gather_rows`): exact, since
-adding zeros changes no bit.
+included); over a group of one rank they are skipped. A gather of rows, or
+of the blocks of a leaf, is an ``all_reduce`` of a zero buffer into which
+each rank writes its block (:meth:`RowShard.gather_rows`, :class:`_Block`):
+exact, since adding zeros changes no value.
 """
 import contextlib
 import os
 from collections import namedtuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
+from torch.nn.utils import parametrize
 
 __all__ = ['make_mesh', 'points_sharding', 'replicated_sharding', 'shard_points',
-           'megatron_param_shardings', 'shard_params', 'ModelSplit']
+           'megatron_param_shardings', 'shard_params', 'device_put_params', 'full_state', 'ModelSplit']
 
 
 def _device_type(devices):
@@ -185,7 +191,10 @@ def _comm_device(group):
 
 def _collective(op, tensor, group, **kwargs):
     """``op(tensor, group=group, ...)`` in place, through the comm device
-    when ``tensor`` lies elsewhere (a CPU tensor under NCCL)."""
+    when ``tensor`` lies elsewhere (a CPU tensor under NCCL); nothing over a
+    group of one rank."""
+    if dist.get_world_size(group) == 1:
+        return tensor
     dev = _comm_device(group)
     if dev is None or tensor.device == dev:
         op(tensor, group=group, **kwargs)
@@ -231,12 +240,10 @@ def shard_params(params, mesh):
     """Make parameters equal on every rank: every tensor of ``params`` (a
     module, its parameters and buffers; a state dict; a list of either)
     takes rank 0's value, in place. Returns ``params``. On a 1-D mesh, as in
-    the JAX package, nothing is split. On a 2-D mesh every rank keeps the
-    full-size tensors too, and evaluates its slices of them in the forward
-    (the layout of :func:`megatron_param_shardings`, which the solvers
-    record): the JAX package stores 1/m of each split leaf per device, the
-    port a full replica whose gradients outside the rank's slices are
-    zero."""
+    the JAX package, that is the whole layout. On a 2-D mesh the solvers
+    then keep only each rank's blocks of the split leaves
+    (:func:`device_put_params`): the two calls together are the JAX
+    package's ``shard_params``."""
     replicate = replicated_sharding(mesh)
     for t in _tensors(params):
         replicate(t)
@@ -249,18 +256,17 @@ def divides(width, m):
     return width % m == 0 and width >= m
 
 
-def _layer_specs(layers, m):
-    """Per ``(W (n_in, n_out), b)`` layer: even layers split W's output
-    dimension and the bias with it, odd layers W's input dimension; a
-    dimension that does not divide stays replicated."""
+def _layer_specs(linears, m):
+    """Per ``nn.Linear`` (W its ``(n_in, n_out)`` view): even layers split
+    W's output dimension and the bias with it, odd layers W's input
+    dimension; a dimension that does not divide stays replicated. Reads
+    the layers' sizes only."""
     specs = []
-    for i, (W, b) in enumerate(layers):
+    for i, lin in enumerate(linears):
         w_spec, b_spec = (), ()
-        if i % 2 == 0 and divides(W.shape[1], m):
-            w_spec = (None, 'model')
-            if divides(b.shape[0], m):
-                b_spec = ('model',)
-        elif i % 2 == 1 and divides(W.shape[0], m):
+        if i % 2 == 0 and divides(lin.out_features, m):
+            w_spec, b_spec = (None, 'model'), ('model',)
+        elif i % 2 == 1 and divides(lin.in_features, m):
             w_spec = ('model', None)
         specs.append({'W': w_spec, 'b': b_spec})
     return specs
@@ -289,7 +295,7 @@ def megatron_param_shardings(params, mesh):
         linears = getattr(net, 'linears', None)
         if not isinstance(net, torch.nn.Module) or linears is None:
             return ()
-        return {'layers': _layer_specs([(lin.weight.t(), lin.bias) for lin in linears], m)}
+        return {'layers': _layer_specs(linears, m)}
 
     return [one(p) for p in params] if isinstance(params, (list, tuple)) else one(params)
 
@@ -300,10 +306,11 @@ def _chunk(width, m, q):
     return q * size, (q + 1) * size
 
 
-def model_grad_slices(nets, mesh):
-    """``{parameter: (dim, lo, hi)}``: the block of each split leaf of
-    ``nets`` that this rank's model index owns, in ``nn.Linear``'s layout
-    (weight ``(n_out, n_in)``); a parameter not listed is replicated."""
+def model_blocks(nets, mesh):
+    """``{(linear, name): (dim, lo, hi)}``: the block of each split leaf of
+    ``nets`` (an ``nn.Linear``'s ``'weight'`` or ``'bias'``) that this
+    rank's model index owns, in ``nn.Linear``'s layout (weight ``(n_out,
+    n_in)``); a leaf not listed is replicated."""
     axis = mesh_axes(mesh).model
     m, q = axis.size(), axis.get_local_rank()
     out = {}
@@ -313,10 +320,231 @@ def model_grad_slices(nets, mesh):
         for lin, spec in zip(net.linears, layout['layers']):
             if spec['W']:
                 dim = 0 if spec['W'] == (None, 'model') else 1  # W (n_in, n_out) is weight (n_out, n_in)
-                out[lin.weight] = (dim, *_chunk(lin.weight.shape[dim], m, q))
+                out[lin, 'weight'] = (dim, *_chunk((lin.out_features, lin.in_features)[dim], m, q))
             if spec['b']:
-                out[lin.bias] = (0, *_chunk(lin.bias.shape[0], m, q))
+                out[lin, 'bias'] = (0, *_chunk(lin.out_features, m, q))
     return out
+
+
+class _GatherBlocks(torch.autograd.Function):
+    """A split leaf's full tensor from every model rank's block; the
+    backward keeps this rank's block of the gradient (every model rank
+    computes the same whole-net gradient, so nothing is summed)."""
+
+    @staticmethod
+    def forward(ctx, block, spec):
+        ctx.spec = spec
+        out = block.new_zeros(spec.shape)
+        out.narrow(spec.dim, spec.lo, spec.hi - spec.lo).copy_(block)
+        return all_reduce_(out, spec.split.group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        spec = ctx.spec
+        return grad.narrow(spec.dim, spec.lo, spec.hi - spec.lo), None
+
+
+class _Block(torch.nn.Module):
+    """The parametrization of a split leaf (``torch.nn.utils.parametrize``,
+    registered by :func:`device_put_params`): the module stores this
+    rank's block ``[lo, hi)`` along ``dim`` of the full ``shape`` as the
+    leaf's ``original``, and reading the leaf gathers the full tensor over
+    the model group (a collective: every model rank reads it alike)."""
+
+    def __init__(self, split, dim, shape):
+        super().__init__()
+        self.split, self.dim, self.shape = split, dim, tuple(shape)
+        self.lo, self.hi = split.chunk(self.shape[dim])
+
+    def forward(self, block):
+        return _GatherBlocks.apply(block, self)
+
+    def right_inverse(self, full):
+        """This rank's block of the full-size ``full``, in storage of its own."""
+        if tuple(full.shape) != self.shape:
+            raise ValueError(f"expected the full-size leaf {self.shape}, got {tuple(full.shape)}")
+        return full.narrow(self.dim, self.lo, self.hi - self.lo).clone(memory_format=torch.contiguous_format)
+
+    def __deepcopy__(self, memo):  # a copy shares the process group
+        return type(self)(self.split, self.dim, self.shape)
+
+
+def _blocks_of(module):
+    """``{name: (stored block, _Block)}`` of ``module``'s split leaves."""
+    plist = getattr(module, 'parametrizations', None)
+    return {} if plist is None else {name: (p.original, p[0]) for name, p in plist.items()
+                                     if isinstance(p[0], _Block)}
+
+
+@torch.no_grad()
+def device_put_params(nets, mesh):
+    """Keep on this rank only its blocks of the split leaves of ``nets``
+    (:func:`megatron_param_shardings`, the JAX package's
+    ``jax.device_put(params, megatron_param_shardings(params, mesh))``):
+    each becomes a ``torch.nn.utils.parametrize`` parametrization
+    (:class:`_Block`) whose ``original`` is the rank's block, in storage of
+    its own. The parameter objects stay the same, so an optimizer made over
+    them keeps them; ``parameters()`` then yields the blocks, and reading
+    the leaf (``lin.weight``) gathers the full tensor. Every other leaf
+    stays as it is. ``nets`` hold full-size leaves, equal on every rank
+    (:func:`shard_params`). Returns ``nets``."""
+    split = ModelSplit(mesh)
+    for (lin, name), (dim, _, _) in model_blocks(nets, mesh).items():
+        parametrize.register_parametrization(lin, name, _Block(split, dim, getattr(lin, name).shape), unsafe=True)
+    return nets
+
+
+def stored_blocks(nets):
+    """``{stored block: _Block}`` of every split leaf of ``nets``."""
+    return {block: spec for net in nets for mod in net.modules() for block, spec in _blocks_of(mod).values()}
+
+
+def net_parameters(net):
+    """``net.parameters()`` in the order that they have without a model
+    mesh, each split leaf's stored block where the full leaf was (a module
+    lists its parametrized leaves after its own, and ``nn.Linear``'s split
+    leaves, the weight or the weight and the bias, come first in its own
+    order)."""
+    out = []
+    for mod in net.modules():
+        if not isinstance(mod, parametrize.ParametrizationList):
+            out += [block for block, _ in _blocks_of(mod).values()] + list(mod.parameters(recurse=False))
+    return list({id(p): p for p in out}.values())
+
+
+def _block_keys(net):
+    """``{state-dict key of a stored block: (the full leaf's key, _Block)}``."""
+    out = {}
+    for prefix, mod in net.named_modules():
+        prefix = prefix + '.' if prefix else ''
+        for name, (_, spec) in _blocks_of(mod).items():
+            out[f'{prefix}parametrizations.{name}.original'] = (prefix + name, spec)
+    return out
+
+
+@torch.no_grad()
+def full_state(net, state=None):
+    """``net.state_dict()`` (or ``state``, a dict with its keys) with each
+    stored block gathered into its full-size leaf, under the leaf's own key
+    and in its place: what the net's state dict is without a model mesh.
+    Every rank of the model group calls it alike."""
+    keys = _block_keys(net)
+    state = net.state_dict() if state is None else state
+    items = []
+    for k, v in state.items():
+        full_key, spec = keys.get(k, (k, None))
+        items.append((full_key, v if spec is None else _GatherBlocks.apply(v, spec), spec is None))
+    # in the order without a mesh: a module's split leaves (the first of its own) before its other tensors
+    modules = {}
+    for full_key, _, _ in items:
+        modules.setdefault(full_key.rpartition('.')[0], len(modules))
+    items.sort(key=lambda item: (modules[item[0].rpartition('.')[0]], item[2]))
+    return {k: v for k, v, _ in items}
+
+
+def placed_state(net, full):
+    """The state dict of ``net``'s keys from the full-size ``full`` (keys
+    as :func:`full_state` gives them): this rank's block of each split
+    leaf. No collective."""
+    keys = _block_keys(net)
+    out = {}
+    for k in net.state_dict():
+        full_key, spec = keys.get(k, (k, None))
+        out[k] = full[full_key] if spec is None else spec.right_inverse(full[full_key])
+    return out
+
+
+def stored_leaf(lin, name):
+    """What this rank stores of ``lin``'s leaf ``name``: its block where a
+    model mesh splits the leaf (:func:`device_put_params`), else the leaf."""
+    return lin.parametrizations[name].original if parametrize.is_parametrized(lin, name) else getattr(lin, name)
+
+
+@torch.no_grad()
+def load_leaf(lin, name, value):
+    """Copy the full-size array ``value`` into ``lin``'s leaf ``name``; a
+    split leaf keeps this rank's block. No collective."""
+    stored = stored_leaf(lin, name)
+    value = torch.tensor(np.asarray(value), dtype=stored.dtype, device=stored.device)
+    if parametrize.is_parametrized(lin, name):
+        setattr(lin, name, value)  # through _Block.right_inverse, which checks the shape
+    elif value.shape != stored.shape:
+        raise ValueError(f"shape {tuple(value.shape)} does not match {tuple(stored.shape)}")
+    else:
+        stored.copy_(value)
+
+
+def _map_block_state(sd, params, nets, fn, shape):
+    """``sd``, an optimizer's ``state_dict`` (``params[i]``: the parameter
+    that its state ``i`` belongs to), with ``fn(tensor, _Block)`` applied to
+    each state tensor of a stored block of ``nets`` whose shape is
+    ``shape(parameter, _Block)``: a moment, not a step count."""
+    blocks = stored_blocks(nets)
+    if not blocks:
+        return sd
+    state = {}
+    for i, st in sd['state'].items():
+        spec = blocks.get(params[i])
+        state[i] = st if spec is None else {
+            k: fn(v, spec) if torch.is_tensor(v) and tuple(v.shape) == shape(params[i], spec) else v
+            for k, v in st.items()}
+    return {**sd, 'state': state}
+
+
+@torch.no_grad()
+def full_optimizer_state(opt, nets):
+    """``opt.state_dict()`` with the state of each stored block of ``nets``
+    gathered to its full leaf's size: what it is without a model mesh.
+    Every rank of the model group calls it alike."""
+    params = [p for group in opt.param_groups for p in group['params']]
+    return _map_block_state(opt.state_dict(), params, nets, _GatherBlocks.apply, lambda p, spec: tuple(p.shape))
+
+
+def placed_optimizer_state(sd, params, nets):
+    """The full-size optimizer state ``sd`` (``params[i]``: the parameter
+    of its state ``i``, a stored block of ``nets`` or another) with this
+    rank's block of each split leaf's state. No collective."""
+    return _map_block_state(sd, params, nets, lambda v, spec: spec.right_inverse(v), lambda p, spec: spec.shape)
+
+
+def squared_norms(rows, params, nets, mesh):
+    """The squared L2 norm of each row of ``rows`` (``(k, n)``, each row a
+    gradient over ``params`` flattened and concatenated) as the whole net's
+    gradient has it: under a model axis each stored block's squares summed
+    over the model group, and each replicated leaf, whose gradient every
+    model rank holds alike, counted once (a collective)."""
+    squares = rows * rows
+    axis = mesh_axes(mesh).model
+    if axis is None:
+        return squares.sum(dim=1)
+    blocks, first = stored_blocks(nets), axis.get_local_rank() == 0
+    counted = torch.cat([torch.full((p.numel(),), float(p in blocks or first), dtype=squares.dtype,
+                                    device=squares.device) for p in params])
+    return all_reduce_((squares * counted).sum(dim=1), axis.get_group())
+
+
+def plain_copies(nets, states):
+    """Deep copies of the list ``nets`` (one deepcopy: a net listed twice
+    stays shared) with no blocks: every split leaf a full-size parameter
+    again, and each distinct copy loaded with ``states`` (one full-size
+    state dict per distinct net, in order of first appearance). The live
+    nets are not touched."""
+    from copy import deepcopy
+
+    copies = deepcopy(nets)
+    unique = list({id(n): n for n in copies}.values())
+    for net, state in zip(unique, states):
+        for mod in net.modules():
+            stored = _blocks_of(mod)
+            if not stored:
+                continue
+            # the parametrized class is the plain one's subclass, shared with the live module: the copy leaves it
+            mod.__class__ = type(mod).__bases__[0]
+            del mod._modules['parametrizations']
+            mod._parameters = {**{name: torch.nn.Parameter(block.new_empty(spec.shape), block.requires_grad)
+                                  for name, (block, spec) in stored.items()}, **mod._parameters}
+        net.load_state_dict(state)
+    return copies
 
 
 class _SumOverModel(torch.autograd.Function):
@@ -382,14 +610,17 @@ _SPLITS = {}  # id(module) -> (module, ModelSplit) while split_scope is active
 @contextlib.contextmanager
 def split_scope(nets, split):
     """Within the block, the Taylor evaluations of ``nets`` run split over
-    ``split``'s model group (:func:`active_split`); None: nothing changes."""
+    ``split``'s model group (:func:`active_split`), and a split leaf that a
+    whole-net path reads is gathered once (``parametrize.cached``); None:
+    nothing changes."""
     if split is None:
         yield
         return
     added = {id(n): (n, split) for n in nets if id(n) not in _SPLITS}
     _SPLITS.update(added)
     try:
-        yield
+        with parametrize.cached():
+            yield
     finally:
         for k in added:
             del _SPLITS[k]

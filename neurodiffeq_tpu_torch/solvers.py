@@ -32,10 +32,15 @@ step (and per closure call), and the epoch's records in one more: every
 rank then holds the unsharded run's losses, metrics and parameters. On a
 ``(points, model)`` mesh the rows are blocks of the ``'points'`` axis, and
 the model ranks of a block evaluate their slices of every FCNN and SIREN
-layer pair (:class:`~neurodiffeq_tpu_torch.parallel.sharding.ModelSplit`);
-each rank keeps full-size parameters and counts, in the one ``all_reduce``
-of the gradients over the whole mesh, only the blocks of the split leaves
-that it owns and, on model index 0, the replicated ones. Solvers
+layer pair (:class:`~neurodiffeq_tpu_torch.parallel.sharding.ModelSplit`).
+There each rank stores only its blocks of the split leaves, as the JAX
+package does (:func:`~neurodiffeq_tpu_torch.parallel.sharding.device_put_params`),
+and so do the gradients, the optimizer state and ``best_params``; its model
+group computes the same gradient for every replicated leaf, so the
+gradients are summed over the ``'points'`` axis alone (on a ``(1, m)`` mesh
+not at all). What a solver hands out (solutions, ``best_nets``,
+``get_internals``, saved files, checkpoints) is full-size, gathered on every
+rank: under a model axis every rank calls those readers alike. Solvers
 save, load and resume through
 :class:`~neurodiffeq_tpu_torch.solvers_utils.PretrainedSolver`; a solution
 exports its evaluator as a ``torch.export`` program
@@ -60,8 +65,9 @@ from .fields import Field, cat as field_cat, coords_from_points
 from .generators import Generator1D, Generator2D, GeneratorSpherical, _as_tuple, contains_buried_adaptive
 from .losses import _losses
 from .networks import FCNN, Tanh
-from .parallel.sharding import (ModelSplit, RowShard, all_reduce_, broadcast_, mesh_axes, model_grad_slices,
-                                shard_params, split_scope, world_group, _check_mesh)
+from .parallel.sharding import (ModelSplit, RowShard, all_reduce_, broadcast_, device_put_params, full_state,
+                                mesh_axes, net_parameters, placed_state, plain_copies, shard_params, split_scope,
+                                stored_blocks, world_group, _check_mesh)
 from .solvers_utils import PretrainedSolver
 from .utils import full_precision_matmuls, get_generator, resolve
 
@@ -91,6 +97,13 @@ def _requires_closure(optimizer):
     test)."""
     p = inspect.signature(optimizer.step).parameters.get('closure')
     return p is not None and p.default is inspect.Parameter.empty
+
+
+def _reads_across_leaves(optimizer):
+    """Whether ``optimizer``'s step combines the elements of a leaf, or of
+    all leaves, rather than treating each element alone: a closure-style
+    optimizer (L-BFGS) and ``torch.optim``'s Adafactor and Muon."""
+    return _requires_closure(optimizer) or type(optimizer).__name__ in ('Adafactor', 'Muon')
 
 
 def _shard_form(fn, name):
@@ -145,10 +158,11 @@ class BaseSolver(ABC, PretrainedSolver):
     :param mesh: None, or a mesh over the points, or over ``(points,
         model)`` (:func:`~neurodiffeq_tpu_torch.parallel.make_mesh`): this
         rank trains on its block of each batch's rows (and its slices of
-        the FCNN and SIREN layer pairs), with the unsharded run's losses,
-        gradients and parameters (module docstring). Every rank builds the
-        solver alike. ``get_solution`` and ``get_residuals`` stay local and
-        unsharded.
+        the FCNN and SIREN layer pairs, of which it stores its blocks), with
+        the unsharded run's losses, gradients and parameters (module
+        docstring). Every rank builds the solver alike. ``get_solution`` and
+        ``get_residuals`` evaluate unsharded; under a ``'model'`` axis every
+        rank calls them, since they gather the blocks.
 
     A :class:`~neurodiffeq_tpu_torch.generators.ResidualAdaptiveGenerator`
     as the train generator draws its candidates each batch and keeps them by
@@ -225,14 +239,17 @@ class BaseSolver(ABC, PretrainedSolver):
         self.metrics_history.update({'train__' + name: [] for name in self.metrics_fn})
         self.metrics_history.update({'valid__' + name: [] for name in self.metrics_fn})
         self.mesh = mesh
-        self._split, self._grad_slices = None, {}
+        self._split = None
         if mesh is not None:  # every rank starts from rank 0's parameters and generator state
             _check_mesh(mesh)
+            if stored_blocks(self._unique_nets):
+                raise ValueError("a net already stores blocks of a model mesh: build the solver from full-size nets "
+                                 "(another solver's get_solution().nets or best_nets)")
             shard_params(self._unique_nets, mesh)
             self.rng.set_state(broadcast_(self.rng.get_state(), world_group(mesh)))
-            if mesh_axes(mesh).model is not None:  # the Megatron layout: this rank's blocks of the split leaves
+            if mesh_axes(mesh).model is not None:  # the Megatron layout: this rank keeps its blocks of the split leaves
                 self._split = ModelSplit(mesh)
-                self._grad_slices = model_grad_slices(self._unique_nets, mesh)
+                device_put_params(self._unique_nets, mesh)
 
         self.set_optimizer(optimizer if optimizer is not None else torch.optim.Adam(self._parameters(), lr=1e-3))
         self._set_loss_fn(loss_fn)
@@ -245,7 +262,16 @@ class BaseSolver(ABC, PretrainedSolver):
 
     # -------------------------------------------------------- configuration
     def _parameters(self):
-        return [p for net in self._unique_nets for p in net.parameters()]
+        """The nets' parameters (this rank's blocks of the split leaves
+        under a ``'model'`` axis), in the order they have without one."""
+        return [p for net in self._unique_nets for p in net_parameters(net)]
+
+    @property
+    def _reads_collective(self):
+        """Whether reading the parameters (solutions, ``best_nets``,
+        ``get_internals``, ``save``, checkpoints) is a collective that every
+        rank joins: under a ``'model'`` axis, whose blocks it gathers."""
+        return self._split is not None
 
     def _set_loss_fn(self, criterion):
         if criterion is None:
@@ -263,7 +289,19 @@ class BaseSolver(ABC, PretrainedSolver):
 
     def set_optimizer(self, optimizer, reset_state=True):
         """Swap the optimizer. With ``reset_state`` its state (moments,
-        step counts, L-BFGS history) starts empty."""
+        step counts, L-BFGS history) starts empty. Under a ``'model'`` axis
+        the nets' parameters are this rank's blocks of the split leaves (the
+        same parameter objects: an optimizer made over the full-size ones
+        before the solver holds the blocks), so its state is 1/m of theirs;
+        an optimizer whose step reads across a leaf or across the leaves
+        (:func:`_reads_across_leaves`) would step differently on each rank
+        there, and raises a ``ValueError``."""
+        if self._split is not None and _reads_across_leaves(optimizer):
+            raise ValueError(
+                f"{type(optimizer).__name__} reduces over its parameters (a closure-style optimizer's dot products, "
+                f"norms and line search; factored or orthogonalized moments), and on a 'model' mesh axis each rank "
+                f"holds only its blocks of the split leaves, so the ranks would take different steps; use an "
+                f"elementwise optimizer such as Adam there, or a mesh over the points alone")
         self.optimizer = optimizer
         self._closure_style = _requires_closure(optimizer)
         if reset_state:
@@ -472,39 +510,24 @@ class BaseSolver(ABC, PretrainedSolver):
         self.optimizer.step(closure)
         return first[0]
 
-    def _counted(self, param, grad):
-        """``param``'s gradient ``grad`` on this rank as the sum over the
-        mesh counts it. Under a ``'model'`` axis every model rank computes
-        the same gradient for what it evaluates whole, and its own part for
-        its slices: a split leaf counts this rank's block (zeros elsewhere),
-        any other parameter counts on model index 0 only."""
-        if self._split is None:
-            return grad
-        block = self._grad_slices.get(param)
-        if block is None:
-            return grad if self._split.rank == 0 else torch.zeros_like(grad)
-        dim, lo, hi = block
-        out = torch.zeros_like(grad)
-        out.narrow(dim, lo, hi - lo).copy_(grad.narrow(dim, lo, hi - lo))
-        return out
-
     @torch.no_grad()
     def _reduce_grads(self, loss=None):
         """Under a mesh: sum the trained parameters' gradients over the
-        ranks in one ``all_reduce``, with ``loss``'s share if given (each
-        as :meth:`_counted`). Every rank runs the same graph on its block,
-        so the parameters with a gradient are the same on every rank.
-        Returns the global loss, or None."""
+        ``'points'`` axis in one ``all_reduce``, with ``loss``'s share if
+        given. Every rank holds its rows' share of each gradient; under a
+        ``'model'`` axis a stored block of a split leaf is this model
+        index's alone, and every model rank computes the same gradient of a
+        replicated leaf, so nothing is summed over the model group. Every
+        rank runs the same graph on its block, so the parameters with a
+        gradient are the same on every rank. Returns the global loss, or
+        None."""
         params = [p for p in self._trained_parameters() if p.grad is not None]
-        if loss is not None:
-            loss = loss.detach().reshape(1)
-            loss = loss if self._split is None or self._split.rank == 0 else torch.zeros_like(loss)
-        parts = [self._counted(p, p.grad).reshape(-1) for p in params] + ([loss] if loss is not None else [])
+        parts = [p.grad.reshape(-1) for p in params] + ([loss.detach().reshape(1)] if loss is not None else [])
         if not parts:
             return None
         dtype = parts[0].dtype
         flat = torch.cat([t.to(dtype) for t in parts])
-        all_reduce_(flat, world_group(self.mesh))
+        all_reduce_(flat, mesh_axes(self.mesh).points.get_group())
         sizes = [p.numel() for p in params]
         for p, g in zip(params, torch.split(flat[:sum(sizes)], sizes)):
             p.grad.copy_(g.view_as(p))
@@ -540,6 +563,24 @@ class BaseSolver(ABC, PretrainedSolver):
         self.metrics_history[f'{phase}_loss'].append(loss)
         for name, v in metrics.items():
             self.metrics_history[f'{phase}__{name}'].append(v)
+
+    def _full_states(self, states=None):
+        """Each distinct net's full-size state dict (of ``states``, one per
+        distinct net with its keys, e.g. ``best_params``, instead of the
+        live ones): a model axis's blocks gathered, on every rank."""
+        return [full_state(net, s) for net, s in zip(self._unique_nets, states or [None] * len(self._unique_nets))]
+
+    @torch.no_grad()
+    def load_params(self, params):
+        """Load full-size parameters into the nets: one state dict per
+        distinct net, in order of first appearance, as ``get_internals(
+        'params')`` gives them. Under a ``'model'`` axis each rank keeps its
+        blocks of the split leaves."""
+        if len(params) != len(self._unique_nets):
+            raise ValueError(f"expected parameters of {len(self._unique_nets)} nets, got {len(params)}")
+        for net, state in zip(self._unique_nets, params):
+            net.load_state_dict(placed_state(net, state))
+        return self
 
     def _update_best(self, phase):
         current = self.metrics_history[phase + '_loss'][-1]
@@ -647,19 +688,16 @@ class BaseSolver(ABC, PretrainedSolver):
 
     # ------------------------------------------------------------ inspection
     def _nets_for(self, best):
-        """Frozen copies of the nets, loaded with the lowest-loss parameters
-        if ``best``. A solution always gets copies, so that later training
-        does not change it, as it cannot change the JAX package's immutable
-        parameters; their parameters take no gradient, so a backward through
-        a solution's inputs accumulates none on them."""
+        """Frozen full-size copies of the nets, loaded with the lowest-loss
+        parameters if ``best``. A solution always gets copies, so that later
+        training does not change it, as it cannot change the JAX package's
+        immutable parameters; their parameters take no gradient, so a
+        backward through a solution's inputs accumulates none on them. Under
+        a ``'model'`` axis the blocks are gathered: every rank calls it."""
         if best and self.best_params is None:
             raise RuntimeError("The best parameters are not available; check if you disabled "
                                "validation and used best=True")
-        nets = deepcopy(self.nets)  # one deepcopy keeps shared nets shared
-        if best:
-            unique = list({id(n): n for n in nets}.values())
-            for net, state in zip(unique, self.best_params):
-                net.load_state_dict(state)
+        nets = plain_copies(self.nets, self._full_states(self.best_params if best else None))
         for net in nets:
             net.requires_grad_(False)
         return nets
@@ -679,43 +717,48 @@ class BaseSolver(ABC, PretrainedSolver):
         if len(params) != len(self._unique_nets):
             raise ValueError(f"expected parameters of {len(self._unique_nets)} nets, got {len(params)}")
         for net, p in zip(self._unique_nets, params):
-            net.load_jax_params(p)
+            net.load_jax_params(p)  # a split leaf keeps this rank's block
         return self
 
     def _get_internal_variables(self):
+        """``{name: getter}`` of the internal variables: ``get_internals``
+        calls only the getters of the names asked for (under a ``'model'``
+        axis a parameter's getter gathers)."""
         return {
-            "metrics": self.metrics_fn,
-            "n_batches": self.n_batches,
-            "best_nets": self.best_nets,
-            "best_params": self.best_params,
-            "criterion": self.loss_fn,
-            "loss_fn": self.loss_fn,
-            "conditions": self.conditions,
-            "global_epoch": self.global_epoch,
-            "lowest_loss": self.lowest_loss,
-            "n_funcs": self.n_funcs,
-            "nets": self.nets,
-            "params": [net.state_dict() for net in self._unique_nets],
-            "optimizer": self.optimizer,
-            "diff_eqs": self.diff_eqs,
-            "generator": self.generator,
-            "train_generator": self.generator['train'],
-            "valid_generator": self.generator['valid'],
+            "metrics": lambda: self.metrics_fn,
+            "n_batches": lambda: self.n_batches,
+            "best_nets": lambda: self.best_nets,
+            "best_params": lambda: None if self.best_params is None else self._full_states(self.best_params),
+            "criterion": lambda: self.loss_fn,
+            "loss_fn": lambda: self.loss_fn,
+            "conditions": lambda: self.conditions,
+            "global_epoch": lambda: self.global_epoch,
+            "lowest_loss": lambda: self.lowest_loss,
+            "n_funcs": lambda: self.n_funcs,
+            "nets": lambda: self.nets if self._split is None else self._nets_for(best=False),
+            "params": lambda: self._full_states(),
+            "optimizer": lambda: self.optimizer,
+            "diff_eqs": lambda: self.diff_eqs,
+            "generator": lambda: self.generator,
+            "train_generator": lambda: self.generator['train'],
+            "valid_generator": lambda: self.generator['valid'],
         }
 
     @deprecated_alias(param_names='var_names')
     def get_internals(self, var_names=None, return_type='list'):
         r"""Internal variable(s) of the solver: all of them (as a dict) for
-        ``None`` or ``'all'``, one for a name, else a list or dict."""
-        available_variables = self._get_internal_variables()
+        ``None`` or ``'all'``, one for a name, else a list or dict. The
+        parameters are full-size; under a ``'model'`` axis they are gathered
+        (every rank calls it) and ``'nets'`` are full-size frozen copies."""
+        getters = self._get_internal_variables()
         if var_names == "all" or var_names is None:
-            return available_variables
+            return {name: get() for name, get in getters.items()}
         if isinstance(var_names, str):
-            return available_variables[var_names]
+            return getters[var_names]()
         if return_type == 'list':
-            return [available_variables[name] for name in var_names]
+            return [getters[name]() for name in var_names]
         if return_type == "dict":
-            return {name: available_variables[name] for name in var_names}
+            return {name: getters[name]() for name in var_names}
         raise ValueError(f"unrecognized return_type = {return_type}")
 
     @abstractmethod
@@ -946,7 +989,7 @@ class Solver1D(BaseSolver):
 
     def _get_internal_variables(self):
         d = super()._get_internal_variables()
-        d.update({'t_min': self.t_min, 't_max': self.t_max})
+        d.update({'t_min': lambda: self.t_min, 't_max': lambda: self.t_max})
         return d
 
 
@@ -1036,7 +1079,8 @@ class BundleSolver1D(BaseSolver):
 
     def _get_internal_variables(self):
         d = super()._get_internal_variables()
-        d.update({'r_min': self.r_min, 'r_max': self.r_max, 'eq_param_index': self.eq_param_index})
+        d.update({'r_min': lambda: self.r_min, 'r_max': lambda: self.r_max,
+                  'eq_param_index': lambda: self.eq_param_index})
         return d
 
     def _constructor_kwargs(self):
@@ -1102,7 +1146,7 @@ class Solver2D(BaseSolver):
 
     def _get_internal_variables(self):
         d = super()._get_internal_variables()
-        d.update({'xy_min': self.xy_min, 'xy_max': self.xy_max})
+        d.update({'xy_min': lambda: self.xy_min, 'xy_max': lambda: self.xy_max})
         return d
 
 
@@ -1215,5 +1259,5 @@ class SolverSpherical(BaseSolver):
 
     def _get_internal_variables(self):
         d = super()._get_internal_variables()
-        d.update({'r_min': self.r_min, 'r_max': self.r_max, 'enforcer': self.enforcer})
+        d.update({'r_min': lambda: self.r_min, 'r_max': lambda: self.r_max, 'enforcer': lambda: self.enforcer})
         return d

@@ -16,6 +16,11 @@ A saved solver is one ``torch.save`` archive of two parts:
   archive holds the tensor part alone, and :meth:`PretrainedSolver.load`
   takes the callables from a :class:`SolverConfig`.
 
+A solver on a ``'model'`` mesh axis saves what an unsharded one saves:
+every rank gathers the blocks of its split leaves and of their optimizer
+state, and rank 0 writes. Loading places the blocks of whatever mesh the
+new solver has, so a file loads with or without one.
+
 ``dill``, ``requests`` and the hub are imported at first use. The hub is
 controlled by the environment variables ``NEURODIFF_API_URL`` and
 ``NEURODIFF_API_KEY``, as in the JAX package.
@@ -335,12 +340,16 @@ class SolverConfig:
 
 def _optimizer_state(solver):
     """The optimizer as plain data: its class's module and name, its
-    ``state_dict`` and, per parameter group, the place of each parameter
-    among the solver's ``_parameters()`` (the order the restored state maps
-    to)."""
+    ``state_dict`` (the state of each stored block of a model axis gathered
+    to full size, on every rank) and, per parameter group, the place of each
+    parameter among the solver's ``_parameters()`` (the order the restored
+    state maps to)."""
+    from .parallel.sharding import full_optimizer_state
+
     position = {id(p): i for i, p in enumerate(solver._parameters())}
     opt = solver.optimizer
-    return {'module': type(opt).__module__, 'type': type(opt).__qualname__, 'state_dict': opt.state_dict(),
+    return {'module': type(opt).__module__, 'type': type(opt).__qualname__,
+            'state_dict': full_optimizer_state(opt, solver._unique_nets),
             'param_index': [[position.get(id(p), -1) for p in group['params']] for group in opt.param_groups]}
 
 
@@ -355,8 +364,8 @@ def _state(solver):
         'type_name': type(solver).__name__,
         'parent_type_name': type(solver).__mro__[1].__name__,
         'net_index': [next(i for i, u in enumerate(unique) if u is n) for n in solver.nets],
-        'nets': [net.state_dict() for net in unique],
-        'best_params': solver.best_params,
+        'nets': solver._full_states(),
+        'best_params': None if solver.best_params is None else solver._full_states(solver.best_params),
         'optimizer': _optimizer_state(solver),
         'rng': {'device_type': solver.rng.device.type, 'state': solver.rng.get_state()},
         'n_batches': dict(solver.n_batches),
@@ -371,11 +380,12 @@ def _state(solver):
 
 
 def _callables(solver):
-    """The callables of a solver for dill. The nets are copies on the CPU,
-    so that a file saved on the card loads anywhere; one deepcopy of the
-    list keeps a shared net shared, and the live nets are not touched."""
-    from copy import deepcopy
-    nets = deepcopy(solver.nets)
+    """The callables of a solver for dill. The nets are full-size copies on
+    the CPU, so that a file saved on the card, or on a mesh, loads anywhere;
+    one deepcopy of the list keeps a shared net shared, and the live nets are
+    not touched."""
+    from .parallel.sharding import plain_copies
+    nets = plain_copies(solver.nets, solver._full_states())
     for net in {id(n): n for n in nets}.values():
         net.to('cpu')
     return {
@@ -416,10 +426,13 @@ def _cpu_steps(optimizer):
 
 def _restore_optimizer(solver, opt, optimizer_class):
     """Rebuild the saved optimizer over ``solver``'s parameters and load its
-    state, each group's parameters in the saved places. One that did not
-    hold each of the solver's parameters once, or whose state has other
-    shapes, starts afresh with the saved hyperparameters, as the JAX package
-    re-initializes an optimizer state of another structure."""
+    state, each group's parameters in the saved places; under a ``'model'``
+    axis the full-size state of a split leaf becomes this rank's block. One
+    that did not hold each of the solver's parameters once, or whose state
+    has other shapes, starts afresh with the saved hyperparameters, as the
+    JAX package re-initializes an optimizer state of another structure."""
+    from .parallel.sharding import placed_optimizer_state
+
     params = solver._parameters()
     sd = opt['state_dict']
     hyper = [{k: v for k, v in g.items() if k != 'params'} for g in sd['param_groups']]
@@ -427,6 +440,7 @@ def _restore_optimizer(solver, opt, optimizer_class):
     fits = sorted(i for idx in index for i in idx) == list(range(len(params)))
     if fits:
         by_id = {pid: p for idx, g in zip(index, sd['param_groups']) for pid, p in zip(g['params'], idx)}
+        sd = placed_optimizer_state(sd, {pid: params[i] for pid, i in by_id.items()}, solver._unique_nets)
         fits = all(all(not torch.is_tensor(v) or v.ndim == 0 or v.shape == params[by_id[pid]].shape
                        for v in st.values())
                    for pid, st in sd['state'].items())
@@ -441,16 +455,18 @@ def _restore_optimizer(solver, opt, optimizer_class):
 
 def _restore(solver, state):
     """Load the tensor part into ``solver``: the nets' parameters, the best
-    parameters, the sampling generator's state (where the devices match) and
-    the histories. The optimizer goes through :func:`_restore_optimizer`."""
+    parameters (each rank's blocks of them under a ``'model'`` axis), the
+    sampling generator's state (where the devices match) and the histories.
+    The optimizer goes through :func:`_restore_optimizer`."""
+    from .parallel.sharding import placed_state
+
     unique = solver._unique_nets
     if len(state['nets']) != len(unique):
         raise ValueError(f"the saved solver has {len(state['nets'])} distinct nets, this one {len(unique)}")
-    with torch.no_grad():
-        for net, sd in zip(unique, state['nets']):
-            net.load_state_dict(sd)
+    solver.load_params(state['nets'])
     if state['best_params'] is not None:
-        solver.best_params = [{k: v.to(solver.device) for k, v in p.items()} for p in state['best_params']]
+        solver.best_params = [{k: v.to(solver.device) for k, v in placed_state(net, p).items()}
+                              for net, p in zip(unique, state['best_params'])]
     rng = state['rng']
     if rng['device_type'] == solver.rng.device.type:
         solver.rng.set_state(rng['state'].cpu())
@@ -500,15 +516,20 @@ class PretrainedSolver:
         :param save_to_hub: POST the saved bytes to the configured hub
             (``kwargs`` may give a ``description``).
 
-        Under a mesh rank 0 writes (every rank holds the same state), and
-        every rank returns once the file is written. The file holds no
-        mesh: it loads with or without one (``load(..., mesh=...)``).
+        Under a mesh rank 0 writes (every rank holds the same state; under
+        a ``'model'`` axis every rank gathers its blocks first, so every
+        rank calls ``save``), and every rank returns once the file is
+        written. The file holds no mesh and full-size tensors, as an
+        unsharded solver's: it loads with or without one (``load(...,
+        mesh=...)``).
         """
         if path is None and not save_to_hub:
             raise ValueError("Either `path` must be given or `save_to_hub` must be True")
         mesh = getattr(self, 'mesh', None)
-        if mesh is None or mesh.get_rank() == 0:
+        writes = mesh is None or mesh.get_rank() == 0
+        if writes or self._reads_collective:
             blob = self._serialize()
+        if writes:
             if path is not None:
                 with open(path, 'wb') as f:
                     f.write(blob)

@@ -18,7 +18,10 @@ element); at a single layer; and at a shape whose weights do not fit
 shared memory in either type. NaNs in the input streams and in a weight
 come out where the twin's do. And ``launch(fn, 4)`` under gloo: four ranks on one card form a (2, 2) ``(points, model)`` mesh whose
 pass goes through both kernel entries and holds the unsharded loss and
-gradients (float64, 1e-10 relative).
+gradients (float64, 1e-10 relative); two ranks on one card form a (1, 2)
+mesh on which each stores its blocks of the split leaves, trains on the
+unsharded trajectory, saves a full-size file that loads without a mesh
+and onto it, and resumes from it as it would have gone on.
 """
 import numpy as np
 import pytest
@@ -139,3 +142,33 @@ def test_four_gloo_ranks_on_one_card_form_a_2x2_mesh(tmp_path):
         np.testing.assert_allclose(got_loss, loss, rtol=1e-10)
         for g, w in zip(got_grads, grads, strict=True):
             np.testing.assert_allclose(g, w, rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_one_card_store_blocks_and_save_full_size(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (runs on the GPU machine)')
+    from neurodiffeq_tpu_torch.solvers import Solver1D
+
+    want = M.cuda_store_case(None, str(tmp_path))
+    ranks = launch(M.cuda_store_case, 2, backend='gloo', device_type='cuda', timeout=300, args=(2, str(tmp_path)),
+                   rendezvous=str(tmp_path / 'rendezvous'))
+    full = [(32, 1), (32,), (32, 32), (32,), (1, 32), (1,)]
+    assert want['shapes'] == full
+    # even layers keep half their output units and biases, odd layers half their input units
+    assert all(r['shapes'] == [(16, 1), (16,), (32, 16), (32,), (1, 32), (1,)] for r in ranks)
+    for r in ranks:
+        for got, ref in zip(r['params'] + list(r['solution']), want['params'] + list(want['solution']), strict=True):
+            np.testing.assert_allclose(got, ref, rtol=1e-10, atol=1e-12)
+        went_on, resumed = r['resumed']
+        for a, b in zip(went_on, resumed, strict=True):
+            np.testing.assert_allclose(b, a, rtol=1e-10, atol=1e-12)
+    state = torch.load(ranks[0]['path'], weights_only=True)['state']
+    assert [tuple(v.shape) for v in state['nets'][0].values()] == full
+    here = Solver1D.load(ranks[0]['path'], config=M.solver_config())
+    assert here.mesh is None
+    for got, ref in zip(M.full_params(here), ranks[0]['params'], strict=True):
+        assert np.array_equal(got, ref)
+    here.fit(1, tqdm_file=None)
+    for got, ref in zip(M.full_params(here), ranks[0]['resumed'][0], strict=True):
+        np.testing.assert_allclose(got, ref, rtol=1e-10, atol=1e-12)
