@@ -235,6 +235,32 @@ Phases, one line each or more:
       gives the mesh run's gathered solution bit for bit; each rank's
       epochs/s and the model group's ``all_reduce`` time per epoch are
       reported;
+   t. the optimizers that read across their parameters on the model axis
+      (``neurodiffeq_tpu_torch/parallel/optim.py``), on the same mesh in the
+      same spawn: (a) Burgers' L-BFGS polish (``examples/burgers.py``'s
+      ``polish_lbfgs``): 5k's Adam-trained solver (where 5k ran; else the
+      Burgers net at ``POLISH_SEED``) saved and loaded onto the mesh,
+      ``set_generator`` with a ``PredefinedGenerator`` of one frozen uniform
+      draw of ``POLISH_POINTS`` points and ``set_optimizer`` with
+      ``torch.optim.LBFGS`` (strong Wolfe, ``POLISH_ITERS`` iterations and a
+      history of ``POLISH_HISTORY`` per epoch) for ``POLISH_EPOCHS`` epochs,
+      against the same polish unsharded in this process: the first epoch's
+      loss and parameters within ``SHARD_GRAD_TOL`` of unsharded, its closure
+      calls equal to unsharded and every epoch's equal on every rank, the
+      optimizer's model-group ``all_reduce`` calls one per closure call and
+      two per iteration (one fewer in the first), the loss on the frozen
+      draw falling, every rank the same history, ``POLISH_PASS`` launches per
+      pass on each rank (one ``taylor_mlp`` unsharded), no fallback, and
+      after 5k the mean error against Cole-Hopf below 5k's and below
+      ``POLISH_MEAN_LIMIT``; the L-BFGS history's elements per rank,
+      the model group's ``all_reduce`` time per closure call and each
+      rank's epochs/s are reported; (b) ``torch.optim.Adafactor`` and
+      ``torch.optim.Muon`` (over the 2-D weights) on the flagship at full
+      width from 5r's initialization for ``OPT_EPOCHS`` epochs each against
+      unsharded: Adafactor within ``SHARD_GRAD_TOL`` after each epoch, Muon's
+      step from the unsharded first-epoch gradient within ``MUON_STEP_TOL``
+      and its epochs within ``MUON_EPOCH_TOL``, the optimizer state per rank
+      ``OPT_PER_RANK``;
 6. timing: device time per call of kernel and twin at every shape of
    ``TABLE_SHAPES`` and ``REACH_SHAPES`` (``torch.profiler`` over 10 calls;
    the latter only where the tree's kernels take them) beside the kernel's
@@ -283,13 +309,20 @@ rate window from 299 to 100 epochs and its NCCL world of one, which now
 runs in this process instead of a spawned rank (whose start-up took about
 20 s). Phase 5s runs in 5r's spawn of ranks, so that it pays no start-up of
 its own; should the whole run pass its budget again, the cavity's epochs
-in 5s are cut first.
+in 5s are cut first. Phase 5t runs in that spawn too; alone with 5k it took
+about 46 s at 25 polish epochs of at most 8 iterations, so before it was
+added the cavity's epochs in 5s were cut from 20 to 12 and the polish to
+20 epochs of at most 4 iterations (its CPU float32 rehearsal's error
+against Cole-Hopf from a 5k-trained net: 0.0403 before, 0.0177 after 10
+epochs of 8 iterations, 0.0169 after 15 and 0.0152 after 25; 0.0393
+before and 0.0199 after the 20 epochs of 4).
 
 Any failure ends the run with a non-zero exit code and no result line. The
 card's name and power limit and the kernel record come before the last
 line, which is ``{"ok": true, "device": {...}}``.
 """
 import contextlib
+import functools
 import inspect
 import json
 import math
@@ -365,6 +398,7 @@ NEUMANN_EPOCHS, NEUMANN_LIMIT = 1000, 4e-3
 # run's 0.0403 (0.0509 at 2,000)
 BURGERS_NU, BURGERS_HIDDEN, BURGERS_POINTS, BURGERS_OVERSAMPLE = 0.01 / np.pi, (20,) * 8, 2048, 8
 BURGERS_EPOCHS, BURGERS_MEAN_LIMIT, BURGERS_DROP = 2500, 0.1, 10
+POLISH_POINTS = 8192  # examples/burgers.py's polish_lbfgs: one frozen uniform draw
 # phase 3c's 1-D conditions: IBVP1D on [0, 2] with u(x, 0) = cos x + x / 2, the end values
 # and slopes compatible with it at t = 0; DoubleEndedBVP1D on [0, 1]
 ANCHOR_DATA = {'x_min_val': lambda t: 1 + 0.3 * t, 'x_max_val': lambda t: math.cos(2.0) + 1 + 0.3 * t,
@@ -437,17 +471,50 @@ SHARD_LIMIT, SHARD_TIMEOUT, SHARD_CPU_THREADS, SHARD_RATE_EPOCHS = 0.03, 240, 2,
 WIDE_INPUTS = (9, 32, 32, 1)  # more inputs than one direction chunk: two chunks in one launch
 # the model axis (5s): the flagship (5r's config) and the primitive cavity (5e's config at full width, 16,384 points,
 # its anneal) on a (points, model) mesh of 2 model ranks, 2 gloo ranks on one card; the flagship over SHARD_EPOCHS
-# epochs from 5r's initialization and generator state, the cavity over MODEL_CAV_EPOCHS from 5e's seed. Per epoch
+# epochs from 5r's initialization and generator state, the cavity over MODEL_CAV_EPOCHS from 5e's seed (cut from 20
+# to 12 when 5t was added: the module docstring). Per epoch
 # and rank the CPU rehearsal (cpu_rehearsal.py 5s) counts 5 taylor_mlp_1h launches for the flagship (one layer
 # pair, its 256 columns on each rank) and 1 taylor_mlp_1h and 2 taylor_mlp_streams for the cavity (three pairs);
 # the flagship's error limit is 5r's SHARD_LIMIT, about twice that rehearsal's errors over seeds 0-2 (1.4901e-2,
 # 1.5154e-2, 1.4915e-2, 5r's own; the JAX package on its (1, 2) mesh, 5s-jax: 1.4700e-2, 1.5194e-2, 1.5182e-2)
-MODEL_AXIS, MODEL_CAV_EPOCHS, MODEL_CAV_COLL_EPOCHS = 2, 20, 5
+MODEL_AXIS, MODEL_CAV_EPOCHS, MODEL_CAV_COLL_EPOCHS = 2, 12, 5
 # each rank stores its blocks of the split leaves (the JAX package's addressable shards): the elements of its
 # parameters, gradients and each Adam moment on a model axis of 2, against the whole net's (2,049 and 66,819)
 MODEL_PER_RANK = {'flagship': 1025, 'cavity': 33539}
+# Burgers' L-BFGS polish on the model axis (5t): examples/burgers.py's polish_lbfgs (one frozen uniform draw of
+# POLISH_POINTS, set_generator, then L-BFGS through set_optimizer) from 5k's Adam-trained solver, saved and loaded
+# onto a (1, 2) mesh, against the same polish unsharded in this process: torch.optim.LBFGS with the strong-Wolfe line
+# search, POLISH_ITERS iterations and a history of POLISH_HISTORY (optax.lbfgs's memory) per epoch, POLISH_EPOCHS
+# epochs (or from the Burgers net at POLISH_SEED where 5k did not run). Each closure call runs every kernel entry on
+# each model rank: pair 0 through taylor_mlp_1h (2-10-20), pairs 1-3 through taylor_mlp_streams (20-10-20) and the
+# trailing 20 -> 1 layer whole through its staged instance: POLISH_PASS per pass (a closure call or a validation
+# batch), the CPU rehearsal's count (cpu_rehearsal.py 5t); unsharded, one taylor_mlp per pass. The optimizer's own
+# model-group all_reduce calls are one per closure call and two per iteration, one fewer in the first iteration
+# (tests/test_torch_model_parallel.py counts the same). After 5k the polish's mean error against Cole-Hopf must fall
+# below 5k's and below POLISH_MEAN_LIMIT, 1.4 times the largest of the CPU float32 rehearsal (cpu_rehearsal.py 5k 5t:
+# from 0.03929 to 0.01985 on the ranks and 0.01967 unsharded) and under every error the polish started from (the card
+# read 0.0331-0.0355 after 5k and 0.0181-0.0233 after the polish; a polish that leaves 5k's error fails). At most
+# POLISH_ITERS iterations per epoch keep the first epoch's float32 round-off within SHARD_GRAD_TOL of the unsharded
+# run's: L-BFGS amplifies it from iteration to iteration (the card read 4.05e-6 and 7.33e-6 at 8 iterations; the
+# rehearsal 4.81e-8 at 4)
+POLISH_EPOCHS, POLISH_ITERS, POLISH_HISTORY, POLISH_SEED = 20, 4, 10, 0
+POLISH_PASS = {'taylor_mlp_1h': 1, 'taylor_mlp': 0, 'taylor_mlp_streams': 4}
+POLISH_MEAN_LIMIT = 0.028
+# Adafactor and Muon (over the 2-D weights) on the flagship at full width (5r's initialization and generator state)
+# on the same mesh, OPT_EPOCHS epochs each at OPT_LR against the unsharded runs: Adafactor within SHARD_GRAD_TOL after
+# each epoch, Muon's first step from the unsharded gradient within MUON_STEP_TOL (float32 round-off) and its epochs
+# within MUON_EPOCH_TOL. Muon orthogonalizes in bfloat16, so gradients that differ at float32 round-off (the mesh sums
+# in another order) may round one bfloat16 ulp (2^-8) apart there: 3 such steps move an element of the first weight
+# by at most 3 x OPT_LR x 16 (its learning-rate adjustment, sqrt(512 / 2)) x 2^-8 x 1.5 (an orthogonalized element's
+# largest size) = 2.8e-3 against its largest element of about 0.7 (4e-3 relative), and of the second weight by
+# 3 x OPT_LR x 2^-8 x 1.5 against about 0.05 (2.3e-3): MUON_EPOCH_TOL holds both; the CPU rehearsal (cpu_rehearsal.py
+# 5t) reads 0. Each rank's optimizer state: Adafactor 772 of 1,540 elements (the first weight's split row factor and
+# its column factor, the first bias's half, the second weight's row factor and split column factor, the bias),
+# Muon's momentum 768 of 1,536
+OPT_EPOCHS, OPT_LR, MUON_STEP_TOL, MUON_EPOCH_TOL = 3, 1e-2, 1e-6, 1e-2
+OPT_PER_RANK = {'Adafactor': (772, 1540), 'Muon': (768, 1536)}
 PHASES = ('3', '3c', '3d', '4', '5a', '5b', '5c', '5d', '5e', '5f', '5g', '5h', '5i', '5j', '5k', '5l', '5m', '5n',
-          '5o', '5p', '5q', '5r', '5s', '6')
+          '5o', '5p', '5q', '5r', '5s', '5t', '6')
 EXTRA_PHASES = ('6b',)  # run only when named: a baseline that PERF.md records, too slow for every run
 WINDOW = 300  # epochs per timing window of a path's own fit
 # phase 6's own work, which checks nothing, cut when the whole run with the high-dimensional
@@ -467,6 +534,7 @@ CHECK_SHAPES = [  # (layer widths, activation, order, N)
     ((2, 512, 1), 'tanh', 2, 512),  # one rank's block of the flagship's batch on 2 ranks, phase 5r
     ((2, 256, 1), 'tanh', 2, 1024),  # one model rank's slice of the flagship on 2 model ranks, phase 5s
     ((2, 64, 128), 'tanh', 2, 16384),  # one model rank's slice of the cavity's pair 0, phase 5s
+    ((2, 10, 20), 'tanh', 2, 8192),  # one model rank's slice of Burgers' pair 0 in the polish, phase 5t
     ((2, 64, 64, 1), 'tanh', 2, 1000),
     ((1, 32, 32, 1), 'sin', 1, 37),
     ((1, 32, 32, 1), 'sin', 2, 37),
@@ -516,20 +584,23 @@ TABLE_SHAPES = [  # (layer widths, activation, order, N, dtype timed in phase 6)
     ((2, 512, 1), 'tanh', 2, 512, F32),      # one rank's block of the flagship's batch on 2 ranks, phase 5r
     ((2, 256, 1), 'tanh', 2, 1024, F32),     # one model rank's slice of the flagship on 2 model ranks, phase 5s
     ((2, 64, 128), 'tanh', 2, 16384, F32),   # one model rank's slice of the cavity's pair 0, phase 5s
+    ((2, 10, 20), 'tanh', 2, 8192, F32),     # one model rank's slice of Burgers' pair 0 in the polish, phase 5t
 ]
-# taylor_mlp_streams, phase 3 against its twin and phase 6 timed (the first three, float32): (stream width and
+# taylor_mlp_streams, phase 3 against its twin and phase 6 timed (the first STREAM_TIMED, float32): (stream width and
 # layer widths, directions d, activation, input activation, order, N)
 STREAM_SHAPES = [
     ((128, 64, 128), 2, 'tanh', 'tanh', 2, 16384),  # one model rank's slice of the cavity's pair 1, phase 5s
     ((128, 64, 3), 2, 'tanh', 'tanh', 2, 16384),    # its pair 2
     ((32, 1), 2, 'tanh', 'tanh', 2, 1024),          # the default FCNN's trailing layer, whole on each model rank
+    ((20, 10, 20), 2, 'tanh', 'tanh', 2, 8192),     # Burgers' pairs 1-3 on one of 2 model ranks, the polish (5t)
+    ((20, 1), 2, 'tanh', 'tanh', 2, 8192),          # its trailing 20 -> 1 layer, whole on each model rank
     ((128, 64, 128), 2, 'sin', 'sin', 1, 1024),     # order 1
     ((32, 16, 32), 10, 'tanh', 'tanh', 2, 1000),    # d > 8: two direction chunks, the last shifted back
     ((2800, 64, 1), 2, 'tanh', 'tanh', 2, 300),     # streams past shared memory: the global scratch
     ((16, 16, 2), 3, 'sin', None, 2, 37),           # no input activation; ragged N
     ((128, 64, 128), 3, 'tanh', 'tanh', 2, 4097),  # 7 streams: one raw input buffer in float32
 ]
-STREAM_TIMED = 3
+STREAM_TIMED = 5
 # taylor_mlp_streams' routing (ops/taylor_mlp.py::_narrow), phase 6: both designs timed in float32 (d = 2, tanh,
 # input tanh, order 2) on each side of each bound of the narrow-net rule: (layer widths, N)
 ROUTE_SHAPES = [
@@ -1305,25 +1376,58 @@ def burgers_exact(x, t, n_quad=64):
     return out
 
 
-def burgers_solver():
-    """``examples/burgers.py``'s ``build('adaptive')`` on the port's defaults (cuda, float32)."""
+@functools.lru_cache(maxsize=None)
+def burgers_reference():
+    """``(X, T, u)``: the 201 x 101 grid on which Burgers' errors are taken
+    and the Cole-Hopf solution on it."""
+    X, Tm = np.meshgrid(np.linspace(-1.0, 1.0, 201), np.linspace(0.0, 1.0, 101), indexing='ij')
+    return X, Tm, burgers_exact(X, Tm)
+
+
+def burgers_solution(solver):
+    """``solver.get_solution()`` on :func:`burgers_reference`'s grid."""
+    X, Tm, _ = burgers_reference()
+    return solver.get_solution()(X.ravel(), Tm.ravel(), to_numpy=True).reshape(X.shape)
+
+
+def burgers_problem():
+    """``examples/burgers.py``'s equation and its conditions: ``(pde_system, conditions)``."""
     from neurodiffeq_tpu_torch import fields as F, diff
     from neurodiffeq_tpu_torch.conditions import IBVP1D
+
+    cond = IBVP1D(x_min=-1.0, x_max=1.0, t_min=0.0, t_min_val=lambda x: -F.sin(np.pi * x),
+                  x_min_val=lambda t: 0 * t, x_max_val=lambda t: 0 * t)
+    return (lambda u, x, t: [diff(u, t) + u * diff(u, x) - BURGERS_NU * diff(u, x, order=2)]), [cond]
+
+
+def burgers_solver():
+    """``examples/burgers.py``'s ``build('adaptive')`` on the port's defaults (cuda, float32)."""
     from neurodiffeq_tpu_torch.generators import Generator1D, Generator2D, ResidualAdaptiveGenerator
     from neurodiffeq_tpu_torch.networks import FCNN
     from neurodiffeq_tpu_torch.solvers import Solver2D
 
-    cond = IBVP1D(x_min=-1.0, x_max=1.0, t_min=0.0, t_min_val=lambda x: -F.sin(np.pi * x),
-                  x_min_val=lambda t: 0 * t, x_max_val=lambda t: 0 * t)
+    pde_system, conditions = burgers_problem()
     base = (Generator1D(BURGERS_POINTS, -1.0, 1.0, method='uniform')
             * Generator1D(BURGERS_POINTS, 0.0, 1.0, method='uniform'))
     return Solver2D(
-        pde_system=lambda u, x, t: [diff(u, t) + u * diff(u, x) - BURGERS_NU * diff(u, x, order=2)],
-        conditions=[cond], xy_min=(-1.0, 0.0), xy_max=(1.0, 1.0),
+        pde_system=pde_system, conditions=conditions, xy_min=(-1.0, 0.0), xy_max=(1.0, 1.0),
         nets=[FCNN(n_input_units=2, hidden_units=BURGERS_HIDDEN)],
         train_generator=ResidualAdaptiveGenerator(base, oversample=BURGERS_OVERSAMPLE, strategy='power',
                                                   alpha=1.0, c=1.0),
         valid_generator=Generator2D((32, 32), xy_min=(-1.0, 0.0), xy_max=(1.0, 1.0), method='equally-spaced'))
+
+
+def polish_draw(n_points=POLISH_POINTS, seed=1):
+    """The frozen uniform draw of Burgers' L-BFGS polish (a numpy copy of
+    ``examples/burgers.py``'s ``polish_lbfgs``, its default branch): ``n_points``
+    of ``8 n_points`` uniform candidates on [-1, 1] x [0, 1], picked without
+    replacement, numpy seed 1; ``(x, t)``."""
+    rng = np.random.default_rng(seed)
+    cand_x = rng.uniform(-1.0, 1.0, size=8 * n_points)
+    cand_t = rng.uniform(0.0, 1.0, size=8 * n_points)
+    p = np.ones_like(cand_x)
+    idx = rng.choice(len(p), size=n_points, replace=False, p=p / p.sum())
+    return cand_x[idx], cand_t[idx]
 
 
 def burgers_constraint_error(solver):
@@ -1348,9 +1452,7 @@ def run_burgers(F, taylor_mlp):
     first, late = float(hist[0]), float(np.mean(hist[-100:]))
     lowest = float(np.mean(hist[:len(hist) // 100 * 100].reshape(-1, 100), axis=1).min())
     trained = burgers_constraint_error(solver)
-    X, Tm = np.meshgrid(np.linspace(-1.0, 1.0, 201), np.linspace(0.0, 1.0, 101), indexing='ij')
-    u = solver.get_solution()(X.ravel(), Tm.ravel(), to_numpy=True).reshape(X.shape)
-    err = np.abs(u - burgers_exact(X, Tm))
+    err = np.abs(burgers_solution(solver) - burgers_reference()[2])
     max_err, mean_err = float(err.max()), float(err.mean())
     # per epoch: the scoring pass over 8 x 2,048 candidates, 1 train and 4 validation batches
     checks = launch_checks(launches, fallbacks, 6, BURGERS_EPOCHS)
@@ -3031,7 +3133,7 @@ def model_rank(backend, devices, flagship, cavity, sync, save_path):
     return out
 
 
-def shard_rank(backend, devices, init, rng_state, epochs, hd, model=None):
+def shard_rank(backend, devices, init, rng_state, epochs, hd, model=None, polish=None):
     """Phases 5r and 5s, one rank of the mesh (``neurodiffeq_tpu_torch.parallel.launch``
     runs it). With ``epochs`` (5r): the flagship on ``make_mesh(devices=devices, backend=backend)``
     from the parameters ``init`` and the generator state ``rng_state``,
@@ -3040,7 +3142,8 @@ def shard_rank(backend, devices, init, rng_state, epochs, hd, model=None):
     (points, parameters)``, one batch of 5m's d = 100 problem. With
     ``model = (flagship epochs, cavity parameters, cavity generator state,
     cavity epochs, cavity save path)`` (5s): ``model_rank`` over the same
-    ranks. Returns what the parent checks."""
+    ranks; with ``polish = (path, gradients, epochs)`` (5t): ``polish_rank``.
+    Returns what the parent checks."""
     from neurodiffeq_tpu_torch import fields as F, operators as O
     from neurodiffeq_tpu_torch.ops import taylor_mlp
     from neurodiffeq_tpu_torch.parallel import make_mesh
@@ -3102,6 +3205,8 @@ def shard_rank(backend, devices, init, rng_state, epochs, hd, model=None):
                      probes.cpu().numpy())
     if model is not None:
         out['model'] = model_rank(backend, devices, (init, rng_state, model[0]), model[1:4], sync, model[4])
+    if polish is not None:
+        out['5t'] = polish_rank(backend, devices, init, rng_state, sync, *polish)
     return out
 
 
@@ -3127,8 +3232,8 @@ def one_nccl_rank(init, rng_state):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def run_sharded(F, taylor_mlp, card='the CPU', chosen=('5r', '5s')):
-    """Phases 5r and 5s in one spawn of ranks. 5r, the data-parallel slice:
+def run_sharded(F, taylor_mlp, card='the CPU', chosen=('5r', '5s', '5t'), burgers=None):
+    """Phases 5r, 5s and 5t in one spawn of ranks. 5r, the data-parallel slice:
     the flagship (5a's config, FCNN 2-512-1 tanh on 32 x 32 points) on a
     mesh over the points: 2 ranks on one card over gloo, or one rank per
     card over NCCL (2 or 4) where there are more; on the CPU (the
@@ -3141,7 +3246,10 @@ def run_sharded(F, taylor_mlp, card='the CPU', chosen=('5r', '5s')):
     solution stay below ``SHARD_LIMIT``; 5m's d = 100 batch gives every rank
     its rows of the unsharded probes bit for bit and the unsharded loss and
     gradients; one NCCL rank must equal the unsharded first epoch bitwise.
-    5s, the model axis (:func:`run_model_axis`), over the same ranks.
+    5s, the model axis (:func:`run_model_axis`), over the same ranks, and
+    5t, the optimizers that read across their parameters on it
+    (:func:`run_polish`: Burgers' L-BFGS polish from 5k's solver
+    ``burgers``, where 5k ran, and Adafactor and Muon on the flagship).
     Returns ``{phase: launches summed over the ranks}``."""
     import tempfile
     from neurodiffeq_tpu_torch import operators as O
@@ -3157,18 +3265,22 @@ def run_sharded(F, taylor_mlp, card='the CPU', chosen=('5r', '5s')):
     else:
         backend, world, devices = 'gloo', SHARD_RANKS, 'cuda:0'
     sync = torch.cuda.synchronize if dev.type == 'cuda' else (lambda: None)
-    points_axis, model_axis = '5r' in chosen, '5s' in chosen
-    hd = model = None
+    points_axis, model_axis, polish_axis = '5r' in chosen, '5s' in chosen, '5t' in chosen
+    hd = model = polish = None
     tmp = tempfile.TemporaryDirectory(prefix='chip_smoke_5s_')
     if model_axis:  # first: the seed set last is the STDE probes' (utils.seed_value), the ranks' SHARD_SEED
         set_seed(4)  # 5e's
         cav_ref, cav_step = cavity_solver('primitive', CAV_ANNEAL)
         model = (SHARD_EPOCHS, {k: v.detach().cpu().clone() for k, v in cav_ref.nets[0].state_dict().items()},
                  cav_ref.rng.get_state(), MODEL_CAV_EPOCHS, str(Path(tmp.name, 'cavity.pt')))
+    if polish_axis:
+        before = save_burgers(burgers, str(Path(tmp.name, 'burgers.pt')))
     set_seed(SHARD_SEED)
     ref = flagship_solver()
     init = {k: v.detach().cpu().clone() for k, v in ref.nets[0].state_dict().items()}
     rng_state = ref.rng.get_state()
+    if polish_axis:
+        polish = (str(Path(tmp.name, 'burgers.pt')), flagship_weight_grads(init, rng_state), POLISH_EPOCHS)
     if points_axis:
         hd_ref = highdim_solver(100, 'stde')
         hd_init = {k: v.detach().cpu().clone() for k, v in hd_ref.nets[0].state_dict().items()}
@@ -3177,7 +3289,7 @@ def run_sharded(F, taylor_mlp, card='the CPU', chosen=('5r', '5s')):
     t0 = time.perf_counter()
     # the mesh's ranks alone on the card: the rates they report are theirs
     outs = launch(shard_rank, world, backend=backend, device_type=dev.type, timeout=SHARD_TIMEOUT,
-                  args=(backend, devices, init, rng_state, SHARD_EPOCHS if points_axis else 0, hd, model),
+                  args=(backend, devices, init, rng_state, SHARD_EPOCHS if points_axis else 0, hd, model, polish),
                   num_threads=SHARD_CPU_THREADS if dev.type == 'cpu' else None)
     launch_s = time.perf_counter() - t0
     # the unsharded runs from the same states
@@ -3195,6 +3307,9 @@ def run_sharded(F, taylor_mlp, card='the CPU', chosen=('5r', '5s')):
         loaded = load_cavity(model[4])
         totals['5s'] = run_model_axis(taylor_mlp, card, [o['model'] for o in outs], first, cav_first, backend, world,
                                       launch_s, checks, whole, loaded)
+    if polish_axis:
+        totals['5t'] = run_polish(taylor_mlp, card, [o['5t'] for o in outs], backend, world, launch_s, checks,
+                                  (polish, (init, rng_state)), before, sync)
     tmp.cleanup()
     if not points_axis:
         return totals
@@ -3352,6 +3467,284 @@ def run_model_axis(taylor_mlp, card, outs, first, cav_first, backend, world, lau
     return {k: sum(r['launches'][k] for r in flag + cav) for k in taylor_mlp.LAUNCHES}
 
 
+def state_elements(optimizer):
+    """The elements of the tensors in ``optimizer``'s state (L-BFGS's
+    vectors and history, Adafactor's factors and variances, Muon's
+    momentum), step counts and scalars aside."""
+    def count(v):
+        if isinstance(v, (list, tuple)):
+            return sum(count(x) for x in v)
+        return v.numel() if torch.is_tensor(v) and v.ndim else 0
+
+    return sum(count(v) for st in optimizer.state.values() for k, v in st.items() if k != 'gram')
+
+
+def full_params(solver):
+    """Every parameter at full size (gathered on every rank under a model axis)."""
+    return [v.detach().cpu().numpy().copy() for sd in solver.get_internals('params') for v in sd.values()]
+
+
+def load_burgers(path, mesh=None):
+    """The Burgers solver saved at ``path`` (5k's, or an untrained one),
+    loaded through a ``SolverConfig`` (the card's machine has no dill),
+    onto ``mesh`` or none."""
+    from neurodiffeq_tpu_torch.solvers import Solver2D
+    from neurodiffeq_tpu_torch.solvers_utils import SolverConfig
+
+    fresh = burgers_solver()
+    return Solver2D.load(path, mesh=mesh, config=SolverConfig(
+        pde_system=fresh.diff_eqs, conditions=fresh.conditions, nets=fresh.nets,
+        train_generator=fresh.generator['train'], valid_generator=fresh.generator['valid']))
+
+
+def polish_run(solver, sync, epochs, group=None):
+    """Phase 5t (a) on ``solver`` (on a mesh, whose model group is
+    ``group``): ``examples/burgers.py``'s ``polish_lbfgs``, ``set_generator``
+    with the frozen draw and ``set_optimizer`` with ``torch.optim.LBFGS``,
+    ``fit(1)`` ``epochs`` times: the first epoch's train loss and
+    gathered parameters; per epoch the closure calls, L-BFGS iterations and
+    the optimizer's own ``all_reduce`` calls; the rate over the epochs
+    between the first and the last; over the last, the model group's
+    ``all_reduce`` seconds (synchronized), all and the optimizer's own; the
+    launches and fallbacks of the polish, the train losses, the elements of
+    the L-BFGS state and parameters on this rank, and ``get_solution()`` on
+    Burgers' grid."""
+    from neurodiffeq_tpu_torch import fields as F
+    from neurodiffeq_tpu_torch.generators import PredefinedGenerator
+    from neurodiffeq_tpu_torch.ops import taylor_mlp
+
+    solver.set_generator(PredefinedGenerator(*polish_draw()))
+    solver.set_optimizer(torch.optim.LBFGS(solver._parameters(), lr=1.0, max_iter=POLISH_ITERS,
+                                           history_size=POLISH_HISTORY, line_search_fn='strong_wolfe'))
+    opt, counts, own, timing = solver.optimizer, {'closures': 0, 'reductions': 0}, [0.0], [False]
+    passes, reduce = solver._loss_and_metrics, getattr(opt, '_reduce', None)
+
+    def counted(cols):
+        counts['closures'] += torch.is_grad_enabled()  # validation batches run without a graph
+        return passes(cols)
+
+    def counted_reduce(flat):
+        counts['reductions'] += 1
+        if not timing[0]:
+            return reduce(flat)
+        sync()
+        t1 = time.perf_counter()
+        out = reduce(flat)
+        sync()
+        own[0] += time.perf_counter() - t1
+        return out
+
+    solver._loss_and_metrics = counted
+    if group is not None:
+        opt._reduce = counted_reduce
+    per_epoch, start = [], len(solver.metrics_history['train_loss'])
+
+    def epoch():
+        before, n_iter = dict(counts), opt.state[opt._params[0]].get('n_iter', 0)
+        solver.fit(1, tqdm_file=None)
+        per_epoch.append({**{k: counts[k] - before[k] for k in counts},
+                          'iterations': opt.state[opt._params[0]]['n_iter'] - n_iter})
+
+    F.reset_taylor_fallback_count()
+    taylor_mlp.reset_launches()
+    epoch()
+    first = (solver.metrics_history['train_loss'][-1], full_params(solver))
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(epochs - 2):
+        epoch()
+    sync()
+    rate = (epochs - 2) / (time.perf_counter() - t0)
+    spent, timing[0] = [0.0, 0], True
+    restore = timed_collective('all_reduce', sync, spent, group) if group is not None else (lambda: None)
+    try:
+        epoch()
+    finally:
+        restore()
+        timing[0] = False
+    del solver._loss_and_metrics
+    launches, fallbacks = dict(taylor_mlp.LAUNCHES), F.taylor_fallback_count()
+    last = per_epoch[-1]['closures']
+    return {'first': first, 'epochs': per_epoch, 'rate': rate, 'launches': launches, 'fallbacks': fallbacks,
+            'model_ms': (spent[0] / last * 1e3, own[0] / last * 1e3, spent[1] / last),
+            'history': list(solver.metrics_history['train_loss'][start:]),
+            'elements': (state_elements(opt), sum(p.numel() for p in solver._parameters())),
+            'solution': burgers_solution(solver)}
+
+
+def optim_runs(mesh, init, rng_state, grads):
+    """Phase 5t (b) on ``mesh`` (or none): the flagship from ``init`` and the
+    generator state ``rng_state``, ``OPT_EPOCHS`` epochs with
+    ``torch.optim.Adafactor`` and with ``torch.optim.Muon`` over the 2-D
+    weights: the gathered parameters after each epoch and the optimizer
+    state's elements on this rank; and one Muon step from the full-size
+    gradients ``grads`` (this rank's block of each): the gathered
+    parameters."""
+    from neurodiffeq_tpu_torch.parallel.sharding import stored_blocks
+    from neurodiffeq_tpu_torch.utils import get_default_device
+
+    def flagship():
+        gen = torch.Generator(device=get_default_device())
+        gen.set_state(rng_state)
+        solver = flagship_solver(mesh=mesh, generator=gen)
+        solver.load_params([init])
+        return solver
+
+    makers = {'Adafactor': lambda params: torch.optim.Adafactor(params, lr=OPT_LR),
+              'Muon': lambda params: torch.optim.Muon([p for p in params if p.ndim == 2], lr=OPT_LR)}
+    out = {}
+    for name, make in makers.items():
+        solver = flagship()
+        solver.set_optimizer(make(solver._parameters()))
+        params = []
+        for _ in range(OPT_EPOCHS):
+            solver.fit(1, tqdm_file=None)
+            params.append(full_params(solver))
+        out[name] = (params, state_elements(solver.optimizer))
+    solver = flagship()
+    solver.set_optimizer(makers['Muon'](solver._parameters()))
+    blocks = stored_blocks(solver._unique_nets)
+    for p, g in zip([p for p in solver._parameters() if p.ndim == 2], grads, strict=True):
+        g = torch.as_tensor(g, device=p.device)
+        p.grad = blocks[p].right_inverse(g) if p in blocks else g
+    solver.optimizer.step()
+    out['Muon step'] = full_params(solver)
+    return out
+
+
+def polish_rank(backend, devices, init, rng_state, sync, path, grads, epochs):
+    """Phase 5t in one rank: on ``make_mesh(model_axis_size=MODEL_AXIS)``
+    over the ranks, Burgers' polish from the solver saved at ``path``
+    (:func:`polish_run`) and the flagship's Adafactor and Muon runs
+    (:func:`optim_runs`); ``epochs`` polish epochs."""
+    from neurodiffeq_tpu_torch.parallel import make_mesh
+    from neurodiffeq_tpu_torch.parallel.sharding import mesh_axes
+
+    mesh = make_mesh(devices=devices, backend=backend, model_axis_size=MODEL_AXIS)
+    out = {'polish': polish_run(load_burgers(path, mesh), sync, epochs, mesh_axes(mesh).model.get_group())}
+    out.update(optim_runs(mesh, init, rng_state, grads))
+    return out
+
+
+def save_burgers(burgers, path):
+    """5t's start, saved at ``path``: 5k's solver ``burgers``, or where 5k did
+    not run the Burgers net at ``POLISH_SEED``. Returns 5k's mean error on
+    Burgers' grid (None without 5k)."""
+    from neurodiffeq_tpu_torch.utils import set_seed
+
+    if burgers is None:
+        set_seed(POLISH_SEED)
+        burgers_solver().save(path)
+        return None
+    burgers.save(path)
+    return float(np.abs(burgers_solution(burgers) - burgers_reference()[2]).mean())
+
+
+def flagship_weight_grads(init, rng_state):
+    """The unsharded flagship's first-epoch gradients of its 2-D weights from
+    ``init`` and the generator state ``rng_state`` (5t's Muon step)."""
+    from neurodiffeq_tpu_torch.utils import get_default_device
+
+    gen = torch.Generator(device=get_default_device())
+    gen.set_state(rng_state)
+    ref = flagship_solver(generator=gen)
+    ref.load_params([init])
+    loss, _ = ref._loss_and_metrics(ref._generate_batch('train'))
+    ref._backward(loss)
+    return [p.grad.detach().cpu().numpy() for p in ref._parameters() if p.ndim == 2]
+
+
+def run_polish(taylor_mlp, card, outs, backend, world, launch_s, checks, inputs, before, sync):
+    """Phase 5t's checks on the ranks' :func:`polish_rank` results ``outs``
+    against the same runs unsharded here (from ``inputs``, what the ranks
+    started from): (a) the first polish epoch's loss and parameters within
+    ``SHARD_GRAD_TOL`` of unsharded, its closure calls equal on every rank
+    and to unsharded, the rest of the epochs' equal on every rank, the
+    optimizer's model-group reductions per closure call and iteration, the
+    loss on the frozen draw falling, every rank the same history,
+    ``POLISH_PASS`` launches per pass on each rank and one ``taylor_mlp``
+    unsharded, no fallback, and (after 5k, ``before`` its mean error) the
+    mean error against Cole-Hopf below before and below
+    ``POLISH_MEAN_LIMIT``; (b) Adafactor within ``SHARD_GRAD_TOL`` after each
+    epoch, Muon's step from one gradient within ``MUON_STEP_TOL`` and its
+    epochs within ``MUON_EPOCH_TOL``, the optimizer state per rank
+    ``OPT_PER_RANK``. Returns the launches summed over the ranks."""
+    (path, grads, _), (init, rng_state) = inputs
+    plain = polish_run(load_burgers(path), sync, POLISH_EPOCHS)
+    plain_optim = optim_runs(None, init, rng_state, grads)
+    polish, checks = [o['polish'] for o in outs], dict(checks)
+    _, _, exact = burgers_reference()
+    after = [float(np.abs(r['solution'] - exact).mean()) for r in polish]
+    passes = [sum(e['closures'] for e in r['epochs']) + 4 * POLISH_EPOCHS for r in polish]
+    plain_passes = sum(e['closures'] for e in plain['epochs']) + 4 * POLISH_EPOCHS
+    first_err = max([rel(r['first'][0], plain['first'][0]) for r in polish]
+                    + [rel(a, b) for r in polish for a, b in zip(r['first'][1], plain['first'][1], strict=True)])
+    hist = polish[0]['history']
+    checks.update({
+        f'first polish epoch loss and parameters within {SHARD_GRAD_TOL} of unsharded': first_err < SHARD_GRAD_TOL,
+        'closure calls per epoch equal on every rank': all(
+            [e['closures'] for e in r['epochs']] == [e['closures'] for e in polish[0]['epochs']] for r in polish),
+        'first epoch closure calls equal to unsharded': polish[0]['epochs'][0]['closures'] == plain['epochs'][0]['closures'],
+        'optimizer all_reduces: 1 per closure call and 2 per iteration (1 fewer in the first)': all(
+            e['reductions'] == e['closures'] + 2 * e['iterations'] - (i == 0)
+            for r in polish for i, e in enumerate(r['epochs'])),
+        'loss on the frozen draw fell': hist[-1] < hist[0] and plain['history'][-1] < plain['history'][0],
+        'every rank the same history': all(r['history'] == hist for r in polish),
+        f'{POLISH_PASS} per pass on each rank': all(
+            r['launches'] == {k: v * n for k, v in POLISH_PASS.items()} for r, n in zip(polish, passes)),
+        'unsharded: taylor_mlp once per pass': plain['launches'] == {'taylor_mlp_1h': 0, 'taylor_mlp': plain_passes,
+                                                                      'taylor_mlp_streams': 0},
+        'no Taylor fallback': all(r['fallbacks'] == 0 for r in polish + [plain]),
+    })
+    if before is not None:
+        checks.update({
+            'mean error below after Adam': all(a < before for a in after),
+            f'mean error < {POLISH_MEAN_LIMIT}': all(np.isfinite(a) and a < POLISH_MEAN_LIMIT for a in after)})
+    each = lambda key, i, f='.3f': ' '.join(format(r[key][i] if i is not None else r[key], f) for r in polish)
+    before_msg = f'before {before:.5f}, ' if before is not None else ''
+    report('5t polish', f"{card}: Burgers 2-(20x8)-1 from {'5k' if before is not None else 'an untrained net'}, "
+                        f"L-BFGS (strong Wolfe, max_iter {POLISH_ITERS}, history {POLISH_HISTORY}) for {POLISH_EPOCHS} "
+                        f"epochs on {POLISH_POINTS} frozen points over {world} {backend} ranks, mesh "
+                        f"({world // MODEL_AXIS}, {MODEL_AXIS}), in {launch_s:.1f} s with 5r and 5s: first epoch "
+                        f"against unsharded {first_err:.2e} (relative); closure calls per epoch "
+                        f"{[e['closures'] for e in polish[0]['epochs']]} (unsharded "
+                        f"{[e['closures'] for e in plain['epochs']]}), iterations "
+                        f"{[e['iterations'] for e in polish[0]['epochs']]}; train loss {hist[0]:.4e} -> {hist[-1]:.4e} "
+                        f"(unsharded {plain['history'][0]:.4e} -> {plain['history'][-1]:.4e}); mean error against "
+                        f"Cole-Hopf on 201 x 101 {before_msg}after {' '.join(f'{a:.5f}' for a in after)} (unsharded "
+                        f"{float(np.abs(plain['solution'] - exact).mean()):.5f}); launches per rank "
+                        f"{polish[0]['launches']} in {passes[0]} passes; L-BFGS history elements per rank "
+                        f"{each('elements', 0, 'd')} over {polish[0]['elements'][1]} parameters (unsharded "
+                        f"{plain['elements'][0]} over {plain['elements'][1]}); the model group's all_reduce per "
+                        f"closure call, each rank (synchronized, last epoch): {each('model_ms', 0)} ms in "
+                        f"{polish[0]['model_ms'][2]:.1f} calls, of which the optimizer's {each('model_ms', 1)} ms; "
+                        f"epochs/s, each rank: {each('rate', None)} (unsharded {plain['rate']:.3f})",
+           checks, "Burgers polish check failed")
+
+    optim = {name: [o[name] for o in outs] for name in ('Adafactor', 'Muon', 'Muon step')}
+    errs = {name: [max(rel(a, b) for a, b in zip(params, want, strict=True))  # per rank and epoch, over the leaves
+                   for r in optim[name] for params, want in zip(r[0], plain_optim[name][0], strict=True)]
+            for name in ('Adafactor', 'Muon')}
+    step_err = max(rel(a, b) for r in optim['Muon step'] for a, b in zip(r, plain_optim['Muon step'], strict=True))
+    elements = {name: [r[1] for r in optim[name]] for name in ('Adafactor', 'Muon')}
+    checks = {
+        f'Adafactor within {SHARD_GRAD_TOL} of unsharded after each epoch': max(errs['Adafactor']) < SHARD_GRAD_TOL,
+        f"Muon's step from the unsharded gradient within {MUON_STEP_TOL}": step_err < MUON_STEP_TOL,
+        f'Muon within {MUON_EPOCH_TOL} of unsharded after each epoch': max(errs['Muon']) < MUON_EPOCH_TOL,
+        f'optimizer state per rank {OPT_PER_RANK}': all(
+            all(n == OPT_PER_RANK[name][0] for n in elements[name]) and plain_optim[name][1] == OPT_PER_RANK[name][1]
+            for name in elements),
+    }
+    report('5t optimizers', f"{card}: the flagship 2-512-1 on the same mesh, {OPT_EPOCHS} epochs each at lr "
+                            f"{OPT_LR}: Adafactor against unsharded after each epoch "
+                            f"{' '.join(f'{e:.2e}' for e in errs['Adafactor'])}, Muon (the 2-D weights) "
+                            f"{' '.join(f'{e:.2e}' for e in errs['Muon'])}, Muon's step from the unsharded gradient "
+                            f"{step_err:.2e} (relative); optimizer state elements per rank: Adafactor "
+                            f"{elements['Adafactor']} of {plain_optim['Adafactor'][1]}, Muon {elements['Muon']} of "
+                            f"{plain_optim['Muon'][1]}", checks, "model-axis optimizer check failed")
+    return {k: sum(o['polish']['launches'][k] for o in outs) for k in taylor_mlp.LAUNCHES}
+
+
 def main():
     args = sys.argv[1:]
     chosen = set(args[1].split(',')) if len(args) == 2 and args[0] == '--phases' else set()
@@ -3440,8 +3833,9 @@ def main():
             paths[name] = out if name == '5g' else out[0]
             if name in labels:
                 timed[labels[name]] = out
-    if chosen & {'5r', '5s'}:  # one spawn of ranks for both
-        paths.update(run_sharded(F, taylor_mlp, card, chosen & {'5r', '5s'}))
+    if chosen & {'5r', '5s', '5t'}:  # one spawn of ranks for all three; 5t polishes 5k's solver where 5k ran
+        paths.update(run_sharded(F, taylor_mlp, card, chosen & {'5r', '5s', '5t'},
+                                 burgers=timed[labels['5k']][1] if '5k' in chosen else None))
 
     # ---- 6. timing
     if '6' in chosen:

@@ -198,11 +198,16 @@ def main():
     phases = {'5l': (lambda: cs.highdim_solver(10, 'exact', seed), 10, cs.POISSON10_EPOCHS),
               '5m': (lambda: cs.highdim_solver(100, 'stde', seed), 100, cs.POISSON100_EPOCHS),
               '5n': (lambda: cs.plate_solver(cs.PLATE_DIM), cs.PLATE_DIM, cs.PLATE_EPOCHS)}
+    done = {}  # 5k's result, which 5t polishes where both run
     own = {'5a': (cs.run_flagship, 'EPOCHS'), '5g': (cs.run_generic_3d, 'GEN3D_EPOCHS'),
            '5d': (cs.run_sph, 'SPH_EPOCHS'), '5o': (cs.run_oscillator, 'OSC_EPOCHS'),
            '5p': (cs.run_temporal, 'TEMPORAL_EPOCHS'), '5q': (cs.run_legacy, 'LEGACY_ODE_EPOCHS'),
            '5r': (lambda F, taylor_mlp: cs.run_sharded(F, taylor_mlp, chosen=('5r',)), 'SHARD_EPOCHS'),
            '5s': (lambda F, taylor_mlp: cs.run_sharded(F, taylor_mlp, chosen=('5s',)), 'SHARD_EPOCHS'),
+           '5k': (lambda F, taylor_mlp: done.setdefault('5k', cs.run_burgers(F, taylor_mlp)), 'BURGERS_EPOCHS'),
+           '5t': (lambda F, taylor_mlp: cs.run_sharded(F, taylor_mlp, chosen=('5t',),
+                                                       burgers=done['5k'][1] if '5k' in done else None),
+                  'POLISH_EPOCHS'),
            '5i': (cs.run_heat, 'HEAT_EPOCHS')}
     for name in chosen:
         if name == '5o-jax':

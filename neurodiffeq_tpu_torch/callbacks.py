@@ -514,6 +514,11 @@ class SetOptimizer(ActionCallback):
     - A class (or factory) is called as
       ``optimizer(params, *optimizer_args, **optimizer_kwargs)`` with the
       parameters of the solver's networks.
+
+    Either goes through ``solver.set_optimizer``: on a ``'model'`` mesh the
+    parameters are this rank's blocks, and ``torch.optim.LBFGS``,
+    ``Adafactor`` and ``Muon`` step there as they step unsharded
+    (:func:`~neurodiffeq_tpu_torch.parallel.optim.on_model_axis`).
     """
 
     def __init__(self, optimizer, optimizer_args=None, optimizer_kwargs=None, reset=False, logger=None):

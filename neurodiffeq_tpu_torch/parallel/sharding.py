@@ -474,39 +474,6 @@ def load_leaf(lin, name, value):
         stored.copy_(value)
 
 
-def _map_block_state(sd, params, nets, fn, shape):
-    """``sd``, an optimizer's ``state_dict`` (``params[i]``: the parameter
-    that its state ``i`` belongs to), with ``fn(tensor, _Block)`` applied to
-    each state tensor of a stored block of ``nets`` whose shape is
-    ``shape(parameter, _Block)``: a moment, not a step count."""
-    blocks = stored_blocks(nets)
-    if not blocks:
-        return sd
-    state = {}
-    for i, st in sd['state'].items():
-        spec = blocks.get(params[i])
-        state[i] = st if spec is None else {
-            k: fn(v, spec) if torch.is_tensor(v) and tuple(v.shape) == shape(params[i], spec) else v
-            for k, v in st.items()}
-    return {**sd, 'state': state}
-
-
-@torch.no_grad()
-def full_optimizer_state(opt, nets):
-    """``opt.state_dict()`` with the state of each stored block of ``nets``
-    gathered to its full leaf's size: what it is without a model mesh.
-    Every rank of the model group calls it alike."""
-    params = [p for group in opt.param_groups for p in group['params']]
-    return _map_block_state(opt.state_dict(), params, nets, _GatherBlocks.apply, lambda p, spec: tuple(p.shape))
-
-
-def placed_optimizer_state(sd, params, nets):
-    """The full-size optimizer state ``sd`` (``params[i]``: the parameter
-    of its state ``i``, a stored block of ``nets`` or another) with this
-    rank's block of each split leaf's state. No collective."""
-    return _map_block_state(sd, params, nets, lambda v, spec: spec.right_inverse(v), lambda p, spec: spec.shape)
-
-
 def squared_norms(rows, params, nets, mesh):
     """The squared L2 norm of each row of ``rows`` (``(k, n)``, each row a
     gradient over ``params`` flattened and concatenated) as the whole net's

@@ -65,6 +65,7 @@ from .fields import Field, cat as field_cat, coords_from_points
 from .generators import Generator1D, Generator2D, GeneratorSpherical, _as_tuple, contains_buried_adaptive
 from .losses import _losses
 from .networks import FCNN, Tanh
+from .parallel.optim import on_model_axis
 from .parallel.sharding import (ModelSplit, RowShard, all_reduce_, broadcast_, device_put_params, full_state,
                                 mesh_axes, net_parameters, placed_state, plain_copies, shard_params, split_scope,
                                 stored_blocks, world_group, _check_mesh)
@@ -97,13 +98,6 @@ def _requires_closure(optimizer):
     test)."""
     p = inspect.signature(optimizer.step).parameters.get('closure')
     return p is not None and p.default is inspect.Parameter.empty
-
-
-def _reads_across_leaves(optimizer):
-    """Whether ``optimizer``'s step combines the elements of a leaf, or of
-    all leaves, rather than treating each element alone: a closure-style
-    optimizer (L-BFGS) and ``torch.optim``'s Adafactor and Muon."""
-    return _requires_closure(optimizer) or type(optimizer).__name__ in ('Adafactor', 'Muon')
 
 
 def _shard_form(fn, name):
@@ -292,16 +286,17 @@ class BaseSolver(ABC, PretrainedSolver):
         step counts, L-BFGS history) starts empty. Under a ``'model'`` axis
         the nets' parameters are this rank's blocks of the split leaves (the
         same parameter objects: an optimizer made over the full-size ones
-        before the solver holds the blocks), so its state is 1/m of theirs;
-        an optimizer whose step reads across a leaf or across the leaves
-        (:func:`_reads_across_leaves`) would step differently on each rank
-        there, and raises a ``ValueError``."""
-        if self._split is not None and _reads_across_leaves(optimizer):
-            raise ValueError(
-                f"{type(optimizer).__name__} reduces over its parameters (a closure-style optimizer's dot products, "
-                f"norms and line search; factored or orthogonalized moments), and on a 'model' mesh axis each rank "
-                f"holds only its blocks of the split leaves, so the ranks would take different steps; use an "
-                f"elementwise optimizer such as Adam there, or a mesh over the points alone")
+        before the solver holds the blocks), so its state is 1/m of theirs.
+        There ``torch.optim.LBFGS``, ``Adafactor`` and ``Muon``, whose steps
+        read across their parameters, step on the blocks with every global
+        scalar reduced over the model group, exactly as they step without a
+        mesh (:func:`~neurodiffeq_tpu_torch.parallel.optim.on_model_axis`:
+        the same object, its class made the model axis's); another
+        closure-style optimizer raises a ``ValueError`` there. ``torch.optim.Muon``
+        takes 2-D parameters only, so it trains the weights it is given,
+        with a mesh or without."""
+        if self._split is not None:
+            optimizer = on_model_axis(optimizer, self._unique_nets, self._split, _requires_closure(optimizer))
         self.optimizer = optimizer
         self._closure_style = _requires_closure(optimizer)
         if reset_state:
@@ -496,7 +491,11 @@ class BaseSolver(ABC, PretrainedSolver):
 
     def _closure_step(self, cols):
         """One closure-style optimizer step on one batch; returns the loss
-        and metrics at the parameters before the step."""
+        and metrics at the parameters before the step. Under a mesh each
+        closure call returns the global loss, its gradients summed over the
+        ``'points'`` axis (:meth:`_reduce_grads`); on a ``'model'`` axis the
+        optimizer's own reductions over the model group follow
+        (:class:`~neurodiffeq_tpu_torch.parallel.optim.LBFGS`)."""
         first = []
 
         def closure():

@@ -344,11 +344,12 @@ def _optimizer_state(solver):
     to full size, on every rank) and, per parameter group, the place of each
     parameter among the solver's ``_parameters()`` (the order the restored
     state maps to)."""
-    from .parallel.sharding import full_optimizer_state
+    from .parallel.optim import full_optimizer_state, plain_class
 
     position = {id(p): i for i, p in enumerate(solver._parameters())}
     opt = solver.optimizer
-    return {'module': type(opt).__module__, 'type': type(opt).__qualname__,
+    kind = plain_class(opt)  # a model axis's L-BFGS, Adafactor or Muon keeps torch.optim's state
+    return {'module': kind.__module__, 'type': kind.__qualname__,
             'state_dict': full_optimizer_state(opt, solver._unique_nets),
             'param_index': [[position.get(id(p), -1) for p in group['params']] for group in opt.param_groups]}
 
@@ -424,30 +425,51 @@ def _cpu_steps(optimizer):
                 st['step'] = st['step'].cpu()
 
 
+def _fits(value, param, n_flat):
+    """Whether the optimizer state ``value`` (of ``param``, in a group of
+    ``n_flat`` elements) fits: a number, a moment of the parameter's shape,
+    Adafactor's row or column factor of it, L-BFGS's flat vector over the
+    group, or a list of these."""
+    if isinstance(value, (list, tuple)):
+        return all(_fits(v, param, n_flat) for v in value)
+    if not torch.is_tensor(value) or value.ndim == 0:
+        return True
+    shape, own = tuple(value.shape), tuple(param.shape)
+    factors = {own[:-1] + (1,), own[:-2] + (1,) + own[-1:]} if len(own) > 1 else set()
+    return shape == own or shape in factors or shape == (n_flat,)
+
+
 def _restore_optimizer(solver, opt, optimizer_class):
     """Rebuild the saved optimizer over ``solver``'s parameters and load its
-    state, each group's parameters in the saved places; under a ``'model'``
-    axis the full-size state of a split leaf becomes this rank's block. One
-    that did not hold each of the solver's parameters once, or whose state
-    has other shapes, starts afresh with the saved hyperparameters, as the
-    JAX package re-initializes an optimizer state of another structure."""
-    from .parallel.sharding import placed_optimizer_state
+    state, each group's parameters in the saved places (some of the
+    solver's parameters, each at most once: Muon takes the weights alone);
+    under a ``'model'`` axis the full-size state of a split leaf becomes
+    this rank's part of it
+    (:func:`~neurodiffeq_tpu_torch.parallel.optim.placed_optimizer_state`).
+    Where the state has other shapes it starts afresh over the same
+    parameters; one that held a tensor the solver does not own starts
+    afresh over all of them, with the saved hyperparameters, as the JAX
+    package re-initializes an optimizer state of another structure."""
+    from .parallel.optim import placed_optimizer_state
 
     params = solver._parameters()
     sd = opt['state_dict']
     hyper = [{k: v for k, v in g.items() if k != 'params'} for g in sd['param_groups']]
     index = opt['param_index']
-    fits = sorted(i for idx in index for i in idx) == list(range(len(params)))
+    flat = [i for idx in index for i in idx]
+    fits = owned = all(0 <= i < len(params) for i in flat) and len(set(flat)) == len(flat)
     if fits:
         by_id = {pid: p for idx, g in zip(index, sd['param_groups']) for pid, p in zip(g['params'], idx)}
-        sd = placed_optimizer_state(sd, {pid: params[i] for pid, i in by_id.items()}, solver._unique_nets)
-        fits = all(all(not torch.is_tensor(v) or v.ndim == 0 or v.shape == params[by_id[pid]].shape
-                       for v in st.values())
-                   for pid, st in sd['state'].items())
-    if fits:
+        sd = placed_optimizer_state(sd, {pid: params[i] for pid, i in by_id.items()}, solver._unique_nets,
+                                    optimizer_class)
+        n_flat = {pid: sum(params[i].numel() for i in idx) for idx, g in zip(index, sd['param_groups'])
+                  for pid in g['params']}
+        fits = all(_fits(v, params[by_id[pid]], n_flat[pid]) for pid, st in sd['state'].items() for v in st.values())
+    if owned:
         optimizer = optimizer_class([{**h, 'params': [params[i] for i in idx]} for h, idx in zip(hyper, index)])
-        optimizer.load_state_dict(sd)
-        _cpu_steps(optimizer)
+        if fits:
+            optimizer.load_state_dict(sd)
+            _cpu_steps(optimizer)
     else:
         optimizer = optimizer_class([{**hyper[0], 'params': params}])
     solver.set_optimizer(optimizer, reset_state=False)

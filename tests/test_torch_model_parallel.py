@@ -28,6 +28,19 @@ mesh resumes without one and the other way round; and monitors and
 checkpoints, which read the parameters on every rank and write on rank 0,
 run inside ``fit``.
 
+The optimizers whose steps read across their parameters, ``torch.optim``'s
+L-BFGS (with and without the strong-Wolfe line search), Adafactor and Muon,
+step on each rank's blocks as they step unsharded: parameters after each of
+3 epochs within 1e-9 (L-BFGS) and 1e-10 (Adafactor) relative of unsharded
+``torch.optim``, Muon's step from one full-size gradient within 1e-12, the
+same closure calls on every rank, the model group's reductions per L-BFGS
+iteration the same at history 5 and 50, each rank's optimizer state its
+blocks' part, and the state saved on the mesh and off it loading the other
+way. Burgers' L-BFGS polish (``examples/burgers.py``'s ``polish_lbfgs``:
+``set_generator`` with a frozen uniform draw, then L-BFGS through
+``set_optimizer`` or the ``SetOptimizer`` callback) runs the unsharded
+trajectory, its first closure held to the JAX package on its mesh.
+
 The twin of the stream-input kernel entry, ``fcnn_taylor_streams_reference``,
 is held to the JAX package's layer-by-layer Taylor path on the same input
 streams. Every spawn has a time limit.
@@ -53,7 +66,7 @@ from neurodiffeq_tpu_torch.ops import taylor_mlp
 from neurodiffeq_tpu_torch.parallel import launch
 from neurodiffeq_tpu_torch.utils import get_default_device, get_default_dtype, set_tensor_type
 
-from neurodiffeq_tpu import conditions as JC, generators as JG, networks as JN, solvers as JS
+from neurodiffeq_tpu import conditions as JC, fields as JF, generators as JG, networks as JN, solvers as JS
 from neurodiffeq_tpu.fields import diff as jdiff
 from neurodiffeq_tpu.ops.taylor import TSeries, affine_series
 from neurodiffeq_tpu.parallel import (make_mesh as jax_make_mesh, megatron_param_shardings as jax_shardings,
@@ -84,6 +97,26 @@ ACCUMULATE = dict(problem='second', hidden=(32, 32), n_batches_train=2)
 FIT = dict(problem='second', hidden=(32, 32), method='equally-spaced-noisy')
 FIT_EPOCHS, RESUME_EPOCHS, CALLBACK_EPOCHS = 3, 2, 4
 POINTS = np.linspace(0.0, 2.0, 17)  # where the handed-out solutions are evaluated
+OPTIM_EPOCHS, MUON_STEPS = 3, 2
+LBFGS_RUNS = [name for name, (kind, _) in M.OPTIMIZERS.items() if kind == 'LBFGS']
+OPTIM_TOL = {'adafactor': 1e-10}  # relative; L-BFGS TRAJ
+# Muon orthogonalizes in bfloat16 (torch.optim._muon's Newton-Schulz), so gradients that differ at round-off (the
+# mesh sums them in another order) may round one bfloat16 ulp apart there: per step an element moves by at most
+# lr * the largest learning-rate adjustment (sqrt(32) for the 32 x 1 weight) * 2^-8 of an orthogonalized element
+# (at most about 1.5), so 3 steps stay within 3 * 1e-2 * sqrt(32) * 2^-8 * 1.5 < 3 * 1e-2 * sqrt(32) * 2^-7
+MUON_ATOL = OPTIM_EPOCHS * M.OPTIMIZERS['muon'][1]['lr'] * np.sqrt(32) * 2.0 ** -7
+# the optimizer state each rank holds on a model axis of 2, against the unsharded (FIT's FCNN 1-(32, 32)-1: 1,153
+# elements, 609 on each rank): L-BFGS 2 history_size + 2 flat vectors of 609 (2 k + 2 of 1,153 unsharded, k pairs of
+# history); Adafactor's factors and variances 147 of 195 (the first weight's split row factor 16 of 32 and its column
+# factor 1, the first bias 16, the second weight's row factor 32 whole and split column factor 16 of 32, the second
+# bias 32, the trailing layer 33 and 1); Muon's momentum 560 of 1,088 (the first weight 16 of 32, the second 512 of
+# 1,024, the trailing 32)
+STATE_ELEMENTS = {'adafactor': (147, 195), 'muon': (560, 1088)}
+# the flat vectors of the rank's elements that L-BFGS may allocate per closure call and per iteration: about 6 read
+# (the gradient, its weighted copy and |g| per call; s, y, the weighted (s, y, g), the direction, |d| and the strong
+# Wolfe search's copy of the parameters per iteration), with the fit loop's own small tensors
+LBFGS_ALLOCATED = 8
+POLISH_HIDDEN, POLISH_N, POLISH_EPOCHS = (8,) * 4, 64, 2  # Burgers' 2-(8x4)-1 polished on 64 frozen points
 
 
 @pytest.fixture(autouse=True)
@@ -120,6 +153,33 @@ def _jax_solver(spec, mesh=None):
     gen = JG.Generator2D((4, n // 4), (0, 0), (1, 1), method=method)
     return JS.Solver2D(jldc.navier_stokes(100.0), conds, nets=[net] * 3, train_generator=gen, valid_generator=gen,
                        n_batches_valid=0, **common)
+
+
+def _jax_burgers(mesh=None):
+    """``examples/burgers.py``'s problem through the JAX package on an FCNN
+    2-``POLISH_HIDDEN``-1 (key 7): ``M.burgers``' counterpart."""
+    nu = 0.01 / np.pi
+    cond = JC.IBVP1D(x_min=-1.0, x_max=1.0, t_min=0.0, t_min_val=lambda x: -JF.sin(np.pi * x),
+                     x_min_val=lambda t: 0 * t, x_max_val=lambda t: 0 * t)
+    gen = JG.Generator2D((4, 4), (-1.0, 0.0), (1.0, 1.0))
+    return JS.Solver2D(lambda u, x, t: [jdiff(u, t) + u * jdiff(u, x) - nu * jdiff(u, x, order=2)], [cond],
+                       xy_min=(-1.0, 0.0), xy_max=(1.0, 1.0), nets=[JN.FCNN(n_input_units=2, hidden_units=POLISH_HIDDEN)],
+                       train_generator=gen, valid_generator=gen, key=jax.random.PRNGKey(7), mesh=mesh)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_polish_closure(mesh=None):
+    """The JAX package's loss and gradients on the polish's frozen draw, at
+    its initial parameters, unsharded or on the mesh named ``mesh``: what
+    the polish's first closure call computes."""
+    import chip_smoke as cs
+
+    solver = _jax_burgers(None if mesh is None else _jax_mesh(mesh))
+    cols = [jnp.asarray(c.reshape(-1, 1)) for c in cs.polish_draw(POLISH_N)]
+    fn = jax.jit(jax.value_and_grad(lambda p: solver._loss_and_metrics(p, cols)[0]))
+    with solver.mesh if mesh is not None else contextlib.nullcontext():
+        loss, grads = fn(solver.params)
+    return float(loss), R.params(M.burgers(None, POLISH_HIDDEN).load_jax_params(_numpy(grads)))
 
 
 def _numpy(tree):
@@ -210,6 +270,15 @@ def runs(tmp_path_factory):
                                          jax_params=[_numpy(p) for p in _jax_solver(ACCUMULATE).params]))
     cases['fit'] = ('fit', dict(spec=FIT, epochs=FIT_EPOCHS, points=POINTS))
     cases['fit:lbfgs'] = ('lbfgs', dict(spec=FIT))
+    weights = [tuple(p.shape) for p in M.build(None, **FIT)._parameters() if p.ndim == 2]
+    rng = np.random.RandomState(5)
+    cases['muon_step'] = ('muon_step', dict(spec=FIT, grads=[rng.standard_normal(s) for s in weights],
+                                            steps=MUON_STEPS))
+    cases['schedule'] = ('schedule', dict(spec=FIT, epochs=OPTIM_EPOCHS))
+    polish_params = [_numpy(p) for p in _jax_burgers().params]
+    cases.update({f'polish:{via}': ('polish', dict(hidden=POLISH_HIDDEN, jax_params=polish_params, n=POLISH_N,
+                                                   via=via, epochs=POLISH_EPOCHS))
+                  for via in ('set_optimizer', 'callback')})
     cases.update({f'layout:{h}': ('layout', dict(hidden=h)) for h in LAYOUTS})
     cases.update({f'store:{kind}:{h}': ('store', dict(kind=kind, hidden=h, jax_params=[
         _numpy(_jax_net(kind, h).init(jax.random.PRNGKey(0)))])) for kind in KINDS for h in LAYOUTS})
@@ -217,12 +286,17 @@ def runs(tmp_path_factory):
     plain.fit(RESUME_EPOCHS, tqdm_file=None)
     plain.save(str(tmp / 'plain.pt'))
     out = {'tmp': tmp}
+    (tmp / 'plain_optim').mkdir()  # each optimizer's run without a mesh, and its file for the ranks to load
+    out['plain optim'] = {name: M.case_optim(None, name, FIT, OPTIM_EPOCHS, str(tmp / 'plain_optim')) for name in M.OPTIMIZERS}
     for name, (world, m) in MESHES.items():
         here = tmp / name
         here.mkdir()
         mine = dict(cases, resume=('resume', dict(spec=FIT, epochs=RESUME_EPOCHS, workdir=str(here),
                                                    plain_path=str(tmp / 'plain.pt'))),
-                    callbacks=('callbacks', dict(epochs=CALLBACK_EPOCHS, workdir=str(here))))
+                    callbacks=('callbacks', dict(epochs=CALLBACK_EPOCHS, workdir=str(here))),
+                    **{f'optim:{opt}': ('optim', dict(name=opt, spec=FIT, epochs=OPTIM_EPOCHS, workdir=str(here),
+                                                      plain_path=str(tmp / 'plain_optim' / f'{opt}.pt')))
+                       for opt in M.OPTIMIZERS})
         ranks = launch(M.run_cases, world, device_type='cpu', timeout=TIMEOUT, num_threads=1,
                        args=(m, mine, 3 if world == 4 else None), rendezvous=str(tmp / f'rendezvous_{name}'))
         out[name] = {key: [r[key] for r in ranks] for key in list(mine) + ['index', 'bad', 'imports']}
@@ -464,20 +538,202 @@ def test_monitor_and_checkpoints_inside_fit_write_once(runs, mesh):
 
 
 @pytest.mark.parametrize('mesh', list(MESHES))
-def test_optimizers_that_reduce_over_parameters_are_refused(runs, mesh):
-    """L-BFGS (dot products, norms and a line search over its flat
-    parameter vector) and Adafactor (factored moments) would step on each
-    model rank from its blocks alone: on a model axis ``set_optimizer``
-    refuses them, where the unsharded solver takes them."""
+def test_set_optimizer_takes_lbfgs_adafactor_and_muon_on_the_model_axis(runs, mesh):
+    """``set_optimizer`` takes ``torch.optim.LBFGS``, Adafactor and Muon on
+    a model axis as it takes them unsharded; a subclass of one, whose step
+    may be its own, is refused there."""
     plain, _, _ = runs['plain']['fit:lbfgs']
-    assert plain == [None, None]
+    assert plain == [None] * 4
     for messages, _, _ in runs[mesh]['fit:lbfgs']:
-        assert len(messages) == 2
-        for name, message in zip(('LBFGS', 'Adafactor'), messages):
-            if name == 'Adafactor' and not hasattr(torch.optim, 'Adafactor'):
-                assert message is None
-                continue
-            assert message is not None and message.startswith(name) and "'model' mesh axis" in message
+        assert messages[:3] == [None] * 3
+        assert messages[3].startswith('SubclassedLBFGS reads across its parameters') and "'model' mesh" in messages[3]
+
+
+def _same_state(got, want, rtol=0.0, atol=0.0):
+    """Two ``M.plain_state``s: the same keys, None where the other is None,
+    the values within the tolerances (equal where both are 0)."""
+    assert got.keys() == want.keys()
+    for i in want:
+        assert got[i].keys() == want[i].keys(), i
+        for key, w in want[i].items():
+            g = got[i][key]
+            pairs = list(zip(g, w, strict=True)) if isinstance(w, list) else [(g, w)]
+            for a, b in pairs:
+                assert (a is None) == (b is None), (i, key)
+                if b is not None:
+                    np.testing.assert_allclose(a, b, rtol=rtol, atol=atol, err_msg=f'{i} {key}')
+
+
+def _tolerance(name):
+    return dict(rtol=0.0, atol=MUON_ATOL) if name == 'muon' else dict(rtol=OPTIM_TOL.get(name, TRAJ), atol=ATOL)
+
+
+@pytest.mark.parametrize('mesh', list(MESHES))
+@pytest.mark.parametrize('name', list(M.OPTIMIZERS))
+def test_optimizers_that_read_across_parameters_step_as_unsharded(runs, name, mesh):
+    """L-BFGS (no line search and strong Wolfe, history 5 and 50),
+    Adafactor and Muon on the rank's blocks: the parameters after each of 3
+    epochs are unsharded ``torch.optim``'s (1e-9 relative, Adafactor 1e-10,
+    Muon ``MUON_ATOL``), on every rank, as are the train losses."""
+    want = runs['plain optim'][name]
+    for got in runs[mesh][f'optim:{name}']:
+        for params, wparams in zip(got['params'], want['params'], strict=True):
+            _close(params, wparams, **_tolerance(name))
+        np.testing.assert_allclose(got['history'][0], want['history'][0], rtol=RTOL)
+        if name != 'muon':
+            np.testing.assert_allclose(got['history'], want['history'], rtol=OPTIM_TOL.get(name, TRAJ))
+
+
+@pytest.mark.parametrize('mesh', list(MESHES))
+@pytest.mark.parametrize('name', LBFGS_RUNS)
+def test_lbfgs_closure_calls_are_equal_on_every_rank_and_unsharded(runs, name, mesh):
+    want = [c['closures'] for c in runs['plain optim'][name]['counts']]
+    assert sum(want) > OPTIM_EPOCHS  # each epoch an L-BFGS step of several closure calls
+    for got in runs[mesh][f'optim:{name}']:
+        assert [c['closures'] for c in got['counts']] == want
+
+
+@pytest.mark.parametrize('mesh', list(MESHES))
+@pytest.mark.parametrize('search', ['lbfgs', 'wolfe'])
+def test_lbfgs_reductions_per_iteration_do_not_grow_with_the_history(runs, search, mesh):
+    """The model group's ``all_reduce`` calls outside the closure's passes
+    (the optimizer's own): one per closure call and two per iteration (the
+    Gram scalars' new row; the direction's derivative and largest element),
+    one fewer in the very first iteration, which has no history: at history
+    5, which fills and shifts, and 50 alike. Unsharded, none."""
+    for name in (search, search + ':h50'):
+        assert all(c['reductions'] == 0 for c in runs['plain optim'][name]['counts'])
+        for got in runs[mesh][f'optim:{name}']:
+            for epoch, c in enumerate(got['counts']):
+                assert c['evaluations'] == c['closures'] and c['iterations'] > 0
+                assert c['reductions'] == c['closures'] + 2 * c['iterations'] - (epoch == 0), (name, epoch, c)
+
+
+@pytest.mark.parametrize('mesh', list(MESHES))
+@pytest.mark.parametrize('name', list(M.OPTIMIZERS))
+def test_optimizer_state_per_rank_is_its_blocks_part(runs, name, mesh):
+    """Each rank's optimizer state is its blocks' part and the replicated
+    leaves' whole: L-BFGS's flat vectors over the rank's 609 elements where
+    unsharded they span 1,153 (its history in buffers of ``history_size``
+    pairs); Adafactor's factors and Muon's momentum as ``STATE_ELEMENTS``
+    counts them."""
+    whole, n_whole = runs['plain optim'][name]['elements']
+    assert n_whole == 1153
+    if name in STATE_ELEMENTS:
+        want = STATE_ELEMENTS[name]
+        assert whole == want[1]
+    else:  # d, the previous gradient and 1 to history_size pairs; the mesh's buffers hold history_size pairs
+        history = M.OPTIMIZERS[name][1]['history_size']
+        assert whole % n_whole == 0 and 4 <= whole // n_whole <= 2 * history + 2
+        want = ((2 * history + 2) * LOCAL['ode'], whole)
+    for got in runs[mesh][f'optim:{name}']:
+        assert got['elements'] == (want[0], LOCAL['ode'])
+
+
+@pytest.mark.parametrize('mesh', list(MESHES))
+@pytest.mark.parametrize('name', LBFGS_RUNS)
+def test_lbfgs_allocates_no_copy_of_its_history(runs, name, mesh):
+    """What L-BFGS allocates outside the closure's passes does not grow with
+    its history: at most ``LBFGS_ALLOCATED`` flat vectors of the rank's 609
+    elements per closure call and per iteration, plus, once, the history's
+    two buffers of ``history_size`` rows. A copy of the history in a step
+    (``torch.stack`` of its pairs) would take 4 k vectors per iteration."""
+    history = M.OPTIMIZERS[name][1]['history_size']
+    for got in runs[mesh][f'optim:{name}']:
+        for epoch, c in enumerate(got['counts']):
+            limit = LBFGS_ALLOCATED * (c['closures'] + c['iterations']) + (epoch == 0) * 2 * history
+            assert c['allocated'] <= limit * LOCAL['ode'], (name, epoch, c)
+
+
+def _saved_state(path):
+    return M.plain_state(torch.load(path, weights_only=True)['state']['optimizer']['state_dict'])
+
+
+@pytest.mark.parametrize('mesh', list(MESHES))
+@pytest.mark.parametrize('name', list(M.OPTIMIZERS))
+def test_optimizer_state_saved_on_the_mesh_loads_without_one(runs, name, mesh):
+    """The file saved on the mesh holds ``torch.optim``'s own full-size
+    state, the unsharded run's; it loads here without a mesh into the
+    ``torch.optim`` class, which goes on as the unsharded run went on."""
+    from neurodiffeq_tpu_torch.solvers import Solver1D
+
+    plain = runs['plain optim'][name]
+    path = runs['tmp'] / mesh / f'{name}.pt'
+    want = _saved_state(runs['tmp'] / 'plain_optim' / f'{name}.pt')
+    _same_state(_saved_state(path), want, **_tolerance(name))
+    loaded = Solver1D.load(str(path), device='cpu')
+    assert loaded.mesh is None and type(loaded.optimizer) is getattr(torch.optim, M.OPTIMIZERS[name][0])
+    _same_state(M.plain_state(loaded.optimizer.state_dict()), want, **_tolerance(name))
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore', RuntimeWarning)
+        loaded.fit(1, tqdm_file=None)
+    _close(R.params(loaded), plain['went_on'], **_tolerance(name))
+
+
+@pytest.mark.parametrize('mesh', list(MESHES))
+@pytest.mark.parametrize('name', list(M.OPTIMIZERS))
+def test_optimizer_state_saved_without_a_mesh_loads_onto_it(runs, name, mesh):
+    """The file saved without a mesh loads onto it: each rank's state,
+    gathered to full size, is the saved state bit for bit, and the loaded
+    solver goes on as the unsharded run went on; so does the solver that
+    saved on the mesh."""
+    plain = runs['plain optim'][name]
+    want = _saved_state(runs['tmp'] / 'plain_optim' / f'{name}.pt')
+    for got in runs[mesh][f'optim:{name}']:
+        _same_state(got['loaded_state'], want)
+        _close(got['resumed'], plain['went_on'], **_tolerance(name))
+        _close(got['went_on'], plain['went_on'], **_tolerance(name))
+
+
+@pytest.mark.parametrize('mesh', list(MESHES))
+def test_a_scheduler_and_step_hooks_made_before_keep_working(runs, mesh):
+    """The optimizer stays the user's object on the model axis: a learning
+    rate scheduler and a step hook made before ``set_optimizer`` act on the
+    model axis's steps as they act unsharded."""
+    want, want_fired, want_lr, same = runs['plain']['schedule']
+    assert same and want_fired == OPTIM_EPOCHS and want_lr == 1e-2 * 0.5 ** OPTIM_EPOCHS
+    for params, fired, lr, same in runs[mesh]['schedule']:
+        assert same and fired == want_fired and lr == want_lr
+        _close(params, want, rtol=OPTIM_TOL['adafactor'])
+
+
+@pytest.mark.parametrize('mesh', list(MESHES))
+def test_muon_step_from_one_gradient_equals_torch(runs, mesh):
+    """Muon over the 2-D weights, 2 steps from the same full-size
+    gradients: each rank's gathered parameters are ``torch.optim.Muon``'s
+    unsharded ones (1e-12 relative)."""
+    want = runs['plain']['muon_step']
+    for got in runs[mesh]['muon_step']:
+        _close(got, want, rtol=1e-12, atol=0.0)
+
+
+@pytest.mark.parametrize('mesh', list(MESHES))
+def test_polish_first_closure_matches_jax(runs, mesh):
+    """The polish's first closure call on the frozen draw (loss and every
+    gradient, gathered) equals the JAX package's, unsharded and on its own
+    mesh of the same shape."""
+    want = [_jax_polish_closure(), _jax_polish_closure(mesh)]
+    for (loss, grads), _, _, _ in runs[mesh]['polish:set_optimizer']:
+        for jloss, jgrads in want:
+            np.testing.assert_allclose(loss, jloss, rtol=RTOL, atol=ATOL)
+            _close(grads, jgrads)
+
+
+@pytest.mark.parametrize('mesh', list(MESHES))
+@pytest.mark.parametrize('via', ['set_optimizer', 'callback'])
+def test_polish_on_the_mesh_is_the_unsharded_polish(runs, via, mesh):
+    """Burgers' polish through ``set_generator(PredefinedGenerator)`` and
+    L-BFGS, set directly or by the ``SetOptimizer`` callback after an Adam
+    epoch: every rank makes the unsharded run's closure calls and lands on
+    its parameters and losses."""
+    _, want, want_calls, want_hist = runs['plain'][f'polish:{via}']
+    assert want_calls[-1] > 1  # an L-BFGS epoch
+    for _, params, calls, hist in runs[mesh][f'polish:{via}']:
+        assert calls == want_calls
+        for p, w in zip(params, want, strict=True):
+            _close(p, w, rtol=TRAJ)
+        for k in want_hist:
+            np.testing.assert_allclose(hist[k], want_hist[k], rtol=TRAJ, atol=ATOL)
 
 
 @pytest.mark.parametrize('mesh', list(MESHES))

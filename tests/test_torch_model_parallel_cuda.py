@@ -21,7 +21,10 @@ pass goes through both kernel entries and holds the unsharded loss and
 gradients (float64, 1e-10 relative); two ranks on one card form a (1, 2)
 mesh on which each stores its blocks of the split leaves, trains on the
 unsharded trajectory, saves a full-size file that loads without a mesh
-and onto it, and resumes from it as it would have gone on.
+and onto it, and resumes from it as it would have gone on; and one epoch
+of ``torch.optim.LBFGS`` (strong Wolfe) on such a mesh makes the unsharded
+epoch's closure calls and lands on its parameters (float64, 1e-9
+relative).
 """
 import numpy as np
 import pytest
@@ -172,3 +175,17 @@ def test_two_gloo_ranks_on_one_card_store_blocks_and_save_full_size(tmp_path):
     here.fit(1, tqdm_file=None)
     for got, ref in zip(M.full_params(here), ranks[0]['resumed'][0], strict=True):
         np.testing.assert_allclose(got, ref, rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_lbfgs_epoch_on_two_gloo_ranks_of_one_card_is_unsharded(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (runs on the GPU machine)')
+    want, want_calls = M.cuda_lbfgs_case(None)
+    ranks = launch(M.cuda_lbfgs_case, 2, backend='gloo', device_type='cuda', timeout=300, args=(2,),
+                   rendezvous=str(tmp_path / 'rendezvous'))
+    assert want_calls > 1
+    for params, calls in ranks:
+        assert calls == want_calls
+        for got, ref in zip(params, want, strict=True):
+            np.testing.assert_allclose(got, ref, rtol=1e-9, atol=1e-12)

@@ -284,6 +284,8 @@ STREAM_SHAPES = [
     ((128, 64, 128), 2, 'tanh', 'tanh', 2, 16384),  # one model rank's slice of the cavity's pair 1
     ((128, 64, 3), 2, 'tanh', 'tanh', 2, 16384),    # its pair 2
     ((32, 1), 2, 'tanh', 'tanh', 2, 1024),          # the default FCNN's trailing layer
+    ((20, 10, 20), 2, 'tanh', 'tanh', 2, 8192),     # Burgers' pairs 1-3 on one of 2 model ranks (the polish)
+    ((20, 1), 2, 'tanh', 'tanh', 2, 8192),          # its trailing layer
     ((128, 64, 128), 2, 'sin', 'sin', 1, 1024),
     ((32, 16, 32), 10, 'tanh', 'tanh', 2, 1000),    # two direction chunks
     ((2800, 64, 1), 2, 'tanh', 'tanh', 2, 300),     # weights past shared memory
@@ -299,11 +301,11 @@ def test_stream_shapes_are_the_chip_checks():
 
 
 # STREAM_SHAPES that the staged instance takes, by element size: the narrow
-# nets (the trailing 32 -> 1 layer, 16 -> 16 -> 2) and 2800 -> 64 -> 1, whose
-# weights do not fit shared memory; in float64 also 128 -> 64 -> 128 at
-# order 2, whose 137 KB of weights pass a block's shared memory beside its
-# buffers
-STAGED_STREAM_SHAPES = {4: {2, 5, 6}, 8: {0, 2, 5, 6, 7}}
+# nets (the trailing 32 -> 1 and 20 -> 1 layers, 16 -> 16 -> 2) and
+# 2800 -> 64 -> 1, whose weights do not fit shared memory; in float64 also
+# 128 -> 64 -> 128 at order 2, whose 137 KB of weights pass a block's shared
+# memory beside its buffers
+STAGED_STREAM_SHAPES = {4: {2, 4, 7, 8}, 8: {0, 2, 4, 7, 8, 9}}
 
 
 @pytest.mark.parametrize('esize', [4, 8])

@@ -10,12 +10,15 @@ parameters and gradients that the cases return are gathered to full size
 (:func:`full_params`, :func:`full_grads`), as a solution or a saved file
 holds them.
 """
+import contextlib
 import os
 import sys
 import warnings
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 import torch_parallel_ranks as R
 
@@ -232,23 +235,29 @@ def case_callbacks(mesh, epochs, workdir):
     return weights.weight_history, solver.residual_weights, written
 
 
+class SubclassedLBFGS(torch.optim.LBFGS):
+    """A subclass of ``torch.optim.LBFGS``: its step may be its own, so the
+    model axis refuses it."""
+
+
 def case_lbfgs(mesh, spec):
-    """``set_optimizer`` with ``torch.optim.LBFGS`` and with Adafactor on a
-    solver of ``spec``: the messages of the ``ValueError``s (None where it
-    is accepted); and the ``all_reduce`` calls that ``get_internals`` makes
-    for ``'params'`` and for ``'global_epoch'``, with the number of stored
-    blocks (each one gather)."""
+    """``set_optimizer`` with ``torch.optim.LBFGS``, Adafactor, Muon (over the
+    2-D weights) and a subclass of L-BFGS on a solver of ``spec``: the
+    messages of the ``ValueError``s (None where it is accepted); and the
+    ``all_reduce`` calls that ``get_internals`` makes for ``'params'`` and
+    for ``'global_epoch'``, with the number of stored blocks (each one
+    gather)."""
     import torch.distributed as dist
     from neurodiffeq_tpu_torch.parallel.sharding import stored_blocks
 
     solver = build(mesh, **spec)
     messages = []
-    for make in (torch.optim.LBFGS, getattr(torch.optim, 'Adafactor', None)):
+    for make in (torch.optim.LBFGS, torch.optim.Adafactor,
+                 lambda params: torch.optim.Muon([p for p in params if p.ndim == 2]), SubclassedLBFGS):
         try:
             with warnings.catch_warnings():  # L-BFGS with no validation batches warns
                 warnings.simplefilter('ignore', RuntimeWarning)
-                if make is not None:
-                    solver.set_optimizer(make(solver._parameters()))
+                solver.set_optimizer(make(solver._parameters()))
             messages.append(None)
         except ValueError as e:
             messages.append(str(e))
@@ -268,8 +277,236 @@ def case_lbfgs(mesh, spec):
     return messages, calls, len(stored_blocks(solver._unique_nets))
 
 
+# the optimizers that read across their parameters: name -> (torch.optim class, its arguments); Muon takes the
+# 2-D weights alone. History 5 fills and shifts within 3 epochs of 5 iterations; history 50 does not.
+OPTIMIZERS = {
+    'lbfgs': ('LBFGS', dict(lr=0.5, max_iter=5, history_size=5)),
+    'lbfgs:h50': ('LBFGS', dict(lr=0.5, max_iter=5, history_size=50)),
+    'wolfe': ('LBFGS', dict(lr=1.0, max_iter=5, history_size=5, line_search_fn='strong_wolfe')),
+    'wolfe:h50': ('LBFGS', dict(lr=1.0, max_iter=5, history_size=50, line_search_fn='strong_wolfe')),
+    'adafactor': ('Adafactor', dict(lr=1e-2)),
+    'muon': ('Muon', dict(lr=1e-2)),
+}
+# Burgers' polish: torch.optim.LBFGS with the strong-Wolfe line search, as chip_smoke.py's 5t
+POLISH = dict(lr=1.0, max_iter=4, history_size=10, line_search_fn='strong_wolfe')
+
+
+def make_optimizer(name, params):
+    kind, kwargs = OPTIMIZERS[name]
+    return getattr(torch.optim, kind)([p for p in params if kind != 'Muon' or p.ndim == 2], **kwargs)
+
+
+class _Allocations(TorchDispatchMode):
+    """Counts into ``counts['allocated']`` the elements of every tensor that
+    an operation makes in storage of its own (not a view, not in place),
+    except while ``inside[0]``."""
+
+    def __init__(self, counts, inside):
+        super().__init__()
+        self.counts, self.inside = counts, inside
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not self.inside[0]:
+            seen = {t.untyped_storage().data_ptr() for t in tree_leaves((args, kwargs)) if torch.is_tensor(t)}
+            self.counts['allocated'] += sum(t.numel() for t in tree_leaves(out)
+                                            if torch.is_tensor(t) and t.untyped_storage().data_ptr() not in seen)
+        return out
+
+
+@contextlib.contextmanager
+def counting_steps(solver, mesh):
+    """Within the block: ``{'closures': closure calls, 'reductions': the
+    model group's all_reduce calls outside the closure's passes (the
+    optimizer's own), 'allocated': the elements of the tensors made outside
+    them}``. A closure call is one training loss evaluation (the solvers
+    here have no validation batches)."""
+    import torch.distributed as dist
+    from neurodiffeq_tpu_torch.parallel.sharding import mesh_axes
+
+    counts, inside = {'closures': 0, 'reductions': 0, 'allocated': 0}, [False]
+    model = None if mesh is None else mesh_axes(mesh).model.get_group()
+    original, passes = dist.all_reduce, (solver._loss_and_metrics, solver._backward)
+
+    def all_reduce(tensor, group=None, **kw):
+        counts['reductions'] += model is not None and group is model and not inside[0]
+        return original(tensor, group=group, **kw)
+
+    def inner(fn, closure):
+        def run(*args, **kwargs):
+            counts['closures'] += closure
+            inside[0] = True
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                inside[0] = False
+        return run
+
+    dist.all_reduce = all_reduce
+    solver._loss_and_metrics, solver._backward = inner(passes[0], 1), inner(passes[1], 0)
+    try:
+        with _Allocations(counts, inside):
+            yield counts
+    finally:
+        dist.all_reduce = original
+        del solver._loss_and_metrics, solver._backward
+
+
+def plain_state(sd):
+    """An optimizer ``state_dict``'s state as numpy float64 arrays (numbers
+    and tensors alike), None kept."""
+    def conv(v):
+        if isinstance(v, (list, tuple)):
+            return [conv(x) for x in v]
+        if v is None:
+            return None
+        return (v.detach().cpu().double().numpy() if torch.is_tensor(v) else np.asarray(v, np.float64)).copy()
+
+    return {i: {k: conv(v) for k, v in st.items()} for i, st in sd['state'].items()}
+
+
+def case_optim(mesh, name, spec, epochs, workdir, plain_path=None):
+    """``OPTIMIZERS[name]`` on a solver of ``spec``, ``fit(1)`` ``epochs``
+    times: after each epoch the gathered parameters, the closure calls, the
+    optimizer's model-group reductions and (L-BFGS) its iterations and
+    function evaluations; the elements of the optimizer state on this rank;
+    then ``save`` (into ``workdir``, as ``name.pt``) and one epoch more: the
+    parameters. On a mesh, the file ``plain_path`` (saved without one after
+    the same epochs) loaded onto it: its optimizer state gathered to full
+    size, and its parameters after one epoch more."""
+    import chip_smoke as cs
+    from neurodiffeq_tpu_torch.parallel.optim import full_optimizer_state
+    from neurodiffeq_tpu_torch.solvers import Solver1D
+
+    solver = build(mesh, **spec)
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore', RuntimeWarning)
+        solver.set_optimizer(make_optimizer(name, solver._parameters()))
+    out = {'params': [], 'counts': []}
+    lbfgs = OPTIMIZERS[name][0] == 'LBFGS'
+    for _ in range(epochs):
+        before = dict(solver.optimizer.state[solver.optimizer._params[0]]) if lbfgs else {}
+        with counting_steps(solver, mesh) as counts:
+            solver.fit(1, tqdm_file=None)
+        if lbfgs:
+            after = solver.optimizer.state[solver.optimizer._params[0]]
+            counts.update(iterations=after['n_iter'] - before.get('n_iter', 0),
+                          evaluations=after['func_evals'] - before.get('func_evals', 0))
+        out['params'].append(full_params(solver))
+        out['counts'].append(counts)
+    out['history'] = list(solver.metrics_history['train_loss'])
+    out['elements'] = (cs.state_elements(solver.optimizer), sum(p.numel() for p in solver._parameters()))
+    solver.save(os.path.join(workdir, f'{name}.pt'))
+    solver.fit(1, tqdm_file=None)
+    out['went_on'] = full_params(solver)
+    if mesh is not None:
+        loaded = Solver1D.load(plain_path, mesh=mesh, device='cpu')
+        out['loaded_state'] = plain_state(full_optimizer_state(loaded.optimizer, loaded._unique_nets))
+        loaded.fit(1, tqdm_file=None)
+        out['resumed'] = full_params(loaded)
+    return out
+
+
+def case_muon_step(mesh, spec, grads, steps):
+    """``OPTIMIZERS['muon']`` over the 2-D weights of a solver of ``spec``,
+    ``steps`` steps each from the full-size gradients ``grads`` (this
+    rank's block of each): the gathered parameters."""
+    from neurodiffeq_tpu_torch.parallel.sharding import stored_blocks
+
+    solver = build(mesh, **spec)
+    solver.set_optimizer(make_optimizer('muon', solver._parameters()))
+    blocks = stored_blocks(solver._unique_nets)
+    weights = [p for p in solver._parameters() if p.ndim == 2]
+    for _ in range(steps):
+        for p, g in zip(weights, grads, strict=True):
+            g = torch.tensor(g)
+            p.grad = g if p not in blocks else blocks[p].right_inverse(g)
+        solver.optimizer.step()
+    return full_params(solver)
+
+
+def case_schedule(mesh, spec, epochs):
+    """Adafactor made before ``set_optimizer`` with a ``StepLR`` (halving
+    each epoch) and a step post-hook on it, ``fit(1)`` and the scheduler's
+    step ``epochs`` times: the gathered parameters, the hook's calls and
+    the learning rate after."""
+    solver = build(mesh, **spec)
+    opt = torch.optim.Adafactor(solver._parameters(), lr=1e-2)
+    schedule, fired = torch.optim.lr_scheduler.StepLR(opt, 1, gamma=0.5), []
+    opt.register_step_post_hook(lambda *args: fired.append(1))
+    solver.set_optimizer(opt)
+    for _ in range(epochs):
+        solver.fit(1, tqdm_file=None)
+        schedule.step()
+    return full_params(solver), len(fired), opt.param_groups[0]['lr'], solver.optimizer is opt
+
+
+def burgers(mesh, hidden):
+    """``chip_smoke.burgers_problem`` on an FCNN 2-``hidden``-1, float64 on
+    the CPU, with 16 x 16 uniform candidates and 4 x 4 validation points."""
+    import chip_smoke as cs
+    from neurodiffeq_tpu_torch.generators import Generator1D, Generator2D
+    from neurodiffeq_tpu_torch.networks import FCNN
+    from neurodiffeq_tpu_torch.solvers import Solver2D
+
+    pde_system, conditions = cs.burgers_problem()
+    base = Generator1D(16, -1.0, 1.0, method='uniform', dtype=F64) * Generator1D(16, 0.0, 1.0, method='uniform',
+                                                                                   dtype=F64)
+    return Solver2D(pde_system=pde_system, conditions=conditions, xy_min=(-1.0, 0.0), xy_max=(1.0, 1.0),
+                    nets=[FCNN(n_input_units=2, hidden_units=hidden, dtype=F64)], train_generator=base,
+                    valid_generator=Generator2D((4, 4), xy_min=(-1.0, 0.0), xy_max=(1.0, 1.0),
+                                                method='equally-spaced', dtype=F64), dtype=F64, mesh=mesh)
+
+
+def case_polish(mesh, hidden, jax_params, n, via, epochs):
+    """Burgers' L-BFGS polish (``examples/burgers.py``'s ``polish_lbfgs``)
+    from the JAX parameters of an FCNN 2-``hidden``-1: ``set_generator``
+    with a ``PredefinedGenerator`` of the frozen draw of ``n`` points, and
+    L-BFGS (``POLISH``) set by ``set_optimizer`` or, after an Adam epoch,
+    by the ``SetOptimizer`` callback (``via``); ``fit(1)`` ``epochs``
+    times. Returns the first closure's global loss and gathered gradients
+    (on a mesh, through ``set_optimizer``), the gathered parameters after
+    each epoch, the closure calls of each and the history."""
+    import chip_smoke as cs
+    from neurodiffeq_tpu_torch.callbacks import SetOptimizer
+    from neurodiffeq_tpu_torch.generators import PredefinedGenerator
+
+    solver = burgers(mesh, hidden)
+    solver.load_jax_params(jax_params)
+    solver.set_generator(PredefinedGenerator(*cs.polish_draw(n), dtype=F64))
+    first, reduce = [], solver._reduce_grads
+
+    def reduce_grads(loss=None):
+        out = reduce(loss)
+        if loss is not None and not first:
+            first.append((float(out), full_grads(solver)))
+        return out
+
+    solver._reduce_grads = reduce_grads
+    callbacks = []
+    if via == 'set_optimizer':
+        solver.set_optimizer(torch.optim.LBFGS(solver._parameters(), **POLISH))
+    else:
+        callbacks = [SetOptimizer(torch.optim.LBFGS, optimizer_kwargs=POLISH)]
+    params, closures = [], []
+    for _ in range(epochs):
+        calls, inner = [0], solver._loss_and_metrics
+
+        def counted(cols):
+            calls[0] += torch.is_grad_enabled()  # the validation batches run without a graph
+            return inner(cols)
+
+        solver._loss_and_metrics = counted
+        solver.fit(1, callbacks=callbacks, tqdm_file=None)
+        del solver._loss_and_metrics
+        params.append(full_params(solver))
+        closures.append(calls[0])
+    return (first[0] if first and via == 'set_optimizer' else None), params, closures, solver.metrics_history
+
+
 CASES = {'layout': case_layout, 'store': case_store, 'loss_grads': case_loss_grads, 'epoch': case_epoch,
-         'fit': case_fit, 'resume': case_resume, 'callbacks': case_callbacks, 'lbfgs': case_lbfgs}
+         'fit': case_fit, 'resume': case_resume, 'callbacks': case_callbacks, 'lbfgs': case_lbfgs,
+         'optim': case_optim, 'muon_step': case_muon_step, 'polish': case_polish, 'schedule': case_schedule}
 
 
 def run_cases(model_axis_size, cases, bad_model_axis_size=None):
@@ -298,7 +535,7 @@ def run_cases(model_axis_size, cases, bad_model_axis_size=None):
 def run_plain(cases):
     """The same cases without a mesh, in this process."""
     return {key: CASES[name](None, **kwargs) for key, (name, kwargs) in cases.items()
-            if name in ('epoch', 'fit', 'callbacks', 'lbfgs')}
+            if name in ('epoch', 'fit', 'callbacks', 'lbfgs', 'muon_step', 'polish', 'schedule')}
 
 
 def bad_model_axis(model_axis_size):
@@ -376,3 +613,20 @@ def solver_config():
     fresh = build(method='equally-spaced-noisy')
     return SolverConfig(ode_system=fresh.diff_eqs, conditions=fresh.conditions, nets=fresh.nets,
                         train_generator=fresh.generator['train'], valid_generator=fresh.generator['valid'])
+
+
+def cuda_lbfgs_case(model_axis_size):
+    """On the card: the second-order ODE on an FCNN 1-(32, 32)-1 in float64
+    on ``make_mesh(model_axis_size=...)`` (None: unsharded), one epoch of
+    ``torch.optim.LBFGS`` with the strong-Wolfe line search: the gathered
+    parameters and the closure calls."""
+    from neurodiffeq_tpu_torch.parallel import make_mesh
+
+    mesh = None if model_axis_size is None else make_mesh(model_axis_size=model_axis_size)
+    solver = build(mesh, method='equally-spaced-noisy')
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore', RuntimeWarning)
+        solver.set_optimizer(make_optimizer('wolfe', solver._parameters()))
+    with counting_steps(solver, mesh) as counts:
+        solver.fit(1, tqdm_file=None)
+    return full_params(solver), counts['closures']
