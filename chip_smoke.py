@@ -60,6 +60,21 @@ Phases, one line each or more:
    exact on its faces for the three masks, u = g and, with ``power=2``,
    du/dn = dg/dn, to 1e-5 (a box of side 1.3: across a side of at most 1
    the 'adf' mask's slope overflows on its faces, in the JAX package too);
+   e. the ``ops`` package's surface (``check_ops``): ``fcnn_taylor_pallas``
+   on the flagship's weights as the JAX package's ``{'W', 'b'}`` dicts
+   (2-512-1 tanh, order 2, N = 1,024, float32) bitwise ``fcnn_taylor`` in
+   exactly one ``taylor_mlp_1h`` launch; under ``enable_pallas(interpret=
+   True)`` ``fcnn_taylor`` at 2-512-1 and 2-(128x5)-3,
+   ``fcnn_taylor_streams`` at d = 2 128-64-128 and ``fcnn_taylor_pallas``
+   raise with no launch, as ``fcnn_taylor_pallas(..., interpret=True)``
+   does (on the card the kernels launch or the call raises); under
+   ``disable_pallas()`` the flagship's ``fit(1)`` raises with no launch;
+   then ``enable_pallas()`` back at the default and the same ``fit(1)``
+   through ``taylor_mlp_1h``; and FourierFCNN on
+   ``examples/poisson_high_frequency.py`` (k = 4, 64 x 64 points)
+   ``fit(30)``: no launch, its first epoch within ``SHARD_GRAD_TOL`` of the
+   port's CPU float32 run on the same points from the same weights, the
+   loss falling, its epochs/s;
 4. gradient through the kernel's autograd function against autograd over
    the twin, flagship shape, float64, limit 1e-10;
 5. the paths, each with the launch counts reset just before and read just
@@ -271,7 +286,7 @@ Phases, one line each or more:
    layers, TF32 off, as a yardstick; both designs at ``ROUTE_SHAPES``, on
    each side of each bound of the planner's narrow-net rule), the wrapper's host enqueue time per call, and train-only epochs/s
    with the kernel and with the twin swapped in, interleaved in 50-epoch
-   windows; the backward of the kernel's autograd function at both cavity
+   windows (the twin's must launch nothing); the backward of the kernel's autograd function at both cavity
    widths; the Lotka-Volterra epoch's rate in 50-epoch windows and the spherical,
    both cavity, the bundle, heat and Burgers epochs' rates from the
    300-epoch windows of their own fits in 5d-5f and 5h-5k, device time
@@ -513,8 +528,15 @@ POLISH_MEAN_LIMIT = 0.028
 # Muon's momentum 768 of 1,536
 OPT_EPOCHS, OPT_LR, MUON_STEP_TOL, MUON_EPOCH_TOL = 3, 1e-2, 1e-6, 1e-2
 OPT_PER_RANK = {'Adafactor': (772, 1540), 'Muon': (768, 1536)}
-PHASES = ('3', '3c', '3d', '4', '5a', '5b', '5c', '5d', '5e', '5f', '5g', '5h', '5i', '5j', '5k', '5l', '5m', '5n',
-          '5o', '5p', '5q', '5r', '5s', '5t', '6')
+# phase 3e, the ops package's surface: fcnn_taylor_pallas and the switch at the flagship's width on OPS_N points,
+# the flagship's fit refused under disable_pallas(); and examples/poisson_high_frequency.py:42-66 (k = 4: FourierFCNN(2, 1,
+# n_features=64, sigma=4, hidden_units=(64, 64)) on a 64 x 64 'equally-spaced-noisy' grid) for FOURIER_EPOCHS of its
+# 20,000 epochs, its first epoch within SHARD_GRAD_TOL of the port's CPU float32 run on the same points from the same
+# weights, the mean of its last 5 epochs' losses below its first 5's
+OPS_N = 1024
+FOURIER_K, FOURIER_GRID, FOURIER_FEATURES, FOURIER_HIDDEN, FOURIER_EPOCHS = 4.0, (64, 64), 64, (64, 64), 30
+PHASES = ('3', '3c', '3d', '3e', '4', '5a', '5b', '5c', '5d', '5e', '5f', '5g', '5h', '5i', '5j', '5k', '5l', '5m',
+          '5n', '5o', '5p', '5q', '5r', '5s', '5t', '6')
 EXTRA_PHASES = ('6b',)  # run only when named: a baseline that PERF.md records, too slow for every run
 WINDOW = 300  # epochs per timing window of a path's own fit
 # phase 6's own work, which checks nothing, cut when the whole run with the high-dimensional
@@ -1930,6 +1952,152 @@ def naive_highdim_solver():
         n_batches_valid=0)
 
 
+def fourier_solver(device, dtype=F32, train_generator=None):
+    """``examples/poisson_high_frequency.py``'s problem at k = 4: lap u =
+    -2 W^2 sin(W x) sin(W y) on the unit square, u = 0 on its edges, W = 2
+    pi k, on FourierFCNN(2, 1, n_features=64, sigma=4, hidden_units=(64,
+    64)) on ``device``; the 64 x 64 'equally-spaced-noisy' grid unless
+    ``train_generator`` is given."""
+    from neurodiffeq_tpu_torch import fields as F, diff
+    from neurodiffeq_tpu_torch.conditions import DirichletBVP2D
+    from neurodiffeq_tpu_torch.generators import Generator2D
+    from neurodiffeq_tpu_torch.networks import FourierFCNN
+    from neurodiffeq_tpu_torch.solvers import Solver2D
+
+    w = 2 * np.pi * FOURIER_K
+    cond = DirichletBVP2D(x_min=0.0, x_min_val=lambda y: 0 * y, x_max=1.0, x_max_val=lambda y: 0 * y,
+                          y_min=0.0, y_min_val=lambda x: 0 * x, y_max=1.0, y_max_val=lambda x: 0 * x)
+
+    def grid(method):
+        return Generator2D(FOURIER_GRID, (0, 0), (1, 1), method=method, device=device, dtype=dtype)
+
+    net = FourierFCNN(2, 1, n_features=FOURIER_FEATURES, sigma=FOURIER_K, hidden_units=FOURIER_HIDDEN, device=device,
+                      dtype=dtype)
+    return Solver2D(pde_system=lambda u, x, y: [diff(u, x, 2) + diff(u, y, 2)
+                                                + 2 * w ** 2 * F.sin(w * x) * F.sin(w * y)],
+                    conditions=[cond], xy_min=(0.0, 0.0), xy_max=(1.0, 1.0), nets=[net],
+                    train_generator=train_generator or grid('equally-spaced-noisy'),
+                    valid_generator=grid('equally-spaced'), device=device, dtype=dtype)
+
+
+def fourier_first_loss(batch, init, dtype):
+    """The first epoch's train loss of :func:`fourier_solver` on the CPU in
+    ``dtype`` on the points ``batch`` from the net state ``init``."""
+    from neurodiffeq_tpu_torch.generators import PredefinedGenerator
+
+    solver = fourier_solver('cpu', dtype, PredefinedGenerator(*batch, device='cpu', dtype=dtype))
+    solver.nets[0].load_state_dict({k: v.to(dtype) for k, v in init.items()})
+    solver.fit(1, tqdm_file=None)
+    return solver.metrics_history['train_loss'][0]
+
+
+def check_ops(F, taylor_mlp, card):
+    """Phase 3e, the ``ops`` package's surface on the card: (a)
+    ``fcnn_taylor_pallas`` with the flagship's weights as the JAX package's
+    dicts equals ``fcnn_taylor`` bitwise in exactly one ``taylor_mlp_1h``
+    launch; (b) under ``enable_pallas(interpret=True)`` ``fcnn_taylor`` (the
+    flagship's and the cavity's widths), ``fcnn_taylor_streams`` (one model
+    rank's slice of the cavity's pair 1) and ``fcnn_taylor_pallas`` raise and
+    launch nothing, as ``fcnn_taylor_pallas(..., interpret=True)`` does
+    under the default switch: on the card the kernels launch or the call
+    raises; (c) under ``disable_pallas()`` the flagship's ``fit(1)`` raises
+    for the same reason and launches nothing; (d) ``enable_pallas()``
+    restores the default, and the same solver's ``fit(1)`` launches
+    ``taylor_mlp_1h``. Then FourierFCNN, the port's own user of
+    ``elementwise_series`` and ``concat_series``:
+    ``examples/poisson_high_frequency.py`` for ``FOURIER_EPOCHS``, no launch
+    (its FCNN sees features, not raw coordinates), its first epoch against
+    the CPU's float32 run on the same points from the same weights, and a
+    falling loss."""
+    from neurodiffeq_tpu_torch import ops
+    from neurodiffeq_tpu_torch.utils import set_seed
+
+    none = {'taylor_mlp_1h': 0, 'taylor_mlp': 0, 'taylor_mlp_streams': 0}
+
+    def refused(run, match):
+        """Whether ``run()`` raised the switch's error, whose message holds
+        ``match``, and launched nothing; any other error propagates."""
+        taylor_mlp.reset_launches()
+        try:
+            run()
+        except RuntimeError as e:
+            if match not in str(e):
+                raise
+        else:
+            return False
+        torch.cuda.synchronize()
+        return taylor_mlp.LAUNCHES == none
+
+    checks = {}
+    set_seed(0)
+    solver = flagship_solver()
+    layers = [(W.detach(), b.detach()) for W, b in solver.nets[0].layers()]
+    params = [{'W': W, 'b': b} for W, b in layers]
+    pts = torch.rand(OPS_N, 2, generator=torch.Generator().manual_seed(3), dtype=F64).to('cuda', F32)
+    with torch.no_grad():  # (a)
+        want = taylor_mlp.fcnn_taylor(pts, layers, 2)
+        taylor_mlp.reset_launches()
+        got = ops.fcnn_taylor_pallas(pts, params, 2, 2)
+        torch.cuda.synchronize()
+        checks['(a) fcnn_taylor_pallas bitwise fcnn_taylor'] = all(
+            torch.equal(a, b) for a, b in zip(got, want, strict=True))
+        checks['(a) in one taylor_mlp_1h launch'] = taylor_mlp.LAUNCHES == {**none, 'taylor_mlp_1h': 1}
+        checks['(b) fcnn_taylor_pallas(interpret=True) raises, no launch'] = refused(
+            lambda: ops.fcnn_taylor_pallas(pts, params, 2, 2, interpret=True), 'interpret=True')
+        ops.enable_pallas(interpret=True)
+        for dims in ((2,) + HIDDEN + (1,), (2,) + CAV_HIDDEN + (3,), 'streams'):
+            if dims == 'streams':
+                streams, ls = stream_inputs((128, 64, 128), 2, 2, OPS_N, F32, seed=13)
+                name = stream_name((128, 64, 128), 2, 'tanh', 'tanh', 2, OPS_N)
+                run = lambda: taylor_mlp.fcnn_taylor_streams(streams, ls, 2, 'tanh', 'tanh')  # noqa: E731
+            else:
+                p, ls = inputs(dims, OPS_N, F32, seed=13)
+                name = shape_name(dims, 'tanh', 2, OPS_N)
+                run = lambda: taylor_mlp.fcnn_taylor(p, ls, 2)  # noqa: E731
+            checks[f'(b) interpreted {name} raises, no launch'] = refused(run, 'interpret=True')
+        checks['(b) interpreted fcnn_taylor_pallas raises, no launch'] = refused(
+            lambda: ops.fcnn_taylor_pallas(pts, params, 2, 2), 'interpret=True')
+    ops.disable_pallas()  # (c)
+    checks['(c) disabled flagship fit(1) raises, no launch'] = refused(lambda: solver.fit(1, tqdm_file=None),
+                                                                       'disable_pallas()')
+    checks['(c) disabled'] = not ops.pallas_enabled()
+    ops.enable_pallas()  # (d)
+    checks['(d) enable_pallas() restores the default'] = ops.pallas_config() == {'enabled': True, 'interpret': False}
+    _, _, launched, fallbacks = count_path(F, taylor_mlp, lambda: solver.fit(1, tqdm_file=None))
+    loss = solver.metrics_history['train_loss'][-1]
+    checks['(d) then fit(1) launches taylor_mlp_1h, a finite loss'] = (
+        launched['taylor_mlp_1h'] > 0 and fallbacks == 0 and bool(np.isfinite(loss)))
+    phase('3e ops', f"fcnn_taylor_pallas {shape_name((2,) + HIDDEN + (1,), 'tanh', 2, OPS_N, F32)} with the "
+                    f"flagship's weights as dicts; the entries under enable_pallas(interpret=True) and the flagship "
+                    f"under disable_pallas() refused on the card; back on, fit(1) launches {launched}, loss "
+                    f"{loss:.6e}; " + ', '.join(f"{k}: {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+    if not all(checks.values()):
+        raise SystemExit("chip_smoke: the ops surface or the kernel switch failed a check")
+
+    set_seed(0)
+    solver = fourier_solver('cuda')
+    init = {k: v.detach().cpu().clone() for k, v in solver.nets[0].state_dict().items()}
+    _, _, launched, fallbacks = count_path(F, taylor_mlp, lambda: solver.fit(1, tqdm_file=None))
+    batch = [c.detach().cpu().reshape(-1) for c in solver._batch['train']]  # the first epoch's points
+    _, fit_s, more, more_fallbacks = count_path(F, taylor_mlp, lambda: solver.fit(FOURIER_EPOCHS - 1, tqdm_file=None))
+    launched, fallbacks = {k: v + more[k] for k, v in launched.items()}, fallbacks + more_fallbacks
+    hist = solver.metrics_history['train_loss']
+    cpu32, cpu64 = fourier_first_loss(batch, init, F32), fourier_first_loss(batch, init, F64)
+    card_err, cpu_err = abs(hist[0] - cpu32) / abs(cpu32), abs(cpu32 - cpu64) / abs(cpu64)
+    early, late = float(np.mean(hist[:5])), float(np.mean(hist[-5:]))
+    checks = {'no launch, no fallback': launched == none and fallbacks == 0,
+              f'first epoch within {SHARD_GRAD_TOL:.0e} of the CPU float32 run': card_err <= SHARD_GRAD_TOL,
+              'loss fell': late < early}
+    phase('3e ops', f"{card}: FourierFCNN 2-(64 features)-64-64-1 on 64 x 64 points (poisson_high_frequency, k = 4), "
+                    f"float32, fit({FOURIER_EPOCHS}): {(FOURIER_EPOCHS - 1) / fit_s:.2f} epochs/s over the last "
+                    f"{FOURIER_EPOCHS - 1}, launches {launched}, {fallbacks} fallbacks, first epoch {hist[0]:.6e} "
+                    f"against the CPU's float32 {cpu32:.6e} (rel {card_err:.2e}; the CPU's float32 against its float64 "
+                    f"{cpu_err:.2e}), mean train loss {early:.4e} (first 5) -> {late:.4e} (last 5); "
+                    + ', '.join(f"{k}: {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+    if not all(checks.values()):
+        raise SystemExit("chip_smoke: FourierFCNN on the card failed a check")
+
+
 def check_mixed():
     """Phase 3b: u_xy of the cavity net by polarization against double
     backward, and three vector identities on random net fields, float64 and
@@ -2384,7 +2552,8 @@ def time_shapes(card, taylor_mlp):
 
 def time_end_to_end(card, taylor_mlp):
     """Phase 6: host enqueue per flagship forward, and train-only epochs/s
-    with the kernel and with the twin swapped in, interleaved."""
+    with the kernel and with the twin swapped in, interleaved (the twin
+    windows must launch nothing)."""
     fcnn_taylor, twin = taylor_mlp.fcnn_taylor, taylor_mlp.fcnn_taylor_reference
     n = GRID[0] * GRID[1]
     bench = flagship_solver(n_batches_valid=0)  # train-only epochs, as bench.py counts them
@@ -2401,21 +2570,27 @@ def time_end_to_end(card, taylor_mlp):
                       f"kernel wrapper {(enq[0] + enq[3]) / 2:.1f} us ({enq[0]:.1f}, {enq[3]:.1f}), "
                       f"twin {(enq[1] + enq[2]) / 2:.1f} us ({enq[1]:.1f}, {enq[2]:.1f}) over 200 calls; "
                       f"CUDA events over 200 back-to-back calls: kernel {ev[0]:.4f} ms, twin {ev[1]:.4f} ms")
-    rates = {'kernel': [], 'twin': []}
+    rates, twin_launches = {'kernel': [], 'twin': []}, []
     for arm in ('kernel', 'twin', 'twin', 'kernel'):
         taylor_mlp.fcnn_taylor = fcnn_taylor if arm == 'kernel' else (
             lambda p, layers, order, actv='tanh': twin(p, layers, order, actv))
+        taylor_mlp.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         bench.fit(OWN_WINDOW, **quiet)
         torch.cuda.synchronize()
         rates[arm].append(OWN_WINDOW / (time.perf_counter() - t0))
+        if arm == 'twin':
+            twin_launches.append(sum(taylor_mlp.LAUNCHES.values()))
     taylor_mlp.fcnn_taylor = fcnn_taylor
     med = {k: float(np.median(v)) for k, v in rates.items()}
     phase('6 timing', f"{card}: flagship train-only epochs/s in interleaved {OWN_WINDOW}-epoch windows: "
                       f"kernel {' '.join(f'{r:.2f}' for r in rates['kernel'])} (median {med['kernel']:.2f} "
                       f"= {med['kernel'] * n:.0f} points/s), twin swapped in "
-                      f"{' '.join(f'{r:.2f}' for r in rates['twin'])} (median {med['twin']:.2f})")
+                      f"{' '.join(f'{r:.2f}' for r in rates['twin'])} (median {med['twin']:.2f}), launches in the "
+                      f"twin windows {twin_launches} {'ok' if twin_launches == [0, 0] else 'FAIL'}")
+    if twin_launches != [0, 0]:
+        raise SystemExit("chip_smoke: a window with the twin swapped in launched a kernel")
 
 
 def check_gradient(fcnn_taylor_reference):
@@ -3793,6 +3968,8 @@ def main():
         check_high_order()
     if '3d' in chosen:
         check_highdim(F, taylor_mlp)
+    if '3e' in chosen:
+        check_ops(F, taylor_mlp, card)
     # ---- 4. gradient
     if '4' in chosen:
         check_gradient(fcnn_taylor_reference)

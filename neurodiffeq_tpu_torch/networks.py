@@ -226,7 +226,9 @@ def _mlp_taylor(series, ctx, linears, actvs, scales=None, split=None):
     the layers ``linears`` (``nn.Linear``), each times its entry of
     ``scales`` if given (:func:`_layer`).
 
-    On raw coordinate inputs at order 1-2 with one activation kind (tanh or
+    While the kernel switch is on (``ops.pallas_enabled()``, the default;
+    off, CPU tensors go layer by layer and CUDA tensors raise), on raw
+    coordinate inputs at order 1-2 with one activation kind (tanh or
     sin), the propagation is one fused Taylor-MLP call
     (:func:`~neurodiffeq_tpu_torch.ops.taylor_mlp.fcnn_taylor`, the CUDA
     kernel for CUDA tensors, at any width), or with ``split`` (a
@@ -234,11 +236,12 @@ def _mlp_taylor(series, ctx, linears, actvs, scales=None, split=None):
     layer pair of this rank's slices (:func:`_split_taylor`); otherwise it
     goes layer by layer, as every order above 2 does (the JAX package's
     kernel stops at order 2 too), whole on every rank."""
+    from .ops import taylor_mlp
     from .ops.taylor import TSeries, affine_series
     scales = scales or [None] * len(linears)
     kinds = {getattr(a, 'kernel_kind', None) for a in actvs}
-    if series.meta == 'raw_coords' and 1 <= ctx.order <= 2 and len(kinds) <= 1 and None not in kinds:
-        from .ops import taylor_mlp
+    if (series.meta == 'raw_coords' and 1 <= ctx.order <= 2 and len(kinds) <= 1 and None not in kinds
+            and taylor_mlp._use_kernels(series.c0)):
         # a net with no hidden layer has no activation: any kind will do
         kind = kinds.pop() if kinds else 'tanh'
         if split is not None:

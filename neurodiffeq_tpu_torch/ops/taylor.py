@@ -68,7 +68,13 @@ class TContext:
     cache of its own, and ``base`` points every context and view at the
     main context, on whose cache the auxiliary contexts and the extracted
     partials memoize. ``root`` is the context at its own full order, which
-    its :meth:`at_order` views share."""
+    its :meth:`at_order` views share.
+
+    ``stacked`` is always True: the port has the JAX package's stacked
+    layout only, so a rule written for that package that branches on it
+    takes the stacked branch."""
+
+    stacked = True
 
     def __init__(self, points, order):
         self.points = points
@@ -407,13 +413,26 @@ def affine_series(ts, W, b=None):
     return TSeries(c0, [d @ W for d in ts.derivs])
 
 
-def elementwise_series(op, operands, order):
+def _check_dirs(operands, n_dirs):
+    """Raise unless every operand's series has ``n_dirs`` directions (None:
+    no check; an order-0 series has none to check)."""
+    if n_dirs is None:
+        return
+    for s in operands:
+        if s.derivs and s.derivs[0].shape[0] != n_dirs:
+            raise ValueError(f"n_dirs={n_dirs} does not match the operands' {s.derivs[0].shape[0]} directions")
+
+
+def elementwise_series(op, operands, order, n_dirs=None):
     r"""Propagate series through an elementwise op.
 
     :param op: elementwise function of ``len(operands)`` tensors.
     :param operands: list of TSeries with broadcast-compatible shapes.
     :param order: series order K.
+    :param n_dirs: number of probe directions D, as the JAX package passes
+        it; checked against the operands' if given.
     """
+    _check_dirs(operands, n_dirs)
     c0_out = op(*[s.c0 for s in operands])
     if order == 0:
         return TSeries(c0_out, [])
@@ -801,8 +820,10 @@ def _expand_dirs(d, n, m):
     return d.expand(d.shape[0], n, m)
 
 
-def concat_series(operands, order):
-    """Column-concatenate series (the Taylor rule of ``fields.cat``)."""
+def concat_series(operands, order, n_dirs=None):
+    """Column-concatenate series (the Taylor rule of ``fields.cat``);
+    ``n_dirs`` as in :func:`elementwise_series`."""
+    _check_dirs(operands, n_dirs)
     c0 = torch.cat([s.c0 for s in operands], dim=1)
     n = c0.shape[0]
     derivs = []
@@ -829,8 +850,12 @@ def slice_series(ts, col):
     return TSeries(ts.c0[:, sl], [take(d) for d in ts.derivs])
 
 
-def sum_series(ts):
-    """Column-sum series (the Taylor rule of ``field.sum(axis=1)``)."""
+def sum_series(ts, keepdims=True):
+    """Column-sum series (the Taylor rule of ``field.sum(axis=1)``). The
+    sum keeps its column, as the JAX package's does whatever ``keepdims``
+    says; ``keepdims=False`` raises rather than be ignored."""
+    if not keepdims:
+        raise ValueError("sum_series keeps the column dimension: a series is (N, m); pass keepdims=True")
     m = ts.c0.shape[1]
 
     def reduce(x):

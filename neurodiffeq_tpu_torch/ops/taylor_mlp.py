@@ -33,6 +33,18 @@ or, where they do not fit there, its staged instance in ``csrc/taylor_mlp.cu``
 ``LAUNCHES`` counts launches per kernel, ``STREAM_DESIGNS`` the
 ``taylor_mlp_streams`` launches per design; :func:`reset_launches` zeroes
 both.
+
+The switch has the JAX package's names (``pallas_mlp.py``): while
+:func:`pallas_enabled`, a network takes the fused call where it applies;
+after :func:`disable_pallas` a network on CPU tensors goes layer by layer
+and launches nothing. On the card the kernels launch or the call raises,
+whatever the switch says: a network on CUDA tensors raises while the
+switch is off, and the three entries raise on CUDA tensors under
+``enable_pallas(interpret=True)`` (CPU tensors run the twins either way).
+Unlike the JAX package's, the switch is on by default: the card is the
+port's platform. ``tile`` is checked and otherwise ignored: :func:`_plan`
+sizes the launches. :func:`fcnn_taylor_pallas` takes the JAX package's
+arguments.
 """
 import ctypes
 import functools
@@ -44,10 +56,12 @@ import torch
 from ..utils import full_precision_matmuls
 
 __all__ = ['fcnn_taylor', 'fcnn_taylor_reference', 'fcnn_taylor_streams', 'fcnn_taylor_streams_reference',
+           'fcnn_taylor_pallas', 'enable_pallas', 'disable_pallas', 'pallas_enabled', 'pallas_config',
            'LAUNCHES', 'reset_launches']
 
 LAUNCHES = {'taylor_mlp_1h': 0, 'taylor_mlp': 0, 'taylor_mlp_streams': 0}
 STREAM_DESIGNS = {'resident': 0, 'staged': 0}
+_CONFIG = {'enabled': True, 'interpret': False}
 
 _ACTVS = {'tanh': 0, 'sin': 1}
 _IN_ACTVS = {None: -1, **_ACTVS}  # taylor_mlp_streams' input activation
@@ -67,6 +81,65 @@ def reset_launches():
     for counts in (LAUNCHES, STREAM_DESIGNS):
         for name in counts:
             counts[name] = 0
+
+
+def enable_pallas(interpret=False, tile=256):
+    """Turn on the fused path for FCNN Taylor evaluation (the default).
+
+    :param interpret: the JAX package's interpreter mode: the twins, which
+        CPU tensors run anyway; on CUDA tensors the fused entries then raise.
+    :param tile: the JAX package's points per tile, a positive int, checked
+        and otherwise ignored (the launches size their own).
+    """
+    _check_tile(tile)
+    _CONFIG.update(enabled=True, interpret=bool(interpret))
+
+
+def disable_pallas():
+    """Send networks layer by layer: no fused call, no launch. On CPU
+    tensors only: a network on CUDA tensors raises until
+    :func:`enable_pallas`."""
+    _CONFIG['enabled'] = False
+
+
+def pallas_enabled():
+    """Whether networks take the fused path where it applies."""
+    return _CONFIG['enabled']
+
+
+def pallas_config():
+    """A copy of the switch: ``{'enabled', 'interpret'}``."""
+    return dict(_CONFIG)
+
+
+def _check_tile(tile):
+    if tile is not None and not (isinstance(tile, int) and tile > 0):
+        raise ValueError(f"tile must be a positive int, got {tile!r}")
+
+
+def _use_kernels(tensor):
+    """Whether a network takes the fused call on ``tensor``: while the switch
+    is on. Off, CPU tensors go layer by layer and CUDA tensors raise."""
+    if _CONFIG['enabled']:
+        return True
+    if tensor.device.type == 'cuda':
+        raise RuntimeError("the kernel switch is off (disable_pallas()), and on a CUDA tensor a network launches the "
+                           "kernels or raises: call enable_pallas(), or evaluate on CPU tensors")
+    return False
+
+
+def _runs_twin(tensor, entry, interpret):
+    """Whether ``entry`` runs its twin on ``tensor``: on a CPU tensor it
+    does; on a CUDA tensor it launches its kernel, and raises where
+    ``interpret`` asks for the twin; on any other device it raises."""
+    if tensor.device.type == 'cpu':
+        return True
+    if tensor.device.type != 'cuda':
+        raise TypeError(f"{entry} runs on 'cpu' or 'cuda' tensors, got {tensor.device}")
+    if interpret:
+        raise RuntimeError(f"{entry}: interpret=True runs the twin on CPU tensors only, and on a CUDA tensor the "
+                           f"kernel launches or the call raises: call enable_pallas(), or pass CPU tensors")
+    return False
 
 
 def _actv_chain(z, actv):
@@ -553,9 +626,10 @@ def fcnn_taylor(points, layers, order, actv='tanh'):
     """Fused Taylor evaluation of a tanh or sin FCNN on ``points``.
 
     A CPU tensor runs :func:`fcnn_taylor_reference`. A CUDA tensor launches
-    a CUDA kernel (order 1 or 2, float32 or float64) or raises; it never
-    falls back to the twin. Where no gradient is needed, the kernel is
-    launched without the autograd function around it.
+    a CUDA kernel (order 1 or 2, float32 or float64) or raises, and it
+    raises under ``enable_pallas(interpret=True)``; it never falls back to
+    the twin. Where no gradient is needed, the kernel is launched without the
+    autograd function around it.
 
     :param points: (N, d) collocation points (the directions are the d axes).
     :param layers: ``[(W, b), ...]`` with ``W`` (n_in, n_out), ``b`` (n_out,).
@@ -563,10 +637,8 @@ def fcnn_taylor(points, layers, order, actv='tanh'):
     :param actv: 'tanh' or 'sin'.
     :return: ``(c0, c1[, c2])`` with c0 (N, out) and ck (D, N, out).
     """
-    if points.device.type == 'cpu':
+    if _runs_twin(points, 'fcnn_taylor', _CONFIG['interpret']):
         return fcnn_taylor_reference(points, layers, order, actv)
-    if points.device.type != 'cuda':
-        raise TypeError(f"fcnn_taylor runs on 'cpu' or 'cuda' tensors, got {points.device}")
     _precision_once()
     flat = [t for W, b in layers for t in (W, b)]
     if torch.is_grad_enabled() and any(t.requires_grad for t in [points, *flat]):
@@ -580,8 +652,9 @@ def fcnn_taylor_streams(streams, layers, order, actv='tanh', input_actv=None):
     A CPU tensor runs :func:`fcnn_taylor_streams_reference`. A CUDA tensor
     launches ``taylor_mlp_streams`` (order 1 or 2, float32 or float64,
     1-128 layers, any widths; more than 8 directions as chunks of 8) or
-    raises; it never falls back to the twin. The gradient reaches the input
-    streams and the parameters.
+    raises, and it raises under ``enable_pallas(interpret=True)``; it never
+    falls back to the twin. The gradient reaches the input streams and the
+    parameters.
 
     :param streams: contiguous ``(1 + order * D, N, h_in)``: the value, the
         D first-order and (order 2) the D second-order coefficients.
@@ -592,10 +665,8 @@ def fcnn_taylor_streams(streams, layers, order, actv='tanh', input_actv=None):
     :return: ``(c0, c1[, c2])`` with c0 (N, out) and ck (D, N, out): views
         of one ``(1 + order * D, N, out)`` stack.
     """
-    if streams.device.type == 'cpu':
+    if _runs_twin(streams, 'fcnn_taylor_streams', _CONFIG['interpret']):
         return fcnn_taylor_streams_reference(streams, layers, order, actv, input_actv)
-    if streams.device.type != 'cuda':
-        raise TypeError(f"fcnn_taylor_streams runs on 'cpu' or 'cuda' tensors, got {streams.device}")
     _precision_once()
     flat = [t for W, b in layers for t in (W, b)]
     if torch.is_grad_enabled() and any(t.requires_grad for t in [streams, *flat]):
@@ -603,3 +674,32 @@ def fcnn_taylor_streams(streams, layers, order, actv='tanh', input_actv=None):
     else:
         out = _launch_streams(streams, layers, order, actv, input_actv)
     return _unstack(out, order, _stream_dirs(streams, order))
+
+
+def fcnn_taylor_pallas(points, layer_params, order, n_dirs, tile=None, interpret=None, actv='tanh'):
+    """:func:`fcnn_taylor` with the JAX package's arguments
+    (``pallas_mlp.fcnn_taylor_pallas``): the same entry, so on a CUDA tensor
+    the same kernel and launch count.
+
+    :param points: (N, d) collocation points (the probe directions are the d
+        coordinate axes).
+    :param layer_params: ``[{'W': (n_in, n_out), 'b': (n_out,)}, ...]`` (the
+        activation between layers, none after the last); points and
+        parameters are promoted to one dtype.
+    :param order: series order.
+    :param n_dirs: number of directions; must equal d.
+    :param tile: None or a positive int, checked and otherwise ignored (the
+        launch sizes its own).
+    :param interpret: True raises on a CUDA tensor, as the switch's does
+        (None: the switch's); a CPU tensor runs the twin either way.
+    :param actv: 'tanh' or 'sin'.
+    :return: ``(c0, c1[, c2])`` with c0 (N, out) and ck (D, N, out).
+    """
+    if n_dirs != points.shape[1]:
+        raise ValueError(f"the probe directions must be the {points.shape[1]} coordinate axes, got n_dirs={n_dirs}")
+    _check_tile(tile)
+    _runs_twin(points, 'fcnn_taylor_pallas', interpret)
+    dtype = functools.reduce(torch.promote_types, [t.dtype for lp in layer_params for t in (lp['W'], lp['b'])],
+                             points.dtype)
+    layers = [(lp['W'].to(dtype), lp['b'].to(dtype)) for lp in layer_params]
+    return fcnn_taylor(points.to(dtype), layers, order, actv)

@@ -266,6 +266,7 @@ def runs(tmp_path_factory):
     cases = {key: ('loss_grads', dict(spec=spec, cols=_cols(spec),
                                       jax_params=[_numpy(p) for p in _jax_solver(spec).params]))
              for key, (spec, _) in SPECS.items()}
+    cases['disabled'] = ('loss_grads', dict(cases['cavity'][1], kernels=False))
     cases['accumulate'] = ('epoch', dict(spec=ACCUMULATE,
                                          jax_params=[_numpy(p) for p in _jax_solver(ACCUMULATE).params]))
     cases['fit'] = ('fit', dict(spec=FIT, epochs=FIT_EPOCHS, points=POINTS))
@@ -285,7 +286,7 @@ def runs(tmp_path_factory):
     plain = M.build(None, **FIT)  # a file saved without a mesh, for the ranks to resume on theirs
     plain.fit(RESUME_EPOCHS, tqdm_file=None)
     plain.save(str(tmp / 'plain.pt'))
-    out = {'tmp': tmp}
+    out = {'tmp': tmp, 'disabled case': cases['disabled'][1]}
     (tmp / 'plain_optim').mkdir()  # each optimizer's run without a mesh, and its file for the ranks to load
     out['plain optim'] = {name: M.case_optim(None, name, FIT, OPTIM_EPOCHS, str(tmp / 'plain_optim')) for name in M.OPTIMIZERS}
     for name, (world, m) in MESHES.items():
@@ -398,6 +399,21 @@ def test_split_pairs_go_through_the_kernel_entries(runs, key):
     want = dict(zip(('taylor_mlp_1h', 'taylor_mlp', 'taylor_mlp_streams'), SPECS[key][1]))
     for mesh in MESHES:
         assert [launches for _, launches, _ in runs[mesh][key]] == [want] * MESHES[mesh][0]
+
+
+@pytest.mark.parametrize('mesh', list(MESHES))
+def test_disabled_kernels_run_the_net_whole_on_every_rank(runs, mesh):
+    """After ``disable_pallas()`` the cavity-shaped net goes layer by layer,
+    whole on every rank with its split leaves gathered: no fused call, and
+    the loss and every gradient of the unsharded fused pass and of the JAX
+    package."""
+    (want_loss, want_grads), _, _ = M.case_loss_grads(None, **dict(runs['disabled case'], kernels=True))
+    jloss, jgrads = _jax_loss_grads('cavity')
+    for (loss, grads), launches, _ in runs[mesh]['disabled']:
+        assert launches == {'taylor_mlp_1h': 0, 'taylor_mlp': 0, 'taylor_mlp_streams': 0}
+        for wloss, wgrads in ((want_loss, want_grads), (jloss, jgrads)):
+            np.testing.assert_allclose(loss, wloss, rtol=RTOL, atol=ATOL)
+            _close(grads, wgrads)
 
 
 @pytest.mark.parametrize('mesh', list(MESHES))

@@ -19,8 +19,10 @@ shared memory in either type. NaNs in the input streams and in a weight
 come out where the twin's do. And ``launch(fn, 4)`` under gloo: four ranks on one card form a (2, 2) ``(points, model)`` mesh whose
 pass goes through both kernel entries and holds the unsharded loss and
 gradients (float64, 1e-10 relative); two ranks on one card form a (1, 2)
-mesh on which each stores its blocks of the split leaves, trains on the
-unsharded trajectory, saves a full-size file that loads without a mesh
+mesh whose pass, after ``disable_pallas()``, raises on each rank as it
+does unsharded, launching nothing (the card launches the kernels or
+raises); two ranks on one card form a (1, 2) mesh on which each stores its
+blocks of the split leaves, trains on the unsharded trajectory, saves a full-size file that loads without a mesh
 and onto it, and resumes from it as it would have gone on; and one epoch
 of ``torch.optim.LBFGS`` (strong Wolfe) on such a mesh makes the unsharded
 epoch's closure calls and lands on its parameters (float64, 1e-9
@@ -145,6 +147,18 @@ def test_four_gloo_ranks_on_one_card_form_a_2x2_mesh(tmp_path):
         np.testing.assert_allclose(got_loss, loss, rtol=1e-10)
         for g, w in zip(got_grads, grads, strict=True):
             np.testing.assert_allclose(g, w, rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_disabled_kernels_on_a_1x2_mesh_of_one_card_raise(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (runs on the GPU machine)')
+    none = {'taylor_mlp_1h': 0, 'taylor_mlp': 0, 'taylor_mlp_streams': 0}
+    _, message, launches = M.cuda_disabled_case(None)
+    assert 'disable_pallas()' in message and launches == none
+    ranks = launch(M.cuda_disabled_case, 2, backend='gloo', device_type='cuda', timeout=300, args=(2,),
+                   rendezvous=str(tmp_path / 'rendezvous'))
+    assert ranks == [((0, q), message, none) for q in range(2)]
 
 
 @pytest.mark.cuda

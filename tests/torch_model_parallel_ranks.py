@@ -151,17 +151,23 @@ def loss_and_grads(solver, cols):
     return float(loss.detach()), full_grads(solver), calls
 
 
-def case_loss_grads(mesh, spec, jax_params, cols):
+def case_loss_grads(mesh, spec, jax_params, cols, kernels=True):
     """The global loss and every gradient at ``cols`` from the JAX
     parameters (and the gradient step's collectives), and the Taylor-MLP
     launches per kernel that the pass made (on the CPU, the twin calls
-    ``cpu_rehearsal.counted`` counts)."""
-    from neurodiffeq_tpu_torch.ops import taylor_mlp
+    ``cpu_rehearsal.counted`` counts); with ``kernels=False`` under
+    ``disable_pallas()``, the switch turned back on after."""
+    from neurodiffeq_tpu_torch.ops import disable_pallas, enable_pallas, taylor_mlp
 
     solver = build(mesh, **spec)
     solver.load_jax_params(jax_params)
     taylor_mlp.reset_launches()
-    loss, grads, calls = loss_and_grads(solver, cols)
+    if not kernels:
+        disable_pallas()
+    try:
+        loss, grads, calls = loss_and_grads(solver, cols)
+    finally:
+        enable_pallas()
     return (loss, grads), dict(taylor_mlp.LAUNCHES), calls
 
 
@@ -576,6 +582,32 @@ def cuda_case(model_axis_size):
     axes = None if mesh is None else mesh_axes(mesh)
     index = None if mesh is None else (axes.points.get_local_rank(), axes.model.get_local_rank())
     return str(get_default_device()), index, float(loss.detach()), full_grads(solver), dict(taylor_mlp.LAUNCHES)
+
+
+def cuda_disabled_case(model_axis_size):
+    """On the card, under ``disable_pallas()``: :func:`cuda_case`'s pass on
+    ``make_mesh(model_axis_size=...)`` (None: unsharded) raises, for the
+    card launches the kernels or raises. The mesh index, the error's
+    message (None if nothing raised) and the kernel launches; the switch is
+    turned back on after."""
+    from neurodiffeq_tpu_torch.ops import disable_pallas, enable_pallas, taylor_mlp
+    from neurodiffeq_tpu_torch.parallel import make_mesh
+    from neurodiffeq_tpu_torch.parallel.sharding import mesh_axes
+
+    mesh = None if model_axis_size is None else make_mesh(model_axis_size=model_axis_size)
+    solver = build(mesh)
+    taylor_mlp.reset_launches()
+    message = None
+    disable_pallas()
+    try:
+        solver._loss_and_metrics([torch.tensor(2.0 * columns(32, 1, 3)[0], device=solver.device)])
+    except RuntimeError as e:
+        message = str(e)
+    finally:
+        enable_pallas()
+    axes = None if mesh is None else mesh_axes(mesh)
+    index = None if mesh is None else (axes.points.get_local_rank(), axes.model.get_local_rank())
+    return index, message, dict(taylor_mlp.LAUNCHES)
 
 
 def cuda_store_case(model_axis_size, workdir):
