@@ -20,7 +20,9 @@ seed-keyed compile cache, scanned fit chunks, speculative dispatch) has no
 counterpart here: PyTorch runs eagerly, so a generator whose batches change
 size (``FilterGenerator``, ``BatchGenerator``) trains through the same
 ``fit``, and ``fit(pipeline=...)`` is accepted and changes nothing.
-``fit(profile_dir=...)`` traces the run with ``torch.profiler``.
+``fit(profile_dir=...)`` traces the run with ``torch.profiler``, with the
+solver loop's spans (:mod:`~neurodiffeq_tpu_torch.tracing`) beside the
+kernels.
 
 Every solver takes ``mesh=`` (:func:`~neurodiffeq_tpu_torch.parallel.make_mesh`):
 one process per rank, all drawing the same global batch from one generator
@@ -70,6 +72,7 @@ from .parallel.sharding import (ModelSplit, RowShard, all_reduce_, broadcast_, d
                                 mesh_axes, net_parameters, placed_state, plain_copies, shard_params, split_scope,
                                 stored_blocks, world_group, _check_mesh)
 from .solvers_utils import PretrainedSolver
+from .tracing import span
 from .utils import full_precision_matmuls, get_generator, resolve
 
 try:  # tqdm is optional at run time
@@ -398,17 +401,20 @@ class BaseSolver(ABC, PretrainedSolver):
             return self._loss_and_metrics_inner(cols)
 
     def _loss_and_metrics_inner(self, cols):
-        funcs, coord_fields = self._forward(cols)
-        residual = self._residuals(funcs, coord_fields, weighted=True)
-        shard = coord_fields[0].coords.shard
-        if shard is None:
-            loss = self.loss_fn(residual, funcs, coord_fields)
-            loss = loss + self.additional_loss(residual, funcs, coord_fields)
-            metrics = {name: torch.as_tensor(fn(*[f.value for f in funcs], *[c.value for c in coord_fields]))
-                       for name, fn in self.metrics_fn.items()}
-        else:
-            loss, metrics = self._sharded_loss_and_metrics(shard, residual, funcs, coord_fields)
-        coord_fields[0].coords.release()
+        phase = 'train' if torch.is_grad_enabled() else 'valid'  # validation batches build no graph
+        with self._span('solver.forward', phase):
+            funcs, coord_fields = self._forward(cols)
+        with self._span('solver.residual', phase):
+            residual = self._residuals(funcs, coord_fields, weighted=True)
+            shard = coord_fields[0].coords.shard
+            if shard is None:
+                loss = self.loss_fn(residual, funcs, coord_fields)
+                loss = loss + self.additional_loss(residual, funcs, coord_fields)
+                metrics = {name: torch.as_tensor(fn(*[f.value for f in funcs], *[c.value for c in coord_fields]))
+                           for name, fn in self.metrics_fn.items()}
+            else:
+                loss, metrics = self._sharded_loss_and_metrics(shard, residual, funcs, coord_fields)
+            coord_fields[0].coords.release()
         return loss, metrics
 
     def _sharded_loss_and_metrics(self, shard, residual, funcs, coord_fields):
@@ -462,21 +468,37 @@ class BaseSolver(ABC, PretrainedSolver):
         adaptive generator's default ``alpha=1`` is their RAD k = 1. No
         gradient flows through it."""
         with self._eval_scope():
-            funcs, coord_fields = self._forward(cols)
-            r = self._residuals(funcs, coord_fields, weighted=True).value
-            shard = coord_fields[0].coords.shard
-            coord_fields[0].coords.release()
+            with self._span('solver.forward', 'train'):
+                funcs, coord_fields = self._forward(cols)
+            with self._span('solver.residual', 'train'):
+                r = self._residuals(funcs, coord_fields, weighted=True).value
+                shard = coord_fields[0].coords.shard
+                coord_fields[0].coords.release()
         scores = torch.sqrt((r * r).sum(dim=1))
         return scores if shard is None else shard.gather_rows(scores)  # every rank scores its block
 
     def _generate_batch(self, phase):
         gen = self.generator[phase]
-        if phase == 'train' and getattr(gen, 'adaptive', False):
-            samples = gen.sample_scored(self.rng, lambda cand: self._residual_scores([c.reshape(-1, 1) for c in cand]))
-        else:
-            samples = gen.sample(self.rng)
-        self._batch[phase] = [c.reshape(-1, 1) for c in _as_tuple(samples)]
+        with self._span('solver.batch', phase):
+            if phase == 'train' and getattr(gen, 'adaptive', False):
+                samples = gen.sample_scored(self.rng,
+                                            lambda cand: self._residual_scores([c.reshape(-1, 1) for c in cand]))
+            else:
+                samples = gen.sample(self.rng)
+            self._batch[phase] = [c.reshape(-1, 1) for c in _as_tuple(samples)]
         return self._batch[phase]
+
+    def _span(self, name, phase, recorded=False):
+        """A span of the solver loop (:func:`~neurodiffeq_tpu_torch.tracing.span`)
+        with ``args`` ``'<phase> <epoch>'``, which one epoch's spans share:
+        the 1-based number of ``phase``'s epoch in progress, or of the one
+        just ``recorded``; in ``fit``, the global epoch. ``'eval'``
+        (``get_residuals``, solutions) has no epochs of its own and counts
+        the training epochs recorded."""
+        def args():
+            runs = self.metrics_history.get(f'{phase}_loss', self.metrics_history['train_loss'])
+            return f'{phase} {len(runs) + (not recorded)}'
+        return span(name, args)
 
     # ---------------------------------------------------------------- epochs
     def _trained_parameters(self):
@@ -487,7 +509,8 @@ class BaseSolver(ABC, PretrainedSolver):
         backward then skips the graph that leads only to the points (the
         compose path differentiates with respect to copies of them), whose
         gradients nothing reads."""
-        loss.backward(inputs=self._trained_parameters())
+        with self._span('solver.backward', 'train'):
+            loss.backward(inputs=self._trained_parameters())
 
     def _closure_step(self, cols):
         """One closure-style optimizer step on one batch; returns the loss
@@ -520,17 +543,18 @@ class BaseSolver(ABC, PretrainedSolver):
         rank runs the same graph on its block, so the parameters with a
         gradient are the same on every rank. Returns the global loss, or
         None."""
-        params = [p for p in self._trained_parameters() if p.grad is not None]
-        parts = [p.grad.reshape(-1) for p in params] + ([loss.detach().reshape(1)] if loss is not None else [])
-        if not parts:
-            return None
-        dtype = parts[0].dtype
-        flat = torch.cat([t.to(dtype) for t in parts])
-        all_reduce_(flat, mesh_axes(self.mesh).points.get_group())
-        sizes = [p.numel() for p in params]
-        for p, g in zip(params, torch.split(flat[:sum(sizes)], sizes)):
-            p.grad.copy_(g.view_as(p))
-        return flat[-1] if loss is not None else None
+        with self._span('solver.reduce', 'train'):
+            params = [p for p in self._trained_parameters() if p.grad is not None]
+            parts = [p.grad.reshape(-1) for p in params] + ([loss.detach().reshape(1)] if loss is not None else [])
+            if not parts:
+                return None
+            dtype = parts[0].dtype
+            flat = torch.cat([t.to(dtype) for t in parts])
+            all_reduce_(flat, mesh_axes(self.mesh).points.get_group())
+            sizes = [p.numel() for p in params]
+            for p, g in zip(params, torch.split(flat[:sum(sizes)], sizes)):
+                p.grad.copy_(g.view_as(p))
+            return flat[-1] if loss is not None else None
 
     def _run_epoch(self, phase):
         """One epoch of ``phase``; returns the mean loss and metrics as tensors."""
@@ -582,11 +606,12 @@ class BaseSolver(ABC, PretrainedSolver):
         return self
 
     def _update_best(self, phase):
-        current = self.metrics_history[phase + '_loss'][-1]
-        if self.lowest_loss is None or current < self.lowest_loss:
-            self.lowest_loss = current
-            self.best_params = [{k: v.detach().clone() for k, v in net.state_dict().items()}
-                                for net in self._unique_nets]
+        with self._span('solver.best', phase, recorded=True):
+            current = self.metrics_history[phase + '_loss'][-1]
+            if self.lowest_loss is None or current < self.lowest_loss:
+                self.lowest_loss = current
+                self.best_params = [{k: v.detach().clone() for k, v in net.state_dict().items()}
+                                    for net in self._unique_nets]
 
     def run_train_epoch(self):
         r"""Run a training epoch, update history, and take an optimizer step."""
@@ -605,19 +630,20 @@ class BaseSolver(ABC, PretrainedSolver):
         and the metrics global: one ``all_reduce`` over the ``'points'``
         axis sums the shares (and points index 0's metrics), so every rank
         records the global values."""
-        names = list(self.metrics_fn)
-        flat = torch.stack([torch.as_tensor(x, dtype=torch.float64, device=self.device)
-                            for loss, m in out for x in [loss, *[m[k] for k in names]]])
-        per_phase = len(names) + 1
-        if self.mesh is not None:
-            keep = torch.zeros_like(flat, dtype=torch.bool)
-            keep[::per_phase] = True
-            points = mesh_axes(self.mesh).points
-            keep |= points.get_local_rank() == 0
-            flat = all_reduce_(torch.where(keep, flat, torch.zeros_like(flat)), points.get_group())
-        values = flat.tolist()
-        for phase, i in zip(phases, range(0, len(values), per_phase)):
-            self._record(phase, values[i], dict(zip(names, values[i + 1:i + per_phase])))
+        with self._span('solver.readback', phases[0]):
+            names = list(self.metrics_fn)
+            flat = torch.stack([torch.as_tensor(x, dtype=torch.float64, device=self.device)
+                                for loss, m in out for x in [loss, *[m[k] for k in names]]])
+            per_phase = len(names) + 1
+            if self.mesh is not None:
+                keep = torch.zeros_like(flat, dtype=torch.bool)
+                keep[::per_phase] = True
+                points = mesh_axes(self.mesh).points
+                keep |= points.get_local_rank() == 0
+                flat = all_reduce_(torch.where(keep, flat, torch.zeros_like(flat)), points.get_group())
+            values = flat.tolist()
+            for phase, i in zip(phases, range(0, len(values), per_phase)):
+                self._record(phase, values[i], dict(zip(names, values[i + 1:i + per_phase])))
 
     def run_epochs(self, valid=True):
         """One training epoch and, if ``valid`` and there are validation
@@ -641,7 +667,19 @@ class BaseSolver(ABC, PretrainedSolver):
             installed) shows none.
         :param profile_dir: if set, the run is traced by ``torch.profiler``
             (the host and, on the card, the device), and the trace is written
-            to this directory as a TensorBoard-readable file.
+            to this directory as a TensorBoard-readable file (TensorBoard's
+            profiler plugin or Perfetto open it). Beside PyTorch's own ranges
+            (``Optimizer.step#...``, ``Optimizer.zero_grad#...``, the kernel
+            wrappers ``_TaylorMLPFn`` and ``_TaylorStreamsFn``, the backward's
+            ``autograd::engine::evaluate_function: ...``) it holds the solver
+            loop's spans, siblings on the main thread, each with ``args``
+            ``'<phase> <epoch>'``: ``solver.batch``, ``solver.forward``,
+            ``solver.residual``, ``solver.backward``, ``solver.reduce`` (under
+            a mesh), ``solver.readback``, ``solver.best`` and
+            ``solver.copy_nets`` (:data:`~neurodiffeq_tpu_torch.tracing.SPANS`).
+            The spans are on exactly while a profiler is; otherwise each costs
+            one check, under a microsecond. No span is open while the
+            callbacks run, so a callback may start or stop a profiler.
         :param pipeline: accepted and without effect. The JAX package
             dispatches its next compiled chunk of epochs ahead of the
             callbacks; eager PyTorch has no such chunk, and the committed
@@ -696,9 +734,10 @@ class BaseSolver(ABC, PretrainedSolver):
         if best and self.best_params is None:
             raise RuntimeError("The best parameters are not available; check if you disabled "
                                "validation and used best=True")
-        nets = plain_copies(self.nets, self._full_states(self.best_params if best else None))
-        for net in nets:
-            net.requires_grad_(False)
+        with self._span('solver.copy_nets', 'eval', recorded=True):
+            nets = plain_copies(self.nets, self._full_states(self.best_params if best else None))
+            for net in nets:
+                net.requires_grad_(False)
         return nets
 
     @property
@@ -779,11 +818,14 @@ class BaseSolver(ABC, PretrainedSolver):
         """
         shape, cols = self._as_cols(coords)
         with torch.no_grad():
-            funcs, coord_fields = self._forward(cols, nets=self._nets_for(best), sharded=False)
-            residuals = self.diff_eqs(*funcs, *coord_fields)
-            if isinstance(residuals, Field):
-                residuals = [residuals]
-            values = [r.value for r in residuals]
+            nets = self._nets_for(best)
+            with self._span('solver.forward', 'eval', recorded=True):
+                funcs, coord_fields = self._forward(cols, nets=nets, sharded=False)
+            with self._span('solver.residual', 'eval', recorded=True):  # the lazy fields evaluate at .value
+                residuals = self.diff_eqs(*funcs, *coord_fields)
+                if isinstance(residuals, Field):
+                    residuals = [residuals]
+                values = [r.value for r in residuals]
         if not no_reshape:
             values = [v.reshape(shape) for v in values]
         if to_numpy:

@@ -13,7 +13,8 @@ solver faults F8 and F9, against the JAX package where it has numbers.
   its freezing, warning and argument checks;
 - ``SimpleTensorboardCallback`` with a recording writer;
 - F8: ``criterion``, ``batch`` and ``_batch_examples``, and FutureWarnings
-  shown always; F9: ``fit(pipeline=False)`` and ``fit(profile_dir=...)``.
+  shown always; F9: ``fit(pipeline=False)`` and ``fit(profile_dir=...)``,
+  whose trace holds the solver loop's spans.
 """
 import json
 import os
@@ -334,4 +335,8 @@ def test_f9_fit_takes_pipeline_and_profile_dir(tmp_path):
     traces = os.listdir(tmp_path / 'trace')
     assert len(traces) == 1 and traces[0].endswith('.pt.trace.json')
     with open(tmp_path / 'trace' / traces[0]) as f:
-        assert json.load(f)['traceEvents']
+        events = json.load(f)['traceEvents']
+    spans = ['solver.batch', 'solver.forward', 'solver.residual', 'solver.backward', 'solver.readback', 'solver.best']
+    assert {name: sum(e.get('name') == name for e in events) for name in spans} == {
+        'solver.batch': 10, 'solver.forward': 10, 'solver.residual': 10, 'solver.backward': 2, 'solver.readback': 2,
+        'solver.best': 2}  # 2 epochs of a train batch and 4 validation batches
