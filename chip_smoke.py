@@ -284,7 +284,10 @@ Phases, one line each or more:
    and a bound whose products run on tensor cores, ``stream_bound_ms``;
    beside pair 1 the two plain float32 ``torch.matmul`` products of its
    layers, TF32 off, as a yardstick; both designs at ``ROUTE_SHAPES``, on
-   each side of each bound of the planner's narrow-net rule), the wrapper's host enqueue time per call, and train-only epochs/s
+   each side of each bound of the planner's narrow-net rule), ``taylor_mlp_1h_bwd`` at every shape of
+   ``BWD_SHAPES``, checked against its closed form in float64 (``TOL``, two launches bitwise equal) and
+   then timed beside its bound (``backward_cost``) and the twin's autograd, the wrapper's host enqueue
+   time per call, and train-only epochs/s
    with the kernel and with the twin swapped in, interleaved in 50-epoch
    windows (the twin's must launch nothing); the backward of the kernel's autograd function at both cavity
    widths; the Lotka-Volterra epoch's rate in 50-epoch windows and the spherical,
@@ -354,6 +357,7 @@ ROOT = Path(__file__).resolve().parent
 KERNEL_SOURCE = 'neurodiffeq_tpu_torch/csrc/taylor_mlp.cu'
 STREAMS_SOURCE = 'neurodiffeq_tpu_torch/csrc/taylor_mlp_streams.cu'
 REPLACES = 'neurodiffeq_tpu/ops/pallas_mlp.py:115'
+BWD_REPLACES = 'neurodiffeq_tpu/ops/pallas_mlp.py:259'  # _fused_bwd, jax.vjp over the pure-JAX twin
 # 5a's 2,000 epochs cut to 1,000 when a full run with the heat and Burgers phases
 # passed 900 s (the port's CPU float32 run of the phase: max error 4.746e-3 at
 # 1,000 epochs, under the 1e-2 limit), and to 700 when the script with the
@@ -641,6 +645,11 @@ REACH_SHAPES = [
     ((20, 64, 1), 'tanh', 2, 1024, F32),
     ((2, 2800, 2800, 1), 'tanh', 2, 1024, F32),
 ]
+# the gradient of every one-hidden-layer shape of TABLE_SHAPES and REACH_SHAPES that taylor_mlp_1h_bwd takes (at most 128
+# outputs), timed in phase 6 against the twin's autograd, and the flagship at the benchmark's batch
+BWD_SHAPES = [s for s in TABLE_SHAPES + REACH_SHAPES if len(s[0]) == 3 and s[0][-1] <= 128] + [
+    ((2, 512, 1), 'tanh', 2, 262144, F32)]
+BWD_RECORD = ((2, 512, 1), 'tanh', 2, 1024, F32)  # the backward's shape in the result line: the flagship's batch
 SIREN_SHAPES = [((2, 32, 32, 1), 1024), ((2, 64, 1), 1024)]  # (layer widths, N), w0 = 30, order 2
 TOL = {F64: 1e-10, F32: 1e-4}
 # H100 SXM peaks outside the tensor cores (float32, float64) and HBM3's rate, NVIDIA's data sheet
@@ -705,6 +714,26 @@ def taylor_cost(dims, actv, order, n, esize):
         flops += 2 * s * h_in * h_out + h_out * (act + (5 * d if order == 2 else d))
     flops += 2 * s * dims[-2] * n_out
     return n * flops, nbytes
+
+
+def backward_cost(dims, actv, order, n, esize, points_grad=False):
+    """(floating-point operations, bytes) that the gradient of a one-hidden-
+    layer net's Taylor series must do and move (``taylor_mlp_1h_bwd``),
+    counted as ``taylor_cost`` counts the forward. Per point and hidden unit:
+    z, the activation and its third derivative (tanh 4: f'^2 + a f'', times
+    -2; sin 1); per output 2 for p0, 2d each for r1 and p1 (and r2, p2 at
+    order 2), 2 each for q1 (q2) and 2 + 2 (+ 2) for dW2; then dz (3, or 5),
+    db1 1, and per direction 4 (7) for dW1 and, with the points' gradient, 2.
+    Bytes: the points, the cotangents, the parameters and their gradients
+    (and the points' gradient), each once."""
+    d, h, m = dims
+    act = (1 + 4 + 4) if actv == 'tanh' else (2 + 1 + 1)
+    per_out = 8 + 4 * d if order == 1 else 12 + 8 * d
+    per_unit = 2 * d + act + m * per_out + (3 if order == 1 else 5) + 1 + d * (4 if order == 1 else 7)
+    per_unit += 2 * d if points_grad else 0
+    params = d * h + h + h * m + m
+    nbytes = esize * (n * d * (2 if points_grad else 1) + n * m * (1 + order * d) + 2 * params)
+    return n * h * per_unit, nbytes
 
 
 def stream_cost(dims, d, actv, input_actv, order, n, esize):
@@ -1182,7 +1211,7 @@ def check_wide_inputs(F, taylor_mlp):
         want = torch.stack([torch.autograd.grad(g[:, i].sum(), leaf, retain_graph=True)[0][:, i]
                             for i in range(d)] + [g[:, i] for i in range(d)]).detach()
         err = rel_err(got, want)
-        ok = (launched == {'taylor_mlp_1h': 0, 'taylor_mlp': 1, 'taylor_mlp_streams': 0}
+        ok = (launched == {'taylor_mlp_1h': 0, 'taylor_mlp': 1, 'taylor_mlp_streams': 0, 'taylor_mlp_1h_bwd': 0}
               and F.taylor_fallback_count() == 0 and err <= TOL[dtype])
         phase('3 kernel', f"{str(dtype)[6:]} FCNN {'-'.join(map(str, WIDE_INPUTS))} tanh order 2 N=1000 through "
                           f"GenericSolver._forward: launches {launched}, u_xx and u_x on the {d} axes against "
@@ -1859,7 +1888,8 @@ def check_highdim_laplacian(F, taylor_mlp):
             (u,), xs = solver._forward(cols)
             want = O.laplacian(u, *xs).value
         err = rel_err(got, want)
-        ok = (launched == {'taylor_mlp_1h': 0, 'taylor_mlp': 1, 'taylor_mlp_streams': 0} and fallbacks == 0
+        ok = (launched == {'taylor_mlp_1h': 0, 'taylor_mlp': 1, 'taylor_mlp_streams': 0, 'taylor_mlp_1h_bwd': 0}
+              and fallbacks == 0
               and err <= TOL[dtype])
         phase('3d high-dimensional', f"{str(dtype)[6:]} exact laplacian of FCNN 100-64-64-1 sin under DirichletBoxND "
                                      f"(sat) through GenericSolver._forward, N={HD_POINTS}: launches {launched}, "
@@ -2012,7 +2042,7 @@ def check_ops(F, taylor_mlp, card):
     from neurodiffeq_tpu_torch import ops
     from neurodiffeq_tpu_torch.utils import set_seed
 
-    none = {'taylor_mlp_1h': 0, 'taylor_mlp': 0, 'taylor_mlp_streams': 0}
+    none = {'taylor_mlp_1h': 0, 'taylor_mlp': 0, 'taylor_mlp_streams': 0, 'taylor_mlp_1h_bwd': 0}
 
     def refused(run, match):
         """Whether ``run()`` raised the switch's error, whose message holds
@@ -2320,6 +2350,54 @@ def time_backward(card, dims, n):
                       f"function (the twin re-run and differentiated) {us:.2f} us of device time in {count:.0f} "
                       f"kernels per call")
     return us
+
+
+def time_backward_kernel(card, taylor_mlp):
+    """Phase 6: {(dims, actv, order, n, dtype): (kernel us, twin us, bound ms, bound_by, max abs error)}
+    for the gradient of every one-hidden-layer shape of ``BWD_SHAPES``: ``taylor_mlp_1h_bwd`` (its
+    two launches), against autograd over the twin on the same cotangents. First each shape is
+    checked, or SystemExit: the timed call (no points' gradient) and one with the points' gradient
+    against ``taylor_mlp_1h_backward_reference`` in float64 on the same card inputs, each gradient
+    within ``TOL`` of its largest entry, and two launches bitwise equal."""
+    out = {}
+    for i, (dims, actv, order, n, dtype) in enumerate(BWD_SHAPES):
+        pts, layers = inputs(dims, n, dtype, seed=90 + i)
+        outs = taylor_mlp.fcnn_taylor_reference(pts, layers, order, actv)
+        g = torch.Generator().manual_seed(91 + i)
+        cts = [torch.randn(o.shape, generator=g, dtype=dtype).to('cuda') for o in outs]
+        errs, abs_err, same = [], 0.0, True
+        for need_points in (False, True):
+            got = taylor_mlp._launch_bwd(pts, layers, order, actv, cts, need_points)
+            again = taylor_mlp._launch_bwd(pts, layers, order, actv, cts, need_points)
+            torch.cuda.synchronize()
+            want = taylor_mlp.taylor_mlp_1h_backward_reference(
+                pts.double(), [(W.double(), b.double()) for W, b in layers], order, actv,
+                [c.double() for c in cts], need_points)
+            same = same and all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
+            errs += [rel_err(a, b) for a, b in zip(got, want) if b is not None]
+            abs_err = max([abs_err] + [(a.double() - b).abs().max().item() for a, b in zip(got, want) if b is not None])
+            del got, again, want
+        ok = same and all(e <= TOL[dtype] for e in errs)
+        phase('6 timing', f"{shape_name(dims, actv, order, n, dtype)}: taylor_mlp_1h_bwd against the closed "
+                          f"form in float64, rel err {' '.join(f'{e:.2e}' for e in errs)} (limit {TOL[dtype]:.0e}; "
+                          f"the parameters', then with the points' too), two launches "
+                          f"{'bitwise equal' if same else 'DIFFER'} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("chip_smoke: taylor_mlp_1h_bwd disagrees with its closed form or with itself")
+        k_us, k_launches = device_us(lambda: taylor_mlp._launch_bwd(pts, layers, order, actv, cts, False),
+                                     calls=SHAPE_CALLS)
+        leaves = [t.clone().requires_grad_() for W, b in layers for t in (W, b)]
+        twin = taylor_mlp.fcnn_taylor_reference(pts, list(zip(leaves[0::2], leaves[1::2])), order, actv)
+        t_us, t_launches = device_us(lambda: torch.autograd.grad(twin, leaves, cts, retain_graph=True),
+                                     calls=SHAPE_CALLS)
+        del twin
+        b_ms, b_by = bound_ms(dims, actv, order, n, dtype, backward_cost(dims, actv, order, n, dtype.itemsize))
+        out[(dims, actv, order, n, dtype)] = (k_us, t_us, b_ms, b_by, abs_err)
+        phase('6 timing', f"{card}: {shape_name(dims, actv, order, n, dtype)}: backward, device time per call "
+                          f"(profiler) taylor_mlp_1h_bwd {k_us:.2f} us in {k_launches:.0f} launches, twin's autograd "
+                          f"{t_us:.2f} us in {t_launches:.0f}; bound {b_ms * 1e3:.3f} us ({b_by}), kernel at "
+                          f"{b_ms * 1e3 / k_us:.1%} of the bound")
+    return out
 
 
 def cuda_time_ms(fn, calls=200, warmup=10):
@@ -2642,6 +2720,8 @@ def run_flagship(F, taylor_mlp):
     res = solver.get_residuals(xs, ys, to_numpy=True)
     checks = {
         'taylor_mlp_1h launched during fit': launches_main['taylor_mlp_1h'] > 0,
+        'one taylor_mlp_1h_bwd per epoch, no twin backward': (launches_main['taylor_mlp_1h_bwd'] == EPOCHS
+                                                               and not taylor_mlp.TWIN_BACKWARDS),
         'no Taylor fallback': fallbacks == 0,
         'loss fell': late < early,
         'max error < 1e-2': bool(np.isfinite(u).all()) and max_err < 1e-2,
@@ -3586,9 +3666,10 @@ def run_model_axis(taylor_mlp, card, outs, first, cav_first, backend, world, lau
         return max([rel(r['first'][0], want[0]) for r in runs]
                    + [rel(g, block(h, spec)) for r in runs for g, h, spec in zip(r['first'][1], want[1], r['first'][2])])
 
-    def launches(runs, epochs, one_hidden, streams):
+    def launches(runs, epochs, one_hidden, streams):  # one backward an epoch: the train batch's
         return all(r['launches'] == {'taylor_mlp_1h': one_hidden * epochs, 'taylor_mlp': 0,
-                                     'taylor_mlp_streams': streams * epochs} for r in runs)
+                                     'taylor_mlp_streams': streams * epochs, 'taylor_mlp_1h_bwd': epochs}
+                   for r in runs)
 
     def fell(hist, k):
         return float(np.mean(hist[-k:])) < float(np.mean(hist[:k]))
@@ -3608,9 +3689,10 @@ def run_model_axis(taylor_mlp, card, outs, first, cav_first, backend, world, lau
         f"a ({world // MODEL_AXIS}, {MODEL_AXIS}) mesh": sorted(o['index'] for o in outs) == sorted(
             (('points', 'model'), p, q) for p in range(world // MODEL_AXIS) for q in range(MODEL_AXIS)),
         f'flagship first epoch within {SHARD_GRAD_TOL} of unsharded': flag_err < SHARD_GRAD_TOL,
-        'flagship: taylor_mlp_1h 5 per epoch per rank': launches(flag, SHARD_EPOCHS, 5, 0),
+        'flagship: taylor_mlp_1h 5 and taylor_mlp_1h_bwd 1 per epoch per rank': launches(flag, SHARD_EPOCHS, 5, 0),
         f'cavity first epoch within {SHARD_GRAD_TOL} of unsharded': cav_err < SHARD_GRAD_TOL,
-        'cavity: 1 taylor_mlp_1h and 2 taylor_mlp_streams per epoch per rank': launches(cav, MODEL_CAV_EPOCHS, 1, 2),
+        'cavity: 1 taylor_mlp_1h, 2 taylor_mlp_streams and 1 taylor_mlp_1h_bwd per epoch per rank':
+            launches(cav, MODEL_CAV_EPOCHS, 1, 2),
         'no Taylor fallback': all(r['fallbacks'] == 0 for r in flag + cav),
         'every rank the same histories': all(r['history'] == flag[0]['history'] for r in flag)
         and all(r['history'] == cav[0]['history'] for r in cav),
@@ -3865,10 +3947,12 @@ def run_polish(taylor_mlp, card, outs, backend, world, launch_s, checks, inputs,
             for r in polish for i, e in enumerate(r['epochs'])),
         'loss on the frozen draw fell': hist[-1] < hist[0] and plain['history'][-1] < plain['history'][0],
         'every rank the same history': all(r['history'] == hist for r in polish),
-        f'{POLISH_PASS} per pass on each rank': all(
-            r['launches'] == {k: v * n for k, v in POLISH_PASS.items()} for r, n in zip(polish, passes)),
+        f'{POLISH_PASS} per pass and one taylor_mlp_1h_bwd per closure call on each rank': all(
+            r['launches'] == {**{k: v * n for k, v in POLISH_PASS.items()},
+                              'taylor_mlp_1h_bwd': sum(e['closures'] for e in r['epochs'])}
+            for r, n in zip(polish, passes)),
         'unsharded: taylor_mlp once per pass': plain['launches'] == {'taylor_mlp_1h': 0, 'taylor_mlp': plain_passes,
-                                                                      'taylor_mlp_streams': 0},
+                                                                      'taylor_mlp_streams': 0, 'taylor_mlp_1h_bwd': 0},
         'no Taylor fallback': all(r['fallbacks'] == 0 for r in polish + [plain]),
     })
     if before is not None:
@@ -4017,6 +4101,7 @@ def main():
     # ---- 6. timing
     if '6' in chosen:
         times = time_shapes(card, taylor_mlp)
+        bwd_times = time_backward_kernel(card, taylor_mlp)
         stream_times = time_streams(card, taylor_mlp)
         time_end_to_end(card, taylor_mlp)
         time_epochs(card, 'Lotka-Volterra (train + 4 validation batches, 2 nets)', lv_solver())
@@ -4036,9 +4121,10 @@ def main():
     record = {'kernels': []}
     recorded = [(name, times[key], errors[key]) for name, key in RECORD_SHAPES.items()]
     recorded.append(('taylor_mlp_streams', stream_times[STREAM_SHAPES[0]], stream_errors[(STREAM_SHAPES[0], F32)]))
+    recorded.append(('taylor_mlp_1h_bwd', bwd_times[BWD_RECORD][:4], bwd_times[BWD_RECORD][4]))
     for name, (k_us, t_us, b_ms, b_by), err in recorded:
         record['kernels'].append({
-            'name': name, 'route': 'cuda', 'replaces': REPLACES,
+            'name': name, 'route': 'cuda', 'replaces': BWD_REPLACES if name == 'taylor_mlp_1h_bwd' else REPLACES,
             'source': STREAMS_SOURCE if name == 'taylor_mlp_streams' else KERNEL_SOURCE,
             'launches': sum(p.get(name, 0) for p in paths.values()), 'max_abs_err': err, 'ms': k_us / 1e3,
             'plain_ms': t_us / 1e3, 'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None})

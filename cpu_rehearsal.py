@@ -22,7 +22,8 @@ the flagship on the JAX package's mesh of 2 virtual devices, ``5s-jax`` on
 its ``make_mesh(n_devices=2, model_axis_size=2)``; only the
 ``-jax`` arms import JAX. The Taylor-MLP entry point (``ops.taylor_mlp.fcnn_taylor``) is
 wrapped with a counter, each call counted as the kernel launch it is on the
-card (``fcnn_taylor_streams`` too). For 5l-5n it prints per phase the calls and the compose fallbacks per
+card (``fcnn_taylor_streams`` too; a one-hidden-layer backward that takes the
+closed form as ``taylor_mlp_1h_bwd``'s). For 5l-5n it prints per phase the launches and the compose fallbacks per
 epoch, the first and last 100-epoch mean train loss, the relative L2 error
 against the analytic solution on 4,096 points, the boundary defect and the
 seconds (``--seed`` picks the seed of 5l, 5m, 5o, 5r, 5r-jax, 5s and 5s-jax; 5o's default is its
@@ -44,19 +45,33 @@ def counted(taylor_mlp):
     """Wrap ``fcnn_taylor`` so that every call counts one launch of the kernel
     the card would run: ``taylor_mlp_1h`` for one hidden layer of at most
     65,535 outputs, ``taylor_mlp`` otherwise; and ``fcnn_taylor_streams``,
-    ``taylor_mlp_streams``."""
+    ``taylor_mlp_streams``. A call with a graph goes through the card's
+    autograd function, its launch stood in for by the twin, so that its
+    backward takes the card's route; each closed-form backward counts as the
+    ``taylor_mlp_1h_bwd`` launch it is there."""
     inner, streams = taylor_mlp.fcnn_taylor, taylor_mlp.fcnn_taylor_streams
+    twin, closed = taylor_mlp.fcnn_taylor_reference, taylor_mlp.taylor_mlp_1h_backward_reference
 
-    def counting(points, layers, *args, **kwargs):
+    def counting(points, layers, order, actv='tanh'):
         one_hidden = len(layers) == 2 and layers[-1][1].shape[0] <= 65535
         taylor_mlp.LAUNCHES['taylor_mlp_1h' if one_hidden else 'taylor_mlp'] += 1
-        return inner(points, layers, *args, **kwargs)
+        flat = [t for W, b in layers for t in (W, b)]
+        if torch.is_grad_enabled() and any(t.requires_grad for t in [points, *flat]):
+            return taylor_mlp._TaylorMLPFn.apply(points, order, actv, *flat)
+        return inner(points, layers, order, actv)
+
+    def counting_closed(*args, **kwargs):
+        taylor_mlp.LAUNCHES['taylor_mlp_1h_bwd'] += 1
+        return closed(*args, **kwargs)
 
     def counting_streams(*args, **kwargs):
         taylor_mlp.LAUNCHES['taylor_mlp_streams'] += 1
         return streams(*args, **kwargs)
 
     taylor_mlp.fcnn_taylor, taylor_mlp.fcnn_taylor_streams = counting, counting_streams
+    taylor_mlp.taylor_mlp_1h_backward_reference = counting_closed
+    taylor_mlp._launch = lambda points, layers, order, actv: tuple(
+        o.detach().contiguous() for o in twin(points, layers, order, actv))
     return inner
 
 
@@ -73,7 +88,7 @@ def rehearse(name, build, d, epochs):
     calls, fallbacks = sum(taylor_mlp.LAUNCHES.values()), F.taylor_fallback_count()
     hist = solver.metrics_history['train_loss']
     rel, bdef = cs.highdim_errors(solver, d)
-    print(f"{name}: fit({epochs}) float32 on the CPU in {seconds:.1f} s: {calls / epochs:.2f} Taylor-MLP calls "
+    print(f"{name}: fit({epochs}) float32 on the CPU in {seconds:.1f} s: {calls / epochs:.2f} Taylor-MLP launches "
           f"and {fallbacks / epochs:.2f} fallbacks per epoch, train loss mean {np.mean(hist[:100]):.4e} (first 100) -> "
           f"{np.mean(hist[-100:]):.4e} (last 100), rel L2 error {rel:.4e}, boundary defect {bdef:.1e}", flush=True)
 

@@ -1,5 +1,6 @@
 // Fused Taylor-mode FCNN forward for Hopper (sm_90a): three kernel entries
-// (taylor_mlp_streams.cu holds a fourth).
+// (taylor_mlp_streams.cu holds a fourth), and the backward of the one-hidden-
+// layer net (taylor_mlp_1h_bwd).
 //
 // taylor_mlp_1h and taylor_mlp replace the TPU kernel
 // neurodiffeq_tpu/ops/pallas_mlp.py::_kernel (launched by _pallas_call
@@ -70,6 +71,27 @@
 // shape). It is taylor_mlp_kernel with its first layer replaced by a load of
 // the tile's input streams into shared memory (STREAMS): every layer but the
 // output layer then runs on the staged weight tiles.
+//
+// taylor_mlp_1h_bwd (the gradient of taylor_mlp_1h's outputs with respect
+// to W1, b1, W2, b2 and, where asked, the points). It replaces no TPU kernel:
+// the JAX package differentiates its pure-JAX twin (pallas_mlp.py's
+// _fused_bwd, jax.vjp), and autograd over the port's twin materialised
+// z, f, f', f'' and the (d, N, h) tangent streams and their cotangents,
+// gigabytes at the flagship's 262,144 points, to produce about 1,500
+// numbers. Here the hidden layer is rematerialised in registers: per (point,
+// unit) about 60 operations (the 2-512-1 flagship, order 2) on the point's
+// coordinates and the 1 + 2d cotangents, so it is bound by FMA work (0.12 ms
+// at 262,144 points and 67 TFLOP/s) and reads a few MB. Design: a thread
+// owns a hidden unit (blocks of up to 128), a block a span of points, staged
+// in shared memory a sub-tile at a time, and the unit's partial sums of dW1,
+// db1 and its output tile's dW2 stay in registers across the span. Each
+// block writes them to its own slab of a scratch; a second small kernel adds
+// the slabs in a fixed order (a tree of 16 lanes per element). Every term
+// is linear in the cotangents, so output tiles (MT = 1, 4 or 16 columns of
+// W2) and, past 8 inputs, direction chunks lie on grid axes of their own and
+// their partial sums add. No atomics: two launches give bitwise-equal
+// gradients. The points' gradient, a sum over units per point, is compiled in
+// only where asked (PGRAD).
 //
 // No integer division by a runtime width in an inner loop: divisors are
 // compile-time constants (D, S, kKTile).
@@ -570,6 +592,343 @@ taylor_mlp_kernel(const T* __restrict__ x, int n, int d, int n_layers, MLPParams
   }
 }
 
+// ---------------------------------------------------------------- one hidden layer, backward
+// Elements of one point's staged record (its D coordinates, the output
+// tile's MT columns of c0's cotangent and of c1's and c2's along the D
+// directions), and the points of a staged sub-tile: the largest power of
+// two up to 64 whose records fit kBwdStage bytes. ops/taylor_mlp.py repeats both.
+constexpr int kBwdThreads = 128;  // threads of a backward block, one hidden unit each
+constexpr int kBwdStage = 24576;
+constexpr int kSumLanes = 16;     // the sum pass: partial sums per element, summed as a tree
+__host__ __device__ constexpr int bwd_rec(int d, int order, int mt) { return d + mt + order * d * mt; }
+__host__ __device__ constexpr int bwd_tile(int rec, int esize) {
+  int tp = 64;
+  while (tp > 1 && tp * rec * esize > kBwdStage) tp /= 2;
+  return tp;
+}
+
+// One point of the staged sub-tile `s`: x [TP][D], g0 [TP][MT], g1 and g2
+// [D][TP][MT]. The chunk's directions are every direction (d == D).
+template <typename T, int D, int MT, int TP>
+struct StagedPoint {
+  const T* s;
+  int t;
+  __device__ __forceinline__ T z(T bj, const T (&w)[D]) const {
+    T z = bj;
+#pragma unroll
+    for (int k = 0; k < D; ++k) z += s[t * D + k] * w[k];
+    return z;
+  }
+  __device__ __forceinline__ T x(int k) const { return s[t * D + k]; }
+  __device__ __forceinline__ T g0(int o) const { return s[TP * D + t * MT + o]; }
+  __device__ __forceinline__ T g1(int k, int o) const { return s[TP * (D + MT) + (k * TP + t) * MT + o]; }
+  __device__ __forceinline__ T g2(int k, int o) const {
+    return s[TP * (D + MT + D * MT) + (k * TP + t) * MT + o];
+  }
+  // r1 = sum over every direction k of W1[j, k] g1[k][o]; r2 the same with W1^2 and g2
+  template <int ORDER>
+  __device__ __forceinline__ void r(int o, const T (&w)[D], const T (&ww)[D], T& r1, T& r2) const {
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      r1 += w[k] * g1(k, o);
+      if constexpr (ORDER == 2) r2 += ww[k] * g2(k, o);
+    }
+  }
+};
+
+// One point when d > D (D == kMaxDims): its row of x, its cotangents and the
+// unit's row of W1 read from global memory (a warp reads one address: L1
+// broadcasts it). The chunk's directions are dir0 .. dir0 + D - 1; the sums
+// r1, r2 and z run over all d.
+template <typename T, int D, int MT>
+struct GlobalPoint {
+  const T *xp, *wrow, *g0p, *g1p, *g2p;  // g0p, g1p, g2p at the point's row, column o0; null: absent
+  size_t dstride;                        // elements between two directions' rows of g1 and g2 (n m)
+  int d, dir0, mvalid;                   // mvalid: columns of the tile inside the output layer
+  __device__ __forceinline__ T z(T bj, const T (&)[D]) const {
+    T z = bj;
+    for (int k = 0; k < d; ++k) z += xp[k] * wrow[k];
+    return z;
+  }
+  __device__ __forceinline__ T x(int k) const { return xp[dir0 + k]; }
+  __device__ __forceinline__ T g0(int o) const { return g0p != nullptr && o < mvalid ? g0p[o] : T(0); }
+  __device__ __forceinline__ T g1(int k, int o) const {
+    return g1p != nullptr && o < mvalid ? g1p[(dir0 + k) * dstride + o] : T(0);
+  }
+  __device__ __forceinline__ T g2(int k, int o) const {
+    return g2p != nullptr && o < mvalid ? g2p[(dir0 + k) * dstride + o] : T(0);
+  }
+  template <int ORDER>
+  __device__ __forceinline__ void r(int o, const T (&)[D], const T (&)[D], T& r1, T& r2) const {
+    if (o >= mvalid) return;
+    for (int k = 0; k < d; ++k) {
+      const T wk = wrow[k];
+      if (g1p != nullptr) r1 += wk * g1p[k * dstride + o];
+      if constexpr (ORDER == 2) {
+        if (g2p != nullptr) r2 += (wk * wk) * g2p[k * dstride + o];
+      }
+    }
+  }
+};
+
+// One point's part of unit j's gradient, for the output tile's columns o
+// (v[o] = W2[o0 + o, j]). With p0 = sum_o v g0, q1 = sum_o v r1, q2 = sum_o
+// v r2 and p1[k] = sum_o v g1[k][o], p2[k] likewise from g2:
+//   dz      = f' p0 + f'' q1 + f''' q2          (the hidden pre-activation's cotangent)
+//   dW2[o] += f g0[o] + f' r1[o] + f'' r2[o]
+//   db1    += dz
+//   dW1[k] += x[k] dz + f' p1[k] + 2 W1[j, k] f'' p2[k]
+// Returns dz (the points' gradient is W1[:, k] dz summed over units).
+template <typename T, int D, int ORDER, int MT, typename P>
+__device__ __forceinline__ T point_bwd(const P& p, T bj, const T (&w)[D], const T (&ww)[D], const T (&w2x)[D],
+                                       const T (&v)[MT], int actv, T (&aw1)[D], T& ab1, T (&aw2)[MT]) {
+  const T z = p.z(bj, w);
+  T a, f1, f2;
+  actv_chain(z, actv, a, f1, f2);
+  const T f3 = actv == kActTanh ? T(-2) * (f1 * f1 + a * f2) : -f1;
+  T p0 = T(0), q1 = T(0), q2 = T(0), p1[D], p2[D];
+#pragma unroll
+  for (int k = 0; k < D; ++k) p1[k] = p2[k] = T(0);
+#pragma unroll
+  for (int o = 0; o < MT; ++o) {
+    const T gz = p.g0(o);
+    T r1 = T(0), r2 = T(0);
+    p.template r<ORDER>(o, w, ww, r1, r2);
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      p1[k] += v[o] * p.g1(k, o);
+      if constexpr (ORDER == 2) p2[k] += v[o] * p.g2(k, o);
+    }
+    p0 += v[o] * gz;
+    q1 += v[o] * r1;
+    aw2[o] += a * gz + f1 * r1;
+    if constexpr (ORDER == 2) {
+      q2 += v[o] * r2;
+      aw2[o] += f2 * r2;
+    }
+  }
+  T dz = f1 * p0 + f2 * q1;
+  if constexpr (ORDER == 2) dz += f3 * q2;
+  ab1 += dz;
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    aw1[k] += p.x(k) * dz + f1 * p1[k];
+    if constexpr (ORDER == 2) aw1[k] += f2 * w2x[k] * p2[k];
+  }
+  return dz;
+}
+
+// Grid: (point blocks, unit tiles x output tiles, direction chunks). A block
+// owns `span` points from blockIdx.x * span, its threads one hidden unit each
+// (j = unit tile * blockDim.x + threadIdx.x) and the output tile's MT columns
+// of W2 (o0 = output tile * MT). It walks its points in sub-tiles of TP,
+// staged in shared memory (d == D) or read from global memory (d > D), and
+// keeps every partial sum of its unit in registers. At the end it writes
+// them to its slab of `part` (slab blockIdx.x * output tiles + output tile:
+// dW1 (h, d) | db1 (h) | the tile's rows of dW2 (MT, h) | its db2 (MT)): dW1 for the chunk's own
+// directions (the last chunk is shifted back; directions before c * D belong
+// to the chunk before), db1 and the tile's columns of dW2 from chunk 0, the
+// tile's db2 (a sum over the block's threads) from unit tile 0 of chunk 0.
+// PGRAD: each sub-tile's points' gradient summed over the block's units,
+// into slab blockIdx.y of gxp ((n, d) each), for the chunk's own directions.
+// Every term is linear in the cotangents, so slabs add; the sum pass adds
+// them in a fixed order. Units past h compute with v = 0 (so dz = 0) and
+// store nothing.
+template <typename T, int D, int ORDER, int MT, bool PGRAD>
+__global__ void __launch_bounds__(kBwdThreads)
+taylor_mlp_1h_bwd_kernel(const T* __restrict__ x, int n, int d, int h, int m, const T* __restrict__ W1,
+                         const T* __restrict__ b1, const T* __restrict__ W2, int actv, int span,
+                         const T* __restrict__ g0, const T* __restrict__ g1, const T* __restrict__ g2,
+                         T* __restrict__ part, T* __restrict__ gxp) {
+  constexpr int REC = bwd_rec(D, ORDER, MT);
+  constexpr int TP = bwd_tile(REC, sizeof(T));
+  static_assert(!PGRAD || TP * D >= MT, "red holds the tile's db2 too");
+  __shared__ T st[TP * REC];
+  __shared__ T red[kBwdThreads / 32][PGRAD ? TP * D : MT];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  const int utn = (h + blockDim.x - 1) / blockDim.x;
+  const int ut = blockIdx.y % utn, ot = blockIdx.y / utn, c = blockIdx.z;
+  const int j = ut * blockDim.x + tid, jr = min(j, h - 1), o0 = ot * MT;
+  const int dir0 = chunk_dir0<D>(d, c), own0 = c * D;
+  const int n0 = blockIdx.x * span, n1 = min(n0 + span, n);
+  const bool lead = ut == 0 && c == 0;  // sums the tile's db2
+  bool narrow = true;
+  if constexpr (D == kMaxDims) narrow = d == D;
+
+  const T* wrow = W1 + static_cast<size_t>(jr) * d;
+  const T bj = b1[jr];
+  T w[D], ww[D], w2x[D], v[MT];
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    w[k] = wrow[dir0 + k];
+    ww[k] = w[k] * w[k];
+    w2x[k] = T(2) * w[k];
+  }
+#pragma unroll
+  for (int o = 0; o < MT; ++o) v[o] = j < h && o0 + o < m ? W2[static_cast<size_t>(o0 + o) * h + j] : T(0);
+  T aw1[D], ab1 = T(0), aw2[MT], ab2[MT];
+#pragma unroll
+  for (int k = 0; k < D; ++k) aw1[k] = T(0);
+#pragma unroll
+  for (int o = 0; o < MT; ++o) aw2[o] = ab2[o] = T(0);
+
+  for (int t0 = n0; t0 < n1; t0 += TP) {
+    const int tp = min(TP, n1 - t0);
+    if (narrow) {
+      __syncthreads();  // the sub-tile before is read
+      for (int i = tid; i < TP * REC; i += blockDim.x) {
+        T val = T(0);
+        if (i < TP * D) {
+          const int t = i / D;
+          if (t < tp) val = x[static_cast<size_t>(t0) * D + i];
+        } else if (i < TP * (D + MT)) {
+          const int t = (i - TP * D) / MT, o = (i - TP * D) % MT;
+          if (g0 != nullptr && t < tp && o0 + o < m) val = g0[static_cast<size_t>(t0 + t) * m + o0 + o];
+        } else {
+          const int r = i - TP * (D + MT), s = r / (TP * MT), t = (r / MT) % TP, o = r % MT;
+          const T* g = s < D ? g1 : g2;
+          const int k = s < D ? s : s - D;
+          if (g != nullptr && t < tp && o0 + o < m) val = g[(static_cast<size_t>(k) * n + t0 + t) * m + o0 + o];
+        }
+        st[i] = val;
+      }
+      __syncthreads();
+      if (lead) {
+        for (int t = tid; t < tp; t += blockDim.x) {
+#pragma unroll
+          for (int o = 0; o < MT; ++o) ab2[o] += st[TP * D + t * MT + o];
+        }
+      }
+      for (int t = 0; t < tp; ++t) {
+        const StagedPoint<T, D, MT, TP> p{st, t};
+        const T dz = point_bwd<T, D, ORDER, MT>(p, bj, w, ww, w2x, v, actv, aw1, ab1, aw2);
+        if constexpr (PGRAD) {
+#pragma unroll
+          for (int k = 0; k < D; ++k) {
+            const T s = warp_sum(w[k] * dz);
+            if (lane == 0) red[warp][t * D + k] = s;
+          }
+        }
+      }
+    } else if constexpr (D == kMaxDims) {
+      const size_t dstride = static_cast<size_t>(n) * m;
+      if (lead && g0 != nullptr) {
+        for (int t = tid; t < tp; t += blockDim.x) {
+#pragma unroll
+          for (int o = 0; o < MT; ++o) {
+            if (o0 + o < m) ab2[o] += g0[static_cast<size_t>(t0 + t) * m + o0 + o];
+          }
+        }
+      }
+      for (int t = 0; t < tp; ++t) {
+        const size_t row = static_cast<size_t>(t0 + t) * m + o0;
+        const GlobalPoint<T, D, MT> p{x + static_cast<size_t>(t0 + t) * d, wrow,
+                                      g0 == nullptr ? nullptr : g0 + row, g1 == nullptr ? nullptr : g1 + row,
+                                      g2 == nullptr ? nullptr : g2 + row, dstride, d, dir0, m - o0};
+        const T dz = point_bwd<T, D, ORDER, MT>(p, bj, w, ww, w2x, v, actv, aw1, ab1, aw2);
+        if constexpr (PGRAD) {
+#pragma unroll
+          for (int k = 0; k < D; ++k) {
+            const T s = warp_sum(w[k] * dz);
+            if (lane == 0) red[warp][t * D + k] = s;
+          }
+        }
+      }
+    }
+    if constexpr (PGRAD) {  // the sub-tile's points' gradient: this block's units, in warp order
+      __syncthreads();
+      T* slab = gxp + static_cast<size_t>(blockIdx.y) * n * d;
+      for (int i = tid; i < tp * D; i += blockDim.x) {
+        const int t = i / D, k = i % D;
+        if (dir0 + k < own0) continue;
+        T s = red[0][i];
+        for (int q = 1; q < nwarps; ++q) s += red[q][i];
+        slab[static_cast<size_t>(t0 + t) * d + dir0 + k] = s;
+      }
+      __syncthreads();  // red is read before the next sub-tile writes it
+    }
+  }
+
+  const int out_tiles = (m + MT - 1) / MT;
+  const size_t hd = static_cast<size_t>(h) * d;
+  T* slab = part + (static_cast<size_t>(blockIdx.x) * out_tiles + ot) * (hd + h + static_cast<size_t>(MT) * h + MT);
+  if (j < h) {
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      if (dir0 + k >= own0) slab[static_cast<size_t>(j) * d + dir0 + k] = aw1[k];
+    }
+    if (c == 0) {
+      slab[hd + j] = ab1;
+#pragma unroll
+      for (int o = 0; o < MT; ++o) {
+        if (o0 + o < m) slab[hd + h + static_cast<size_t>(o) * h + j] = aw2[o];
+      }
+    }
+  }
+  if (lead) {  // the tile's db2 over the block's threads: warp sums, then the warps in order
+#pragma unroll
+    for (int o = 0; o < MT; ++o) {
+      const T s = warp_sum(ab2[o]);
+      if (lane == 0) red[warp][o] = s;
+    }
+    __syncthreads();
+    if (tid < MT && o0 + tid < m) {
+      T s = red[0][tid];
+      for (int q = 1; q < nwarps; ++q) s += red[q][tid];
+      slab[hd + h + static_cast<size_t>(MT) * h + tid] = s;
+    }
+  }
+}
+
+// The sum pass: out = [dW1 (h, d) | db1 (h) | dW2 (m, h) | db2 (m)] summed
+// over the slabs of `part` that hold it (dW1 and db1: every (point block,
+// output tile) slab; an output's dW2 row and db2: its tile's slab of each
+// point block), then gx (n, d) over the `gx_slabs` slabs of gxp. A block of 32 x
+// kSumLanes threads takes 32 consecutive elements: lane y sums slabs y, y +
+// kSumLanes, ... in order, then the lanes add as a fixed tree.
+template <typename T>
+__global__ void __launch_bounds__(32 * kSumLanes)
+taylor_mlp_1h_bwd_sum_kernel(const T* __restrict__ part, const T* __restrict__ gxp, int blocks, int n, int d,
+                             int h, int m, int mt, int gx_slabs, T* __restrict__ out, T* __restrict__ gx) {
+  __shared__ T sums[kSumLanes][32];
+  const size_t hd = static_cast<size_t>(h) * d, w2 = static_cast<size_t>(m) * h, g = hd + h + w2 + m;
+  const size_t slab = hd + h + static_cast<size_t>(mt) * h + mt;  // one slab of part
+  const size_t total = g + (gx != nullptr ? static_cast<size_t>(n) * d : 0);
+  const size_t e = static_cast<size_t>(blockIdx.x) * 32 + threadIdx.x;
+  const int out_tiles = (m + mt - 1) / mt;
+  const T* base = nullptr;
+  size_t stride = 0;
+  int count = 0;
+  if (e < hd + h) {
+    base = part + e, stride = slab, count = blocks * out_tiles;
+  } else if (e < hd + h + w2) {  // dW2[o, j]: row o % mt of tile o / mt
+    const size_t o = (e - hd - h) / h, j = (e - hd - h) % h;
+    base = part + (o / mt) * slab + hd + h + (o % mt) * h + j, stride = out_tiles * slab, count = blocks;
+  } else if (e < g) {
+    const size_t o = e - hd - h - w2;
+    base = part + (o / mt) * slab + hd + h + static_cast<size_t>(mt) * h + o % mt;
+    stride = out_tiles * slab, count = blocks;
+  } else if (e < total) {
+    base = gxp + (e - g), stride = static_cast<size_t>(n) * d, count = gx_slabs;
+  }
+  T s = T(0);
+  for (int q = threadIdx.y; q < count; q += kSumLanes) s += base[q * stride];
+  sums[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+#pragma unroll
+  for (int off = kSumLanes / 2; off > 0; off >>= 1) {
+    if (threadIdx.y < off) sums[threadIdx.y][threadIdx.x] += sums[threadIdx.y + off][threadIdx.x];
+    __syncthreads();
+  }
+  if (threadIdx.y == 0 && e < total) {
+    if (e < g) {
+      out[e] = sums[0][threadIdx.x];
+    } else {
+      gx[e - g] = sums[0][threadIdx.x];
+    }
+  }
+}
+
 // ---------------------------------------------------------------- host side
 bool bad_block(int threads) { return threads < 32 || threads > kMaxThreads || threads % 32 != 0; }
 
@@ -662,6 +1021,72 @@ int forward_1h(const void* x, int n, int d, int h, int n_out, const void* W1, co
                                              tile, threads, c0, c1, c2, stream);
 }
 
+// The backward's arguments (the C entry's, typed).
+template <typename T>
+struct BwdArgs {
+  const T *x, *W1, *b1, *W2, *g0, *g1, *g2;
+  int n, d, h, m, actv, mt, threads, blocks, span;
+  bool pgrad;
+  T *part, *gxp, *out, *gx;
+  cudaStream_t stream;
+};
+
+template <typename T, int D, int ORDER, int MT, bool PGRAD>
+void launch_1h_bwd_main(const BwdArgs<T>& a, dim3 grid) {
+  taylor_mlp_1h_bwd_kernel<T, D, ORDER, MT, PGRAD><<<grid, a.threads, 0, a.stream>>>(
+      a.x, a.n, a.d, a.h, a.m, a.W1, a.b1, a.W2, a.actv, a.span, a.g0, a.g1, a.g2, a.part, a.gxp);
+}
+
+template <typename T>
+struct BackwardHidden {
+  template <int D, int ORDER>
+  struct At {
+    static int run(const BwdArgs<T>& a) {
+      const int unit_tiles = (a.h + a.threads - 1) / a.threads, out_tiles = (a.m + a.mt - 1) / a.mt;
+      if (static_cast<long long>(unit_tiles) * out_tiles > kMaxGridYZ) return kInvalid;
+      const dim3 grid(a.blocks, unit_tiles * out_tiles, chunks_of(a.d));
+#define NDTORCH_BWD(MT)                                                          \
+  if (a.mt == MT) {                                                              \
+    if (a.pgrad) {                                                               \
+      launch_1h_bwd_main<T, D, ORDER, MT, true>(a, grid);                        \
+    } else {                                                                     \
+      launch_1h_bwd_main<T, D, ORDER, MT, false>(a, grid);                       \
+    }                                                                            \
+  }
+      NDTORCH_BWD(1) else NDTORCH_BWD(4) else NDTORCH_BWD(16) else return kInvalid;
+#undef NDTORCH_BWD
+      cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+      const size_t total = (static_cast<size_t>(a.h) * a.d + a.h + static_cast<size_t>(a.m) * a.h + a.m) +
+                           (a.pgrad ? static_cast<size_t>(a.n) * a.d : 0);
+      const size_t sum_blocks = (total + 31) / 32;
+      if (sum_blocks > 0x7fffffffu) return kInvalid;
+      taylor_mlp_1h_bwd_sum_kernel<T><<<static_cast<unsigned>(sum_blocks), dim3(32, kSumLanes), 0, a.stream>>>(
+          a.part, a.gxp, a.blocks, a.n, a.d, a.h, a.m, a.mt, unit_tiles * out_tiles, a.out,
+          a.pgrad ? a.gx : nullptr);
+      return static_cast<int>(cudaGetLastError());
+    }
+  };
+};
+
+template <typename T>
+int backward_1h(const void* x, int n, int d, int h, int m, const void* W1, const void* b1, const void* W2,
+                int order, int actv, int mt, int threads, int blocks, int span, int pgrad, const void* g0,
+                const void* g1, const void* g2, void* part, void* gxp, void* out, void* gx, void* stream) {
+  if (threads < 32 || threads > kBwdThreads || threads % 32 != 0 || n < 1 || h < 1 || m < 1 ||
+      (actv != kActTanh && actv != kActSin) || blocks < 1 || span < 1 ||
+      static_cast<long long>(blocks - 1) * span >= n || static_cast<long long>(blocks) * span < n ||
+      part == nullptr || out == nullptr || (pgrad && (gxp == nullptr || gx == nullptr))) {
+    return kInvalid;
+  }
+  const BwdArgs<T> a{static_cast<const T*>(x), static_cast<const T*>(W1), static_cast<const T*>(b1),
+                     static_cast<const T*>(W2), static_cast<const T*>(g0), static_cast<const T*>(g1),
+                     static_cast<const T*>(g2), n, d, h, m, actv, mt, threads, blocks, span, pgrad != 0,
+                     static_cast<T*>(part), static_cast<T*>(gxp), static_cast<T*>(out), static_cast<T*>(gx),
+                     static_cast<cudaStream_t>(stream)};
+  return dispatch<BackwardHidden<T>::template At>(d, order, a);
+}
+
 // STREAMS: x is (1 + order d, n, dims[0]) input streams, in_actv their
 // activation; every width but the output's is staged, so each is at most
 // hstride. Otherwise x is (n, d) points, dims[0] == d and in_actv unused.
@@ -707,8 +1132,17 @@ extern "C" {
 // `scratch` and `hstride` are the general kernel's, hstride covering dims[0]
 // too.
 //
+// taylor_mlp_1h_bwd is the gradient of taylor_mlp_1h for n points through
+// d-h-m widths: g0 (n, m), g1 and g2 (d, n, m) are the cotangents of c0, c1
+// and c2 (null where absent; g2 unused at order 1). It writes out = [dW1 (h,
+// d) | db1 (h) | dW2 (m, h) | db2 (m)] (nn.Linear layouts) and, with pgrad,
+// gx (n, d). `part` holds blocks * ceil(m / mt) slabs of h d + h + mt h + mt
+// elements, `gxp`
+// (pgrad) ceil(h / threads) * ceil(m / mt) slabs of n * d; the blocks own
+// `span` points each and together exactly cover n.
+//
 // The build compiles this file once per entry point, all at once, with
-// -DNDTORCH_ENTRY=1..6 (the order below), beside the other sources' entries,
+// -DNDTORCH_ENTRY=1..8 (the order below), beside the other sources' entries,
 // and links the objects; with no NDTORCH_ENTRY one compile holds them all.
 #ifndef NDTORCH_ENTRY
 #define NDTORCH_ENTRY 0
@@ -769,6 +1203,26 @@ int taylor_mlp_streams_staged_f64(const void* x, int n, int d, int n_layers, con
                                   void* c0, void* c1, void* c2, void* stream) {
   return forward_general<double, true>(x, n, d, n_layers, dims, W, b, order, actv, in_actv, tile, threads,
                                        smem, hstride, blocks, scratch, c0, c1, c2, stream);
+}
+#endif
+
+#if NDTORCH_ENTRY == 0 || NDTORCH_ENTRY == 7
+int taylor_mlp_1h_bwd_f32(const void* x, int n, int d, int h, int m, const void* W1, const void* b1,
+                          const void* W2, int order, int actv, int mt, int threads, int blocks, int span,
+                          int pgrad, const void* g0, const void* g1, const void* g2, void* part, void* gxp,
+                          void* out, void* gx, void* stream) {
+  return backward_1h<float>(x, n, d, h, m, W1, b1, W2, order, actv, mt, threads, blocks, span, pgrad, g0, g1,
+                            g2, part, gxp, out, gx, stream);
+}
+#endif
+
+#if NDTORCH_ENTRY == 0 || NDTORCH_ENTRY == 8
+int taylor_mlp_1h_bwd_f64(const void* x, int n, int d, int h, int m, const void* W1, const void* b1,
+                          const void* W2, int order, int actv, int mt, int threads, int blocks, int span,
+                          int pgrad, const void* g0, const void* g1, const void* g2, void* part, void* gxp,
+                          void* out, void* gx, void* stream) {
+  return backward_1h<double>(x, n, d, h, m, W1, b1, W2, order, actv, mt, threads, blocks, span, pgrad, g0, g1,
+                             g2, part, gxp, out, gx, stream);
 }
 #endif
 

@@ -39,11 +39,13 @@ _ARGTYPES = {  # C entry point -> argument types, as the csrc/ sources declare t
                                   _VP, _VP, _VP, _VP],
     'taylor_mlp_streams': [_VP, _INT, _INT, _INT, ctypes.POINTER(_INT), ctypes.POINTER(_VP),
                            ctypes.POINTER(_VP), _INT, _INT, _INT, _INT, _INT, _INT, _VP, _VP],
+    'taylor_mlp_1h_bwd': [_VP, _INT, _INT, _INT, _INT, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
+                          _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP],
 }
 # source -> the C entry points it defines, in the order of its NDTORCH_ENTRY = 1, 2, ...
 SOURCE_ENTRIES = {
-    'taylor_mlp.cu': [name + suffix for name in ('taylor_mlp_1h', 'taylor_mlp', 'taylor_mlp_streams_staged')
-                      for suffix in ('_f32', '_f64')],
+    'taylor_mlp.cu': [name + suffix for name in ('taylor_mlp_1h', 'taylor_mlp', 'taylor_mlp_streams_staged',
+                                                 'taylor_mlp_1h_bwd') for suffix in ('_f32', '_f64')],
     'taylor_mlp_streams.cu': ['taylor_mlp_streams_f32', 'taylor_mlp_streams_f64'],
 }
 ENTRY_POINTS = [entry for entries in SOURCE_ENTRIES.values() for entry in entries]

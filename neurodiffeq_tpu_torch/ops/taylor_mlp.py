@@ -16,8 +16,12 @@ coordinate axes.
   ``taylor_mlp_1h`` for a net with one hidden layer, ``taylor_mlp`` for
   every other depth (:func:`_plan` picks). The kernels take any input
   width, 1-128 layers and any hidden width, as the TPU kernel does. Its gradient is
-  :class:`_TaylorMLPFn`, whose backward re-runs the twin under autograd, as
-  ``_fused_bwd`` re-derives it by ``jax.vjp`` over the pure-JAX twin.
+  :class:`_TaylorMLPFn`, rematerialized from the saved inputs: for one hidden
+  layer of at most 128 outputs the hand-written ``taylor_mlp_1h_bwd`` kernel
+  (:func:`_plan_bwd`; its plain version is
+  :func:`taylor_mlp_1h_backward_reference`), for any other net autograd over
+  the twin, as ``_fused_bwd`` re-derives it by ``jax.vjp`` over the pure-JAX
+  twin.
 
 :func:`fcnn_taylor_streams` is the same evaluation on input Taylor streams
 ``(1 + order D, N, h_in)`` (the layout the kernels write: the value, then
@@ -31,8 +35,9 @@ or, where they do not fit there, its staged instance in ``csrc/taylor_mlp.cu``
 :func:`fcnn_taylor_streams_reference`, which is its backward too.
 
 ``LAUNCHES`` counts launches per kernel, ``STREAM_DESIGNS`` the
-``taylor_mlp_streams`` launches per design; :func:`reset_launches` zeroes
-both.
+``taylor_mlp_streams`` launches per design, ``TWIN_BACKWARDS`` the
+one-hidden-layer backwards that ran the twin, by shape; :func:`reset_launches`
+zeroes them.
 
 The switch has the JAX package's names (``pallas_mlp.py``): while
 :func:`pallas_enabled`, a network takes the fused call where it applies;
@@ -56,11 +61,14 @@ import torch
 from ..utils import full_precision_matmuls
 
 __all__ = ['fcnn_taylor', 'fcnn_taylor_reference', 'fcnn_taylor_streams', 'fcnn_taylor_streams_reference',
-           'fcnn_taylor_pallas', 'enable_pallas', 'disable_pallas', 'pallas_enabled', 'pallas_config',
-           'LAUNCHES', 'reset_launches']
+           'taylor_mlp_1h_backward_reference', 'fcnn_taylor_pallas', 'enable_pallas', 'disable_pallas',
+           'pallas_enabled', 'pallas_config', 'LAUNCHES', 'TWIN_BACKWARDS', 'reset_launches']
 
-LAUNCHES = {'taylor_mlp_1h': 0, 'taylor_mlp': 0, 'taylor_mlp_streams': 0}
+LAUNCHES = {'taylor_mlp_1h': 0, 'taylor_mlp': 0, 'taylor_mlp_streams': 0, 'taylor_mlp_1h_bwd': 0}
 STREAM_DESIGNS = {'resident': 0, 'staged': 0}
+# backward calls of a one-hidden-layer net (a taylor_mlp_1h forward) that ran the
+# twin, by (layer widths, order): the shapes past _MAX_BWD_OUT outputs
+TWIN_BACKWARDS = {}
 _CONFIG = {'enabled': True, 'interpret': False}
 
 _ACTVS = {'tanh': 0, 'sin': 1}
@@ -74,13 +82,19 @@ _K_TILE, _CHUNK = 16, 128   # kKTile, kChunk: one staged weight tile is kKTile x
 # an mma k step by element size, weight rows padded to a multiple of _ROW_TILE, the mbarriers
 _RESIDENT_THREADS, _RESIDENT_TILE, _MMA_K, _ROW_TILE, _BAR_BYTES = 512, {4: 16, 8: 8}, {4: 8, 8: 4}, 16, 16
 _NARROW_OUT, _NARROW_IN, _NARROW_MACS = 8, 64, 2048   # _narrow: where the staged instance is the faster
+# taylor_mlp_1h_bwd: the widest output layer it takes, its output tiles (kBwdOut's instances), threads
+# of a block (kBwdThreads), bytes of a staged sub-tile (kBwdStage), and warps per SM that _plan_bwd aims at
+# and the sum pass's lanes per element (kSumLanes)
+_MAX_BWD_OUT, _BWD_OUT_TILES, _BWD_THREADS, _BWD_STAGE, _BWD_WARPS_PER_SM = 128, (1, 4, 16), 128, 24576, 32
+_SUM_LANES = 16
 
 
 def reset_launches():
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count to 0, and forget the twin backwards."""
     for counts in (LAUNCHES, STREAM_DESIGNS):
         for name in counts:
             counts[name] = 0
+    TWIN_BACKWARDS.clear()
 
 
 def enable_pallas(interpret=False, tile=256):
@@ -189,6 +203,47 @@ def fcnn_taylor_reference(points, layers, order, actv='tanh'):
     if order >= 2:
         outs.append(u2 @ W)
     return tuple(outs)
+
+
+def taylor_mlp_1h_backward_reference(points, layers, order, actv, grads, need_points=True):
+    """The gradient of a one-hidden-layer net's Taylor series in closed form:
+    what the ``taylor_mlp_1h_bwd`` kernel computes, in plain PyTorch (the
+    backward's stand-in for the launch on CPU tensors, and the kernel's
+    yardstick on the card). With p = g W2^T for each cotangent,
+    ``dz = f' p0 + f'' sum_k W1[k] p1[k] + f''' sum_k W1[k]^2 p2[k]`` is the
+    hidden pre-activation's cotangent; every other term follows from it.
+
+    :param points: (N, d).
+    :param layers: ``[(W1, b1), (W2, b2)]`` with ``W`` (n_in, n_out).
+    :param order: 1 or 2.
+    :param actv: 'tanh' or 'sin'.
+    :param grads: the cotangents ``(g0, g1[, g2])`` of ``(c0, c1[, c2])``,
+        (N, m) and (d, N, m); None where an output was not used.
+    :param need_points: whether to return the points' gradient.
+    :return: ``(gx, gW1, gb1, gW2, gb2)`` in the inputs' shapes; gx is None
+        unless ``need_points``.
+    """
+    (W1, b1), (W2, b2) = layers
+    g0, g1, g2 = (list(grads) + [None] * 3)[:3]
+    z = points @ W1 + b1
+    a, f1, f2 = _actv_chain(z, actv)
+    f3 = -2 * (f1 * f1 + a * f2) if actv == 'tanh' else -f1
+    dz, gW1, gW2, gb2 = torch.zeros_like(z), torch.zeros_like(W1), torch.zeros_like(W2), torch.zeros_like(b2)
+    if g0 is not None:
+        dz = dz + f1 * (g0 @ W2.t())
+        gW2 = gW2 + a.t() @ g0
+        gb2 = g0.sum(0)
+    # c1 = (f' W1[k]) W2 and c2 = (f'' W1[k]^2) W2: through f' (f'') and through W1 itself
+    for k_order, g, f, f_next, w in ((1, g1, f1, f2, W1), (2, g2, f2, f3, W1 * W1)):
+        if g is None or k_order > order:
+            continue
+        p = g @ W2.t()  # (d, N, h)
+        dz = dz + f_next * (w[:, None, :] * p).sum(0)
+        through_w = (f[None] * p).sum(1)
+        gW1 = gW1 + (through_w if k_order == 1 else 2 * W1 * through_w)
+        gW2 = gW2 + sum(w[k][:, None] * (f.t() @ g[k]) for k in range(points.shape[1]))
+    gW1 = gW1 + points.t() @ dz
+    return (dz @ W1.t() if need_points else None), gW1, dz.sum(0), gW2, gb2
 
 
 def _stream_dirs(streams, order):
@@ -418,7 +473,59 @@ def _weight_tiles(esize):
     return 2 * _K_TILE * (_CHUNK + 1) * esize
 
 
-_PLANS = {}  # (kernel family, dtype, device index, dims, order, n, d[, design]) -> Plan or StreamPlan
+_PLANS = {}  # (kernel family, dtype, device index, dims, order, n, d[, design]) -> Plan, StreamPlan or BwdPlan
+
+BwdPlan = namedtuple('BwdPlan', 'out_tile threads blocks span tile unit_tiles out_tiles')
+
+
+def _bwd_tile(rec, esize):
+    """``bwd_tile`` of the CUDA source: points of a staged sub-tile of the
+    backward, for ``rec`` elements a point."""
+    tp = 64
+    while tp > 1 and tp * rec * esize > _BWD_STAGE:
+        tp //= 2
+    return tp
+
+
+def _bwd_kernel_takes(dims):
+    """Whether ``taylor_mlp_1h_bwd`` takes the gradient through widths
+    ``dims``: one hidden layer and at most ``_MAX_BWD_OUT`` outputs."""
+    return len(dims) == 3 and dims[-1] <= _MAX_BWD_OUT
+
+
+def _plan_bwd(n, dims, order, esize, n_sm):
+    """How to launch ``taylor_mlp_1h_bwd`` for the gradient of ``n``
+    points through a one-hidden-layer net of widths ``dims``; None where the
+    backward runs the twin: any other depth, and output layers wider than
+    ``_MAX_BWD_OUT`` (whose per-output work is a matrix product).
+
+    A thread owns a hidden unit, a block up to ``_BWD_THREADS`` of them, and
+    the grid's y axis the unit tiles times the output tiles (1, 4 or 16
+    columns of W2: the fewest that hold the output layer, 16 past it); d past
+    8 puts the direction chunks on z. The points are split into ``blocks``
+    spans of ``span`` points, as many as give the card about
+    ``_BWD_WARPS_PER_SM`` warps per SM, but no shorter than
+    sqrt(N x output tiles / (4 ``_SUM_LANES``)): a thread walks its block's
+    span in order, and a lane of the sum pass the block x output tile slabs
+    a sixteenth of them, so that at small N neither chain runs much longer
+    than the other. A span is whole staged sub-tiles of ``tile`` points
+    where it is longer than one.
+    """
+    if not _bwd_kernel_takes(dims):
+        return None
+    d, h, m = dims
+    out_tile = next((t for t in _BWD_OUT_TILES if t >= m), _BWD_OUT_TILES[-1])
+    dirs = min(d, _MAX_DIMS)
+    tile = _bwd_tile(dirs + out_tile + order * dirs * out_tile, esize)
+    threads = min(_BWD_THREADS, 32 * math.ceil(h / 32))
+    unit_tiles, out_tiles = math.ceil(h / threads), math.ceil(m / out_tile)
+    blocks_per_span = unit_tiles * out_tiles * math.ceil(d / _MAX_DIMS)  # the direction chunks on z
+    spans = max(1, math.ceil(n_sm * _BWD_WARPS_PER_SM * 32 / threads / blocks_per_span))
+    span = max(math.ceil(n / spans), math.ceil(math.sqrt(n * out_tiles / (4 * _SUM_LANES))))
+    if span > tile:
+        span = tile * math.ceil(span / tile)
+    blocks = math.ceil(n / span)
+    return BwdPlan(out_tile, threads, blocks, span, tile, unit_tiles, out_tiles)
 
 
 def _check(points, layers, order, actv, d=None):
@@ -457,6 +564,18 @@ def _check(points, layers, order, actv, d=None):
 def _row_major(t):
     """``t`` itself where its data are already row-major, else a copy."""
     return t if t.is_contiguous() else t.contiguous()
+
+
+def _call(fn, args, index):
+    """``fn(*args, stream)`` with the current stream of device ``index``, on
+    that device: the C entry's error code. The raw handle is read as torch's
+    inductor-generated code reads it: ``torch.cuda.current_stream()`` builds a
+    Stream object per call."""
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(index):
+        return fn(*args, stream)
 
 
 def _launch(points, layers, order, actv):
@@ -498,15 +617,7 @@ def _launch(points, layers, order, actv):
                 (ctypes.c_void_p * len(bk))(*[t.data_ptr() for t in bk]),
                 order, _ACTVS[actv], plan.tile, plan.threads, plan.smem, plan.hstride, plan.blocks,
                 None if scratch is None else scratch.data_ptr(), *outs[1:])
-    fn = getattr(lib, plan.kernel + suffix)
-    # the current stream's raw handle, read as torch's inductor-generated code
-    # reads it: ``torch.cuda.current_stream()`` builds a Stream object per call
-    stream = torch._C._cuda_getCurrentRawStream(index)
-    if index == torch.cuda.current_device():
-        err = fn(*args, stream)
-    else:
-        with torch.cuda.device(index):
-            err = fn(*args, stream)
+    err = _call(getattr(lib, plan.kernel + suffix), args, index)
     if err != 0:
         raise RuntimeError(f"{plan.kernel} kernel launch failed: CUDA error {err} "
                            f"(n={n}, dims={dims}, order={order}, plan={plan})")
@@ -548,19 +659,61 @@ def _launch_streams(streams, layers, order, actv, input_actv, design=None):
         name, args = 'taylor_mlp_streams_staged', (*net, plan.tile, plan.threads, plan.smem, plan.hstride,
                                                    plan.blocks, None if scratch is None else scratch.data_ptr(),
                                                    p0, p0 + stride, p0 + (1 + d) * stride if order == 2 else None)
-    fn = getattr(load_library(), name + ('_f32' if dtype == torch.float32 else '_f64'))
-    stream = torch._C._cuda_getCurrentRawStream(index)
-    if index == torch.cuda.current_device():
-        err = fn(*args, stream)
-    else:
-        with torch.cuda.device(index):
-            err = fn(*args, stream)
+    err = _call(getattr(load_library(), name + ('_f32' if dtype == torch.float32 else '_f64')), args, index)
     if err != 0:
         raise RuntimeError(f"taylor_mlp_streams kernel launch failed: CUDA error {err} "
                            f"(n={n}, d={d}, dims={dims}, order={order}, plan={plan})")
     LAUNCHES['taylor_mlp_streams'] += 1
     STREAM_DESIGNS[plan.design] += 1
     return out
+
+
+def _launch_bwd(points, layers, order, actv, grads, need_points):
+    """Launch ``taylor_mlp_1h_bwd`` (the partial sums and their fixed-order
+    sum pass) on the current stream: :func:`taylor_mlp_1h_backward_reference`
+    on the card. The caller routes by :func:`_plan_bwd`."""
+    from ._build import load_library
+
+    dims = _check(points, layers, order, actv)
+    (W1, b1), (W2, _) = layers
+    dtype, device = points.dtype, points.device
+    (n, d), h, m = points.shape, dims[1], dims[2]
+    g0, g1, g2 = (list(grads) + [None] * 3)[:3]
+    gs = []
+    for g, shape in ((g0, (n, m)), (g1, (d, n, m)), (g2 if order == 2 else None, (d, n, m))):
+        if g is not None and (g.shape != shape or g.dtype != dtype or g.device != device):
+            raise ValueError(f"taylor_mlp_1h_bwd: a cotangent of shape {tuple(g.shape)} ({g.dtype} on {g.device}) "
+                             f"where {shape} ({dtype} on {device}) is expected")
+        gs.append(None if g is None else _row_major(g))
+    hd, mh = h * d, m * h
+    out = torch.empty(hd + h + mh + m, dtype=dtype, device=device)
+    gx = torch.empty((n, d), dtype=dtype, device=device) if need_points else None
+    grad = (gx, out[:hd].view(h, d).t(), out[hd:hd + h], out[hd + h:hd + h + mh].view(m, h).t(), out[hd + h + mh:])
+    if n == 0:
+        out.zero_()
+        return grad
+    index = points.get_device()
+    key = ('backward', dtype, index, dims, order, n)
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = _PLANS[key] = _plan_bwd(n, dims, order, points.element_size(), _sm_count(index))
+    slab = hd + h + plan.out_tile * h + plan.out_tile
+    # partial sums, freed to the stream's pool after the launch (the sum pass reads them first)
+    part = torch.empty(plan.blocks * plan.out_tiles * slab, dtype=dtype, device=device)
+    gxp = torch.empty(plan.unit_tiles * plan.out_tiles * n * d, dtype=dtype, device=device) if need_points else None
+    Wk = [_row_major(W1.t()), _row_major(W2.t())]  # kept alive until the launch is enqueued
+    b1k = _row_major(b1)
+    args = (points.data_ptr(), n, d, h, m, Wk[0].data_ptr(), b1k.data_ptr(), Wk[1].data_ptr(), order, _ACTVS[actv],
+            plan.out_tile, plan.threads, plan.blocks, plan.span, int(need_points),
+            *[None if g is None else g.data_ptr() for g in gs], part.data_ptr(),
+            None if gxp is None else gxp.data_ptr(), out.data_ptr(), None if gx is None else gx.data_ptr())
+    err = _call(getattr(load_library(), 'taylor_mlp_1h_bwd' + ('_f32' if dtype == torch.float32 else '_f64')),
+                args, index)
+    if err != 0:
+        raise RuntimeError(f"taylor_mlp_1h_bwd kernel launch failed: CUDA error {err} "
+                           f"(n={n}, dims={dims}, order={order}, plan={plan})")
+    LAUNCHES['taylor_mlp_1h_bwd'] += 1
+    return grad
 
 
 class _TaylorStreamsFn(torch.autograd.Function):
@@ -590,12 +743,18 @@ class _TaylorStreamsFn(torch.autograd.Function):
 
 
 class _TaylorMLPFn(torch.autograd.Function):
-    """Forward: the CUDA kernel. Backward: autograd over the plain twin,
-    re-run on the saved inputs (a rematerialized backward)."""
+    """Forward: the CUDA kernel. Backward, rematerialized from the saved
+    inputs: for a net with one hidden layer and at most ``_MAX_BWD_OUT``
+    outputs (:func:`_plan_bwd`) the ``taylor_mlp_1h_bwd`` kernel (on CPU
+    tensors its plain version, :func:`taylor_mlp_1h_backward_reference`);
+    otherwise autograd over the plain twin, which ``TWIN_BACKWARDS`` counts
+    for one-hidden-layer nets. Outputs that were not used get no cotangent
+    (None, not zeros)."""
 
     @staticmethod
     def forward(ctx, points, order, actv, *flat):
         ctx.order, ctx.actv = order, actv
+        ctx.set_materialize_grads(False)
         ctx.save_for_backward(points, *flat)
         return _launch(points, list(zip(flat[0::2], flat[1::2])), order, actv)
 
@@ -603,6 +762,14 @@ class _TaylorMLPFn(torch.autograd.Function):
     def backward(ctx, *grads):
         points, *flat = ctx.saved_tensors
         need = [ctx.needs_input_grad[0]] + list(ctx.needs_input_grad[3:])
+        dims = (points.shape[1],) + tuple(W.shape[1] for W in flat[0::2])
+        if len(dims) == 3:
+            if _bwd_kernel_takes(dims):
+                layers = [(flat[0], flat[1]), (flat[2], flat[3])]
+                run = _launch_bwd if points.device.type == 'cuda' else taylor_mlp_1h_backward_reference
+                got = run(points, layers, ctx.order, ctx.actv, grads, need[0])
+                return (got[0], None, None, *[g if f else None for g, f in zip(got[1:], need[1:])])
+            TWIN_BACKWARDS[(dims, ctx.order)] = TWIN_BACKWARDS.get((dims, ctx.order), 0) + 1
         result = [None] * len(need)
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_(f) for t, f in zip([points, *flat], need)]

@@ -395,8 +395,11 @@ def test_split_pairs_go_through_the_kernel_entries(runs, key):
     """Per pass and rank: pair 0 through ``fcnn_taylor`` (``taylor_mlp_1h``
     on the card), the pairs after it and a trailing layer through
     ``fcnn_taylor_streams``; what does not split, whole (one
-    ``taylor_mlp`` call, or layer by layer at order 3)."""
+    ``taylor_mlp`` call, or layer by layer at order 3). Every pass has a
+    graph and every pair 0 at most 128 outputs: its backward is one
+    ``taylor_mlp_1h_bwd`` on the card."""
     want = dict(zip(('taylor_mlp_1h', 'taylor_mlp', 'taylor_mlp_streams'), SPECS[key][1]))
+    want['taylor_mlp_1h_bwd'] = want['taylor_mlp_1h']
     for mesh in MESHES:
         assert [launches for _, launches, _ in runs[mesh][key]] == [want] * MESHES[mesh][0]
 
@@ -410,7 +413,7 @@ def test_disabled_kernels_run_the_net_whole_on_every_rank(runs, mesh):
     (want_loss, want_grads), _, _ = M.case_loss_grads(None, **dict(runs['disabled case'], kernels=True))
     jloss, jgrads = _jax_loss_grads('cavity')
     for (loss, grads), launches, _ in runs[mesh]['disabled']:
-        assert launches == {'taylor_mlp_1h': 0, 'taylor_mlp': 0, 'taylor_mlp_streams': 0}
+        assert launches == {'taylor_mlp_1h': 0, 'taylor_mlp': 0, 'taylor_mlp_streams': 0, 'taylor_mlp_1h_bwd': 0}
         for wloss, wgrads in ((want_loss, want_grads), (jloss, jgrads)):
             np.testing.assert_allclose(loss, wloss, rtol=RTOL, atol=ATOL)
             _close(grads, wgrads)

@@ -143,7 +143,7 @@ def test_four_gloo_ranks_on_one_card_form_a_2x2_mesh(tmp_path):
                    rendezvous=str(tmp_path / 'rendezvous'))
     assert [r[:2] for r in ranks] == [('cuda:0', (p, q)) for p in range(2) for q in range(2)]
     for _, _, got_loss, got_grads, launches in ranks:
-        assert launches == {'taylor_mlp_1h': 1, 'taylor_mlp': 0, 'taylor_mlp_streams': 1}
+        assert launches == {'taylor_mlp_1h': 1, 'taylor_mlp': 0, 'taylor_mlp_streams': 1, 'taylor_mlp_1h_bwd': 1}
         np.testing.assert_allclose(got_loss, loss, rtol=1e-10)
         for g, w in zip(got_grads, grads, strict=True):
             np.testing.assert_allclose(g, w, rtol=1e-10, atol=1e-12)
@@ -153,7 +153,7 @@ def test_four_gloo_ranks_on_one_card_form_a_2x2_mesh(tmp_path):
 def test_disabled_kernels_on_a_1x2_mesh_of_one_card_raise(tmp_path):
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device (runs on the GPU machine)')
-    none = {'taylor_mlp_1h': 0, 'taylor_mlp': 0, 'taylor_mlp_streams': 0}
+    none = {'taylor_mlp_1h': 0, 'taylor_mlp': 0, 'taylor_mlp_streams': 0, 'taylor_mlp_1h_bwd': 0}
     _, message, launches = M.cuda_disabled_case(None)
     assert 'disable_pallas()' in message and launches == none
     ranks = launch(M.cuda_disabled_case, 2, backend='gloo', device_type='cuda', timeout=300, args=(2,),

@@ -65,7 +65,7 @@ def _calls(entry, dtype):
 
 
 ENTRIES = ['fcnn_taylor-flagship', 'fcnn_taylor-cavity', 'fcnn_taylor_streams', 'fcnn_taylor_pallas']
-NONE = {'taylor_mlp_1h': 0, 'taylor_mlp': 0, 'taylor_mlp_streams': 0}
+NONE = {'taylor_mlp_1h': 0, 'taylor_mlp': 0, 'taylor_mlp_streams': 0, 'taylor_mlp_1h_bwd': 0}
 
 
 @pytest.mark.cuda

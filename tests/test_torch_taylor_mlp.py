@@ -118,6 +118,9 @@ def _cotangents(outs, seed=1):
 
 @pytest.mark.parametrize('dims,actv', [((2, 32, 1), 'tanh'), ((2, 16, 16, 1), 'sin'), ((3, 8, 2), 'tanh')])
 def test_gradients_match_jax_vjp(dims, actv):
+    """Autograd over the twin against ``jax.vjp`` over the pure-JAX twin on
+    the same cotangents; at one hidden layer the closed form (what
+    ``taylor_mlp_1h_bwd`` computes) too."""
     jax, jnp, _pure_jax_taylor, _ = _jax()
     pts, layers = _inputs(dims, n=20)
     d, order = dims[0], 2
@@ -130,21 +133,31 @@ def test_gradients_match_jax_vjp(dims, actv):
     t_layers = _torch_layers(layers, requires_grad=True)
     t_outs = fcnn_taylor_reference(t_pts, t_layers, order, actv)
     loss = sum((o * torch.tensor(c)).sum() for o, c in zip(t_outs, cts))
-    grads = torch.autograd.grad(loss, [t_pts] + [x for W, b in t_layers for x in (W, b)])
-    _assert_close(grads[0], d_pts)
-    for g, w in zip(grads[1:], d_flat):
-        _assert_close(g, w)
+    routes = [torch.autograd.grad(loss, [t_pts] + [x for W, b in t_layers for x in (W, b)])]
+    if _one_hidden(dims):
+        routes.append(taylor_mlp.taylor_mlp_1h_backward_reference(
+            torch.tensor(pts), _torch_layers(layers), order, actv, [torch.tensor(c) for c in cts]))
+    for grads in routes:
+        _assert_close(grads[0], d_pts)
+        for g, w in zip(grads[1:], d_flat, strict=True):
+            _assert_close(g, w)
 
 
-def test_autograd_function_backward_is_the_twin(monkeypatch):
+@pytest.mark.parametrize('dims,route', [((2, 16, 16, 1), 'twin'), ((2, 16, 3), 'closed form')])
+def test_autograd_function_backward_is_the_twin(monkeypatch, dims, route):
     """``_TaylorMLPFn`` with the kernel launch stood in for by the twin: its
     rematerialized backward must give the twin's own autograd gradients,
-    with ``None`` where an input needs none."""
+    with ``None`` where an input needs none. A net of two hidden layers
+    differentiates the twin; one hidden layer takes the closed form (on CPU
+    tensors the plain version stands in for ``taylor_mlp_1h_bwd``)."""
     monkeypatch.setattr(taylor_mlp, '_launch', lambda p, layers, order, actv: tuple(
         o.detach().contiguous() for o in fcnn_taylor_reference(p, layers, order, actv)))
-    pts, layers = _inputs((2, 16, 16, 1), n=20)
-    cts = [torch.tensor(c) for c in _cotangents([np.zeros((20, 1)), np.zeros((2, 20, 1)),
-                                                  np.zeros((2, 20, 1))])]
+    closed = []
+    plain = taylor_mlp.taylor_mlp_1h_backward_reference
+    monkeypatch.setattr(taylor_mlp, 'taylor_mlp_1h_backward_reference', lambda *a: closed.append(1) or plain(*a))
+    pts, layers = _inputs(dims, n=20)
+    cts = [torch.tensor(c) for c in _cotangents([np.zeros((20, dims[-1])), np.zeros((2, 20, dims[-1])),
+                                                  np.zeros((2, 20, dims[-1]))])]
 
     def grads(fn, pts_grad):
         t_pts = torch.tensor(pts, requires_grad=pts_grad)
@@ -158,8 +171,40 @@ def test_autograd_function_backward_is_the_twin(monkeypatch):
     via_fn = lambda p, ls: taylor_mlp._TaylorMLPFn.apply(p, 2, 'tanh', *[x for W, b in ls for x in (W, b)])
     via_twin = lambda p, ls: fcnn_taylor_reference(p, ls, 2, 'tanh')
     for pts_grad in (True, False):
-        for g, w in zip(grads(via_fn, pts_grad), grads(via_twin, pts_grad)):
+        for g, w in zip(grads(via_fn, pts_grad), grads(via_twin, pts_grad), strict=True):
             assert torch.allclose(g, w, rtol=1e-13, atol=1e-15)
+    assert len(closed) == (2 if route == 'closed form' else 0)
+    assert taylor_mlp.TWIN_BACKWARDS == {}  # only one-hidden-layer nets past the width rule count
+
+
+# (input width d, output width m): the closed form's cases; d = 9 is two direction chunks on the card
+CLOSED_FORM_WIDTHS = [(d, m) for d in (1, 2, 3, 9) for m in (1, 3, 128)]
+
+
+@pytest.mark.parametrize('order,absent', [(order, absent) for order in (1, 2) for absent in (None, 0, 1, 2)
+                                          if absent is None or absent <= order])
+@pytest.mark.parametrize('need_points', [True, False])
+@pytest.mark.parametrize('actv', ['tanh', 'sin'])
+@pytest.mark.parametrize('d,m', CLOSED_FORM_WIDTHS)
+def test_closed_form_backward_matches_twin_autograd(d, m, actv, order, need_points, absent):
+    """``taylor_mlp_1h_backward_reference`` (the ``taylor_mlp_1h_bwd``
+    kernel's plain version) against autograd over the twin in float64, with
+    the cotangent of output ``absent`` (c0, c1 or c2) left out (None)."""
+    pts, layers = _inputs((d, 11, m), n=17, seed=d + m)
+    outs = fcnn_taylor_reference(torch.tensor(pts), _torch_layers(layers), order, actv)
+    cts = [None if i == absent else torch.tensor(c) for i, c in enumerate(_cotangents(outs, seed=order))]
+    t_pts = torch.tensor(pts, requires_grad=need_points)
+    t_layers = _torch_layers(layers, requires_grad=True)
+    flat = [x for W, b in t_layers for x in (W, b)]
+    pairs = [(o, c) for o, c in zip(fcnn_taylor_reference(t_pts, t_layers, order, actv), cts) if c is not None]
+    wrt = ([t_pts] if need_points else []) + flat
+    want = torch.autograd.grad([o for o, _ in pairs], wrt, [c for _, c in pairs], allow_unused=True)
+    got = taylor_mlp.taylor_mlp_1h_backward_reference(torch.tensor(pts), _torch_layers(layers), order, actv, cts,
+                                                      need_points)
+    assert (got[0] is None) != need_points
+    for g, w in zip([x for x in got if x is not None], want, strict=True):
+        assert g.shape == (w if w is not None else g).shape
+        _assert_close(g, np.zeros(g.shape) if w is None else w.numpy())
 
 
 def test_unsupported_device_raises():
@@ -613,3 +658,141 @@ def test_wide_or_deep_nets_route_by_the_predicate(monkeypatch, dims):
     want = [torch.autograd.grad(g[:, i].sum(), leaf, retain_graph=True)[0][:, i] for i in range(dims[0])]
     for a, b in zip(got, want + [g[:, -1]], strict=True):
         _assert_close(a, b.detach(), rtol=1e-12)
+
+
+def _one_hidden(dims):
+    return len(dims) == 3 and dims[-1] <= 65535
+
+
+@pytest.mark.parametrize('esize', [4, 8])
+@pytest.mark.parametrize('dims,actv,order,n', [s for s in KERNEL_SHAPES if _one_hidden(s[0])]
+                         + [((2, 512, 1), 'tanh', 2, 262144), ((2, 64, 128), 'tanh', 2, 16384),
+                            ((2, 10, 20), 'tanh', 2, 8192), ((2, 256, 3), 'tanh', 2, 1024)])
+def test_backward_plan_covers_the_points_and_fits_a_block(dims, actv, order, n, esize):
+    """``_plan_bwd`` for a one-hidden-layer shape: None past ``_MAX_BWD_OUT``
+    outputs; else whole warps of at most 128 threads, an output tile of 1, 4
+    or 16 columns, unit tiles and output tiles that cover the widths and
+    fit the grid's y axis, spans that cover N with no block past its end, and a block's
+    static shared memory (the staged sub-tile and the warps' sums) under 48 KB."""
+    plan = taylor_mlp._plan_bwd(n, dims, order, esize, H100_SMS)
+    d, h, m = dims
+    if m > 128:
+        assert plan is None
+        return
+    dirs = min(d, 8)
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 128
+    assert plan.out_tile in (1, 4, 16) and (plan.out_tile >= m or plan.out_tile == 16)
+    assert plan.unit_tiles * plan.threads >= h > (plan.unit_tiles - 1) * plan.threads
+    assert plan.out_tiles * plan.out_tile >= m > (plan.out_tiles - 1) * plan.out_tile
+    assert plan.unit_tiles * plan.out_tiles <= 65535
+    assert plan.blocks * plan.span >= n > (plan.blocks - 1) * plan.span
+    assert plan.span ** 2 * 64 >= n * plan.out_tiles  # the sum pass's chain of slabs stays short
+    rec = dirs + plan.out_tile + order * dirs * plan.out_tile
+    assert plan.tile == taylor_mlp._bwd_tile(rec, esize) and (plan.span <= plan.tile or plan.span % plan.tile == 0)
+    assert esize * (plan.tile * rec + 4 * plan.tile * dirs) <= 48 * 1024
+
+
+def test_backward_plan_fills_the_card_at_the_flagship():
+    """2-512-1 at the benchmark's 262,144 points: 4 unit tiles of 128 units,
+    spans of whole 64-point sub-tiles, about 32 warps for each SM."""
+    plan = taylor_mlp._plan_bwd(262144, (2, 512, 1), 2, 4, H100_SMS)
+    assert (plan.threads, plan.unit_tiles, plan.out_tiles, plan.tile) == (128, 4, 1, 64)
+    warps = plan.blocks * plan.unit_tiles * plan.threads // 32
+    assert 24 * H100_SMS <= warps <= 36 * H100_SMS and plan.span % 64 == 0
+
+
+@pytest.mark.parametrize('dims,route', [
+    ((2, 512, 1), 'kernel'), ((2, 64, 128), 'kernel'), ((20, 64, 1), 'kernel'), ((3, 16, 129), 'twin'),
+    ((2, 16, 16, 1), 'twin'), ((2, 1), 'twin')])
+def test_backward_routes_by_shape_and_counts(monkeypatch, dims, route):
+    """One hidden layer of at most 128 outputs takes ``taylor_mlp_1h_bwd``
+    (its plain version on CPU tensors, no launch counted); wider outputs
+    and other depths take the twin, and ``TWIN_BACKWARDS`` counts the
+    one-hidden-layer ones by shape. The rule reads the widths alone."""
+    monkeypatch.setattr(taylor_mlp, '_launch', lambda p, layers, order, actv: tuple(
+        o.detach().contiguous() for o in fcnn_taylor_reference(p, layers, order, actv)))
+    assert taylor_mlp._bwd_kernel_takes(dims) == (route == 'kernel')
+    assert (taylor_mlp._plan_bwd(64, dims, 2, 4, H100_SMS) is not None) == (route == 'kernel')
+    taylor_mlp.reset_launches()
+    launches = dict(taylor_mlp.LAUNCHES)
+    pts, layers = _inputs(dims, n=9)
+    t_layers = _torch_layers(layers, requires_grad=True)
+    outs = taylor_mlp._TaylorMLPFn.apply(torch.tensor(pts), 2, 'tanh', *[x for W, b in t_layers for x in (W, b)])
+    torch.autograd.grad(sum(o.sum() for o in outs), [W for W, _ in t_layers])
+    assert taylor_mlp.LAUNCHES == launches
+    one_hidden_twin = route == 'twin' and len(dims) == 3
+    assert taylor_mlp.TWIN_BACKWARDS == ({(dims, 2): 1} if one_hidden_twin else {})
+    taylor_mlp.reset_launches()
+    assert taylor_mlp.TWIN_BACKWARDS == {}
+
+
+# one-hidden-layer shapes whose backward the card checks: the 1h rows of KERNEL_SHAPES
+# and the flagship at the benchmark's batch (N, float64 too)
+BWD_SHAPES = [s for s in KERNEL_SHAPES if _one_hidden(s[0]) and s[0][-1] <= 128] + [((2, 512, 1), 'tanh', 2, 262144)]
+
+
+def _cuda_cotangents(outs, seed):
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    return [torch.randn(o.shape, generator=g, dtype=o.dtype, device='cuda') for o in outs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,rtol', [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+@pytest.mark.parametrize('dims,actv,order,n', BWD_SHAPES)
+def test_cuda_backward_kernel_matches_closed_form(dims, actv, order, n, dtype, rtol):
+    """``taylor_mlp_1h_bwd`` against its plain version on the card, every
+    gradient relative to its largest entry; the points' gradient where they
+    need one (every other shape), each cotangent left out in turn (c2's
+    where there is one, c0's at N = 37, c1's at N = 1). float32: the
+    kernel sums in another order than cuBLAS."""
+    p, ls = _cuda_inputs(dims, n, dtype)
+    need_points = BWD_SHAPES.index((dims, actv, order, n)) % 2 == 0
+    outs = fcnn_taylor_reference(p, ls, order, actv)
+    cts = _cuda_cotangents(outs, seed=n)
+    absent = {37: 0, 1: 1}.get(n, 2)
+    if absent <= order:
+        cts[absent] = None
+    launches = dict(taylor_mlp.LAUNCHES)
+    got = taylor_mlp._launch_bwd(p, ls, order, actv, cts, need_points)
+    torch.cuda.synchronize()
+    assert taylor_mlp.LAUNCHES == {**launches, 'taylor_mlp_1h_bwd': launches['taylor_mlp_1h_bwd'] + 1}
+    want = taylor_mlp.taylor_mlp_1h_backward_reference(p, ls, order, actv, cts, need_points)
+    assert (got[0] is None) != need_points
+    for g, w in zip(got, want, strict=True):
+        if w is not None:
+            _assert_close(g, w.cpu().numpy(), rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('dims,actv,order,n', [((2, 512, 1), 'tanh', 2, 262144), ((2, 50, 3), 'sin', 2, 37),
+                                               ((20, 64, 1), 'tanh', 2, 333), ((2, 64, 128), 'tanh', 2, 16384)])
+def test_cuda_backward_kernel_is_deterministic(dims, actv, order, n, dtype):
+    """No atomics: partial sums per block and a fixed-order sum pass, so two
+    launches on the same inputs give bitwise-equal gradients."""
+    p, ls = _cuda_inputs(dims, n, dtype)
+    cts = _cuda_cotangents(fcnn_taylor_reference(p, ls, order, actv), seed=5)
+    first = taylor_mlp._launch_bwd(p, ls, order, actv, cts, True)
+    second = taylor_mlp._launch_bwd(p, ls, order, actv, cts, True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second, strict=True):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_flagship_backward_launches_the_kernel():
+    """The autograd function at the flagship's shape on the card: one
+    ``taylor_mlp_1h_bwd`` launch per backward, no twin, and the twin's
+    gradients (float64, 1e-10)."""
+    p, ls = _cuda_inputs((2, 512, 1), 4096, torch.float64)
+    leaves = [t.clone().requires_grad_() for W, b in ls for t in (W, b)]
+    taylor_mlp.reset_launches()
+    outs = fcnn_taylor(p, list(zip(leaves[0::2], leaves[1::2])), 2)
+    cts = _cuda_cotangents(outs, seed=9)
+    got = torch.autograd.grad(outs, leaves, cts)
+    torch.cuda.synchronize()
+    assert taylor_mlp.LAUNCHES['taylor_mlp_1h_bwd'] == 1 and taylor_mlp.TWIN_BACKWARDS == {}
+    twin_leaves = [t.detach().clone().requires_grad_() for t in leaves]
+    twin = fcnn_taylor_reference(p, list(zip(twin_leaves[0::2], twin_leaves[1::2])), 2)
+    for g, w in zip(got, torch.autograd.grad(twin, twin_leaves, cts), strict=True):
+        _assert_close(g, w.cpu().numpy(), rtol=1e-10)
