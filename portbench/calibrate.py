@@ -74,13 +74,12 @@ def main(argv=None):
             got = compare.train_readings(cell, ev['p0'], ev['batches'], ev['rows'], program, ref)
             # each step's loss gap beside the compared largest, to see which step sets it
             got['loss_gap_by_step'] = [abs(a - b) / abs(b) for a, b in zip(program[0], ref[0])]
-            # and each leaf's, to see which leaf sets the worst
-            got['grad_gap_by_leaf'] = compare.leaf_gaps(program[1] or [None] * len(ref[1]), ref[1])
-            p0 = [p.double() for p in ev['p0']]
+            # and each leaf's change (each leaf's gradient gap is among the readings, grad_gap.<leaf>)
+            p0 =[ev['p0'][i].double() for i in cell.trainable]
             final = program[2] or [None] * len(p0)
             got['change_gap_by_leaf'] = compare.leaf_gaps(
-                [None if f is None else f.double() - p for f, p in zip(final, p0)],
-                [f.double() - p for f, p in zip(ref[2], p0)])
+                [None if f is None else f.double() - p for f, p in zip(final, p0, strict=True)],
+                [f.double() - p for f, p in zip(ref[2], p0, strict=True)])
             return got
         points = {i: harness.request_points(cell, ev['seed'], i, device) for i in ev['answers']}
         refs = {i: compare.reference_eval(cell, ev['params'], pts) for i, pts in points.items()}

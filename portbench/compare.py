@@ -4,7 +4,11 @@ against the plain reference (``reference/``) in float64 on the same inputs.
 Training: the first ``check_steps`` steps of ``fit``, each step's loss, the
 first gradient as Adam got it (its first moment after one step over
 1 - beta1), and the parameters' change after the last step, the last two by
-the worst leaf's gap of norms. Leaves whose reference gradient is under
+the worst trainable leaf's gap of norms (frozen leaves go to both sides and
+are not compared); each trainable leaf's gradient gap is read besides, as
+``grad_gap.<leaf>``, for a cell whose limits name it: where the program's
+worst leaf and the control's are not the same leaf, the worst leaf's gap
+cannot tell them apart. Leaves whose reference gradient is under
 ``STILL_LEAF`` of the median leaf's move by round-off alone, so their change
 is left out. The batches themselves are judged by the mix's own law
 (``laws/<class>.<method>.py``), not by the program's generator: points
@@ -31,7 +35,10 @@ def _norm(t):
 def leaf_gaps(program, reference):
     """Each leaf's gap between the program's norm and the reference's,
     against the larger of that leaf's reference norm and the median leaf's.
-    A leaf the program lacks (``None``) has norm 0."""
+    A leaf the program lacks (``None``) has norm 0; lists of unequal length
+    raise, since no pairing of them is sound."""
+    if len(program) != len(reference):
+        raise ValueError(f"the program has {len(program)} leaves, the reference {len(reference)}")
     ref = [_norm(r) for r in reference]
     med = statistics.median(ref)
     return [abs((0.0 if p is None else _norm(p)) - r) / max(r, med, 1e-300) for p, r in zip(program, ref)]
@@ -45,11 +52,13 @@ def norm_gap(program, reference, keep=None):
 
 def reference_train(cell, p0, batches, dtype=torch.float64, tf32=False):
     """``(losses, first gradient, final parameters)`` of the reference's
-    steps from ``p0`` over ``batches``, in ``dtype`` (TF32 products if ``tf32``)."""
+    steps from ``p0`` (every leaf) over ``batches``, in ``dtype`` (TF32
+    products if ``tf32``); the gradient and parameters of the trainable leaves."""
     with plain.matmul_precision(tf32):
-        return plain.train(cell.problem, cell.cfg, [p.to(dtype) for p in p0],
-                           [[c.to(dtype).reshape(-1) for c in cols] for cols in batches],
-                           cell.cfg['reference_block_rows']['train'])
+        losses, grads, final = plain.train(cell.problem, cell.cfg, [p.to(dtype) for p in p0],
+                                           [[c.to(dtype).reshape(-1) for c in cols] for cols in batches],
+                                           cell.cfg['reference_block_rows']['train'], cell.trainable)
+    return losses, grads, [final[i] for i in cell.trainable]
 
 
 def leaves(node):
@@ -86,24 +95,27 @@ def batch_readings(root, generator, batches):
 
 
 def train_readings(cell, p0, batches, rows, program, ref):
-    """The numbers compared for a training cell. ``program`` and ``ref`` are
-    ``(losses, first gradient, final parameters)``; the program's gradient
-    and final parameters may be ``None`` where it made none."""
+    """The numbers compared for a training cell. ``p0`` is every leaf;
+    ``program`` and ``ref`` are ``(losses, first gradient, final
+    parameters)`` of the trainable leaves; the program's gradient and final
+    parameters may be ``None`` where it made none."""
     steps = cell.traffic['check_steps']
     losses, grads, final = program
     ref_losses, ref_grads, ref_final = ref
     missing = abs(len(batches) - steps) + abs(len(losses) - steps)
     med = statistics.median(_norm(g) for g in ref_grads)
     moving = [i for i, g in enumerate(ref_grads) if _norm(g) >= STILL_LEAF * med]
+    p0 = [p0[i].double() for i in cell.trainable]
     final = final if final is not None else [None] * len(p0)
-    p0 = [p.double() for p in p0]
+    grad_gaps = leaf_gaps(grads or [None] * len(p0), ref_grads)
     return {
         'batch_rows': float(sum(abs(cols[0].numel() - rows) for cols in batches) + rows * missing),
         **batch_readings(cell.root, cell.traffic['generator'], batches),
         'loss_gap': max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)) if not missing else math.inf,
-        'grad_gap': norm_gap(grads or [None] * len(p0), ref_grads),
-        'change_gap': norm_gap([None if f is None else f.double() - p for f, p in zip(final, p0)],
-                               [f.double() - p for f, p in zip(ref_final, p0)], moving),
+        'grad_gap': max(grad_gaps),
+        'change_gap': norm_gap([None if f is None else f.double() - p for f, p in zip(final, p0, strict=True)],
+                               [f.double() - p for f, p in zip(ref_final, p0, strict=True)], moving),
+        **{f"grad_gap.{cell.leaves[i]['name']}": g for i, g in zip(cell.trainable, grad_gaps, strict=True)},
     }
 
 
@@ -132,8 +144,9 @@ def eval_readings(cell, answers, refs):
 
 
 def judge(readings, limits):
-    """Whether every reading is within its limit (a missing reading or
-    limit fails; NaN fails), and each reading beside its limit."""
+    """Whether every number that ``limits`` names is within its limit (one
+    that was not read fails; NaN fails), and each beside its limit; a
+    reading that ``limits`` does not name is not compared."""
     if not limits:
         return False, {name: {'value': v, 'limit': None} for name, v in readings.items()}
     checks = {name: {'value': readings.get(name, math.inf), 'limit': limit} for name, limit in limits.items()}

@@ -2,12 +2,22 @@
 
 ``BENCHMARK.json`` names the cells; everything else is found by name:
 
-- ``configs/<config>.json``: the configuration's sizes, as run;
+- ``configs/<config>.json``: the configuration's sizes, as run. An FCNN's
+  are ``n_input_units``, ``hidden_units`` and ``n_output_units``; any other
+  net declares its ``leaves``, an ordered list of ``{"name", "shape",
+  "init", "trainable"}`` (:func:`make_params`), and names its forward count
+  by ``net`` (``cost.config_forward_cost``; ``"fcnn"`` if absent);
 - ``configs/<config>.py``: ``build(cfg, layers, train_generator, rng, device,
   dtype)`` -> ``{'solver', 'net', 'callbacks'}``, the port's solver holding
-  the harness's weights;
+  the harness's weights: an FCNN's ``[(W, b), ...]``, or ``{name: leaf}`` in
+  the declared order. ``net.parameters()`` has to hold the trainable leaves
+  in that order (:func:`check_leaves`); frozen leaves go to the program as
+  it takes them (a buffer) and are never compared;
 - ``reference/<config>.py``: ``residuals(cfg, layers, x, y)``, the plain
-  reference of the equations (``reference/plain.py`` does the rest);
+  reference of the equations, and optionally ``unpack(cfg, params)``, which
+  turns the flat list of leaves into what ``residuals`` takes
+  (``reference/plain.py::as_layers``, the FCNN's pairs, if absent;
+  ``reference/plain.py`` does the rest);
 - ``traffic/<mix>.json``: a training feed or a closed loop of requests
   (``traffic.py``);
 - ``metrics/<metric>.py``: ``MOVES`` and ``read(slice)`` of a per-layer
@@ -126,30 +136,108 @@ class Cell:
 
     @property
     def dims(self):
+        """An FCNN's widths (a configuration without ``leaves``)."""
         return [self.cfg['n_input_units'], *self.cfg['hidden_units'], self.cfg['n_output_units']]
+
+    @property
+    def leaves(self):
+        """The configuration's leaves in order: ``cfg['leaves']``, or an
+        FCNN's ``(W (n_out, n_in), b)`` pairs, every one trainable and drawn
+        as ``nn.Linear`` draws it, U(-1/sqrt(n_in), 1/sqrt(n_in))."""
+        if 'leaves' in self.cfg:
+            return self.cfg['leaves']
+        dims = self.dims
+        return [{'name': f'layers.{i}.{k}', 'shape': shape, 'init': {'kind': 'uniform', 'fan_in': n}, 'trainable': True}
+                for i, (o, n) in enumerate(zip(dims[1:], dims[:-1])) for k, shape in (('W', [o, n]), ('b', [o]))]
+
+    @property
+    def trainable(self):
+        """The indices of the trainable leaves."""
+        return [i for i, leaf in enumerate(self.leaves) if leaf['trainable']]
 
     @property
     def dtype(self):
         return {'float32': torch.float32, 'float64': torch.float64}[self.cfg['dtype']]
 
 
-def make_layers(dims, seed, device, dtype):
-    """``[(W (n_out, n_in), b), ...]`` drawn as ``nn.Linear`` draws them,
-    U(-1/sqrt(n_in), 1/sqrt(n_in)), from one generator on ``device`` in one call."""
+INITS = ('uniform', 'normal', 'const')
+
+
+def make_params(cell, seed, device, dtype):
+    """The flat list of the configuration's leaves (:attr:`Cell.leaves`),
+    made from ``seed`` on ``device`` by one generator: one call for all the
+    uniform leaves and one for all the normal ones, each split among them in
+    the listed order. ``init`` is ``{"kind": "uniform", "bound": b}`` or
+    ``{"kind": "uniform", "fan_in": k}`` (U(-b, b), b = 1/sqrt(k) as
+    ``nn.Linear`` draws), ``{"kind": "normal", "mean": mu, "std": sigma}``,
+    or ``{"kind": "const", "value": c}``, which draws nothing. A normal leaf
+    may add ``"over_exp": "<leaf>"`` (and ``"axis"``, 0 if absent): it is
+    then its draw divided by exp of that 1-D leaf along ``axis``, so that a
+    weight-factorised layer W = diag(exp(s)) V starts from the drawn W, as
+    ``jaxpi``'s ``Dense`` with ``weight_fact`` draws its V and s."""
+    specs = cell.leaves
+    kinds = [leaf['init']['kind'] for leaf in specs]
+    unknown = sorted(set(kinds) - set(INITS))
+    if unknown:
+        raise ValueError(f"unknown init {unknown} in {cell.cfg['name']!r}; known: {INITS}")
+    sizes = [math.prod(leaf['shape']) for leaf in specs]
     g = torch.Generator(device=device)
     g.manual_seed(traffic.derive(seed, 'weights'))
-    shapes = list(zip(dims[1:], dims[:-1]))
-    u = torch.rand(sum(o * i + o for o, i in shapes), generator=g, device=device, dtype=dtype) * 2 - 1
-    layers, k = [], 0
-    for o, i in shapes:
-        bound = 1.0 / math.sqrt(i)
-        layers.append((u[k:k + o * i].view(o, i) * bound, u[k + o * i:k + o * i + o] * bound))
-        k += o * i + o
-    return layers
+    draws = {}
+    for kind, draw in (('uniform', torch.rand), ('normal', torch.randn)):
+        parts = [n for n, k in zip(sizes, kinds) if k == kind]
+        if parts:
+            draws[kind] = iter(draw(sum(parts), generator=g, device=device, dtype=dtype).split(parts))
+    params = []
+    for leaf, kind in zip(specs, kinds):
+        init, shape = leaf['init'], tuple(leaf['shape'])
+        if kind == 'uniform':
+            bound = init['bound'] if 'bound' in init else 1.0 / math.sqrt(init['fan_in'])
+            t = (next(draws[kind]) * 2 - 1) * bound
+        elif kind == 'normal':
+            t = next(draws[kind]) * init['std'] + init['mean']
+        else:
+            t = torch.full(shape, float(init['value']), device=device, dtype=dtype)
+        params.append(t.view(shape))
+    index = {leaf['name']: i for i, leaf in enumerate(specs)}
+    for i, leaf in enumerate(specs):
+        over = leaf['init'].get('over_exp')
+        if over is None:
+            continue
+        if over not in index or len(specs[index[over]]['shape']) != 1 or 'over_exp' in specs[index[over]]['init']:
+            raise ValueError(f"{leaf['name']!r} is divided by exp of {over!r}, which is no drawn 1-D leaf")
+        axis = leaf['init'].get('axis', 0)
+        shape = [1] * len(leaf['shape'])
+        shape[axis] = -1
+        params[i] = params[i] / params[index[over]].exp().view(shape)
+    return params
 
 
-def flat(layers):
-    return [t for W, b in layers for t in (W, b)]
+def build_weights(cell, params):
+    """What ``build`` takes of ``params``: an FCNN's ``[(W, b), ...]``, or
+    ``{name: leaf}`` in the declared order."""
+    if 'leaves' not in cell.cfg:
+        return list(zip(params[0::2], params[1::2]))
+    return {leaf['name']: p for leaf, p in zip(cell.leaves, params)}
+
+
+def check_leaves(cell, net, params):
+    """That ``net.parameters()`` holds the trainable leaves of ``params``,
+    in count, order, shape and value; a ``ValueError`` names the first
+    mismatch. The comparison reads only what the program was handed, so a
+    leaf left out, added or put in another's place cannot pass."""
+    want = [(cell.leaves[i]['name'], params[i]) for i in cell.trainable]
+    got = list(net.named_parameters())
+    for k, ((name, leaf), (held, p)) in enumerate(zip(want, got)):
+        if tuple(p.shape) != tuple(leaf.shape):
+            raise ValueError(f"{cell.name}: the net's parameter {k} ({held}) has shape {tuple(p.shape)}, "
+                             f"the trainable leaf {name!r} {tuple(leaf.shape)}")
+        if not torch.equal(p.detach(), leaf):
+            raise ValueError(f"{cell.name}: the net's parameter {k} ({held}) does not hold the trainable leaf {name!r}")
+    if len(got) != len(want):
+        first = (f"has no parameter for the trainable leaf {want[len(got)][0]!r}" if len(got) < len(want)
+                 else f"has a parameter {got[len(want)][0]} beyond the trainable leaves")
+        raise ValueError(f"{cell.name}: the net {first} ({len(got)} parameters, {len(want)} trainable leaves)")
 
 
 def note(t_start, msg):
@@ -249,13 +337,14 @@ class TrainRecorder:
 
 def run_train(cell, seed, seconds, trace, device, t_start):
     spec, cfg, dtype = cell.traffic, cell.cfg, cell.dtype
-    layers = make_layers(cell.dims, seed, device, dtype)
+    params = make_params(cell, seed, device, dtype)
     note(t_start, 'weights made on the device')
     rng = torch.Generator(device=device)
     rng.manual_seed(traffic.derive(seed, 'feed'))
     gen = traffic.collocation_generator(spec, device, dtype)
-    built = cell.builder.build(cfg, layers, gen, rng, device, dtype)
+    built = cell.builder.build(cfg, build_weights(cell, params), gen, rng, device, dtype)
     solver, net, callbacks = built['solver'], built['net'], list(built['callbacks'])
+    check_leaves(cell, net, params)
     note(t_start, 'solver built')
     recorder = TrainRecorder(net, spec['check_steps'])
     solver.fit(spec['check_steps'], callbacks=callbacks + [recorder], tqdm_file=None)
@@ -283,7 +372,7 @@ def run_train(cell, seed, seconds, trace, device, t_start):
     run['memory_peak_bytes'] = memory_peak(device)
     b1 = cfg['optimizer']['betas'][0]
     run['evidence'] = {
-        'p0': flat(layers), 'batches': recorder.batches, 'rows': gen.size,
+        'p0': params, 'batches': recorder.batches, 'rows': gen.size,
         'program': (solver.metrics_history['train_loss'][:spec['check_steps']],
                     [None if m is None else m.double() / (1 - b1) for m in recorder.moments], recorder.final)}
     del solver, net, built, callbacks, tick, recorder
@@ -297,12 +386,13 @@ def check_train(cell, ev):
 
 def run_eval(cell, seed, seconds, trace, device, t_start):
     spec, cfg, dtype = cell.traffic, cell.cfg, cell.dtype
-    layers = make_layers(cell.dims, seed, device, dtype)
+    params = make_params(cell, seed, device, dtype)
     note(t_start, 'weights made on the device')
     rng = torch.Generator(device=device)
     rng.manual_seed(traffic.derive(seed, 'feed'))
-    built = cell.builder.build(cfg, layers, None, rng, device, dtype)
+    built = cell.builder.build(cfg, build_weights(cell, params), None, rng, device, dtype)
     solver = built['solver']
+    check_leaves(cell, built['net'], params)
 
     def request(index):
         pts = request_points(cell, seed, index, device)
@@ -340,7 +430,7 @@ def run_eval(cell, seed, seconds, trace, device, t_start):
            'e2e': {'eval_points_per_s': stats.rate(window.steps * n, window.window_s),
                    'eval_ms_p95': 1e3 * stats.percentile(latencies, 95), 'setup_s': setup_s}}
     run['memory_peak_bytes'] = memory_peak(device)
-    run['evidence'] = {'seed': seed, 'params': flat(layers), 'answers': answers}
+    run['evidence'] = {'seed': seed, 'params': params, 'answers': answers}
     del solver, built, out, last, kept
     return run
 
@@ -366,9 +456,7 @@ def traced_slice(cell, run):
     spec = cell.traffic
     esize = torch.finfo(cell.dtype).bits // 8
     sl = devtrace.Slice(steps=spec['trace_steps'], lo=lo, hi=hi, kernels=kernels, backward_s=backward_s,
-                        forward_bound_s=cost.forward_bound_seconds(cell.dims, cell.cfg['activation'],
-                                                                    cell.cfg['taylor_order'], run['points_per_step'],
-                                                                    esize),
+                        forward_bound_s=cost.config_bound_seconds(cell.cfg, run['points_per_step'], esize),
                         forward_patterns=kernel_patterns(cell.root), host_ops=host_ops)
     metrics = {}
     for m in cell.per_layer():

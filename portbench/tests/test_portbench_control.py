@@ -1,6 +1,7 @@
 """The control, on the card: the plain reference computed in float32 with
 TF32 products, put in the program's place, fails the committed limits
 where the program passes them (at an eighth of each cell's points)."""
+import math
 import time
 
 import pytest
@@ -17,8 +18,9 @@ def test_the_control_fails_where_the_program_passes(name):
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card')
     full = load(name)
+    gen = full.traffic.get('generator', {})
     n = (full.traffic['points_per_request'] if full.traffic['kind'] == 'eval'
-         else full.traffic['generator'].get('product', [full.traffic['generator']])[0].get('size', 65536))
+         else math.prod(gen['grid']) if 'grid' in gen else gen.get('product', [gen])[0]['size'])
     cell = small(name, points=n // 8)
     device = torch.device('cuda', torch.cuda.current_device())
     run = harness.RUNNERS[cell.traffic['kind']](cell, 2 ** 31 + 3, 1.0, False, device, time.perf_counter())

@@ -38,7 +38,9 @@ def test_bound_is_products_on_tensor_cores_and_the_rest_on_cuda_cores(dims, n, w
     assert by == 'operations'
     assert t == pytest.approx(products / (495e12 / 3) + elementwise / 67e12)
     assert t * 1e3 == pytest.approx(want_ms, rel=1e-3)
-    assert cost.forward_bound_seconds(dims, 'tanh', 2, n, 4) == t
+    cfg = {'n_input_units': dims[0], 'hidden_units': dims[1:-1], 'n_output_units': dims[-1], 'activation': 'tanh',
+           'taylor_order': 2}
+    assert cost.config_bound_seconds(cfg, n, 4) == t
 
 
 def test_bytes_bound_a_wide_output():
@@ -47,6 +49,56 @@ def test_bytes_bound_a_wide_output():
     assert elementwise == 0 and products == (1 << 20) * 2 * 2 * 4096
     t, by = cost.bound_seconds(products, elementwise, nbytes, 4)
     assert by == 'bytes' and t == pytest.approx(nbytes / 3.35e12)
+
+
+def pirate_hand_count(n):
+    """PirateNet, d = 2, m = h = 8, 2 blocks, 3 outputs, tanh (1 + 4), order 2 (S = 5), per point."""
+    products = (2 * 2 * 4  # the embedding x B, B 2 x 4: 16
+                + 2 * (2 * 5 * 8 * 8)  # U and V: 1,280
+                + 2 * 3 * (2 * 5 * 8 * 8)  # W_1, W_2, W_3 of each block: 3,840
+                + 2 * 5 * 8 * 3)  # the output: 240; 5,376 in all
+    act = 5 + 5 * 2  # tanh's value and chain rule, and the tangent updates at order 2
+    elementwise = (4 * (2 + 2 * 2 + 3 * 2)  # cos and sin of 4 frequencies with their chain rule: 48
+                   + 2 * 8 * act  # U and V: 240
+                   + 5 * 8  # U - V on the five streams: 40
+                   + 2 * ((8 + 8 + 8) * act  # f, g and h: 360
+                          + 2 * 8 * ((1 + 3 * 2 + 5 * 2) + 5)  # two gate mixes, Leibniz and the sum: 352
+                          + 8 * 3 * 5))  # the residual mix: 120; 1,992 in all
+    params = 2 * 4 + 2 * (8 * 8 + 8 + 8) + 2 * (3 * (8 * 8 + 8 + 8) + 1) + (8 * 3 + 3 + 3)  # 680
+    return n * products, n * elementwise, 4 * (2 * n + params + 5 * 3 * n)
+
+
+@pytest.mark.parametrize('n', [1, 256, 65536])
+def test_pirate_forward_cost_matches_a_hand_count(n):
+    assert pirate_hand_count(1) == (5376, 1992, 4 * (2 + 680 + 15))
+    assert cost.pirate_forward_cost(2, 8, 8, 2, 3, 'tanh', 2, n, 4) == pirate_hand_count(n)
+
+
+def test_pirate_forward_cost_at_the_published_size_follows_its_formula():
+    # the paper's cavity net: d = 2, m = h = 256, 3 blocks, 3 outputs, order 2, 65,536 points
+    d, m, h, L, n_out, n = 2, 256, 256, 3, 3, 65536
+    s, unit = 1 + 2 * d, 5 + 5 * d
+    products = 2 * d * (m // 2) + 2 * s * (2 * m * h + L * (2 * m * h + h * h) + m * n_out)
+    elementwise = ((m // 2) * (2 + 2 * d + 3 * d) + (2 + 2 * L) * h * unit + L * m * unit + s * h
+                   + 2 * L * h * (1 + 3 * d + 5 * d + s) + 3 * L * s * m)
+    assert products == 7217152  # about 7.2 M a point
+    got = cost.pirate_forward_cost(d, m, h, L, n_out, 'tanh', 2, n, 4)
+    assert got[:2] == (n * products, n * elementwise)
+    t, by = cost.bound_seconds(*got, 4)
+    assert by == 'operations' and t * 1e3 == pytest.approx(2.955, rel=1e-3)  # about 2.9 ms a forward
+    cfg = {'net': 'pirate', 'n_input_units': d, 'fourier_emb': {'embed_dim': m, 'embed_scale': 1.0},
+           'hidden_dim': h, 'num_layers': L, 'n_output_units': n_out, 'activation': 'tanh', 'taylor_order': 2}
+    assert cost.config_forward_cost(cfg, n, 4) == got and cost.config_bound_seconds(cfg, n, 4) == t
+    # order 1: S = 3, no second-order terms
+    s1, unit1 = 1 + d, 5 + d
+    e1 = ((m // 2) * (2 + 2 * d) + (2 + 2 * L) * h * unit1 + L * m * unit1 + s1 * h
+          + 2 * L * h * (1 + 3 * d + s1) + 3 * L * s1 * m)
+    assert cost.pirate_forward_cost(d, m, h, L, n_out, 'tanh', 1, 1, 4)[1] == e1
+
+
+def test_a_net_without_a_count_raises():
+    with pytest.raises(ValueError, match='no forward count'):
+        cost.config_forward_cost({'net': 'siren', 'activation': 'sin', 'taylor_order': 2}, 1, 4)
 
 
 def test_peaks_are_the_published_h100_sxm_figures():

@@ -46,13 +46,13 @@ def test_one_adam_step_matches_the_reference_leaf_by_leaf(config):
 @pytest.mark.parametrize('config', CONFIGS)
 def test_residuals_match_the_reference(config):
     cell = cell_of(config, 'train')
-    layers = harness.make_layers(cell.dims, 5, 'cpu', torch.float64)
-    built = cell.builder.build(cell.cfg, layers, None, torch.Generator().manual_seed(5), torch.device('cpu'),
-                               torch.float64)
+    params = harness.make_params(cell, 5, 'cpu', torch.float64)
+    built = cell.builder.build(cell.cfg, harness.build_weights(cell, params), None, torch.Generator().manual_seed(5),
+                               torch.device('cpu'), torch.float64)
     pts = torch.rand(2, 300, generator=torch.Generator().manual_seed(6), dtype=torch.float64)
     got = built['solver'].get_residuals(*pts, best=False)
     got = got if isinstance(got, list) else [got]
-    want = compare.reference_eval(cell, harness.flat(layers), pts)
+    want = compare.reference_eval(cell, params, pts)
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert (g - w).abs().max() <= 1e-10 * w.abs().max()
